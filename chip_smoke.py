@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one CUDA card and check it.
+"""Drive the PyTorch port's main paths once on one CUDA card and check them.
 
 Run from the root of a checkout on a machine with an H100 (sm_90):
 
@@ -8,25 +8,43 @@ Run from the root of a checkout on a machine with an H100 (sm_90):
 Phases, one result line each (with the elapsed seconds):
 
 1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build: ``nvcc`` compiles ``deepsphere_tpu_torch/csrc/*.cu`` (ptxas
-   register / spill lines are printed);
-3. kernels against their plain PyTorch versions on identical CUDA inputs,
-   at the strip and conv shapes of the quick_start convs 1-3 (batch 16) and
-   of the headline conv: the strip gather must match exactly, the raw
-   fused conv and the corrected conv to max|d| <= 2e-5 * max|y_plain| (both
-   float32 without TF32; only the order of the sums differs);
+2. build: one ``nvcc`` per ``deepsphere_tpu_torch/csrc/*.cu``, all at once
+   (ptxas register / spill lines are printed);
+3. kernels against their plain PyTorch versions on identical CUDA inputs
+   (garbage in every halo lane), at the shapes of the quick_start convs 1-3
+   (batch 16, K=10, h=9) and of the headline conv (nside 1024, batch 4,
+   Fin=Fout=4, K=5): the strip gather (K4) exactly; the raw forward conv
+   (K1) and the corrected conv to 2e-5 of the plain max; the raw backward
+   kernels K2 (dx to 2e-5, dW to 1e-4) and K3 (dW to 1e-4: each entry sums
+   a whole map of products, in another order), each dW bitwise-equal across
+   two calls; CUDA-event times beside the plain times, the bound and, for
+   K4, the one PyTorch call that computes the same gather;
 4. serving: the quick_start classifier at nside 64, full width, random
    weights from a seed, answers 4 requests of 16 maps through
    ``model.predict`` on the card; each of the three cface convs must launch
-   both kernels once per forward, and the logits must match the same model
-   on the CPU (plain path) to max rel 1e-4;
-5. the headline conv (nside 1024, K=5 Chebyshev, Fin=Fout=4, batch 4) on the
-   kernels against the plain per-step path, both on the card.
+   K4 and K1 once per forward, and the logits must match the same model on
+   the CPU (plain path, one request) to max rel 1e-4;
+5. training: the same classifier (weights from another seed), batch 16:
+   one ``train_on_batch`` on each backward route (``config.fused_dw`` True:
+   K2; False: K1 on dy + K3), with the launches of each step counted; the
+   loss (1e-5), every gradient (1e-3) and the BN statistics (1e-5) held to
+   one float64 step of a CPU copy (batch norm makes the conv kernels'
+   gradients a cancellation that a float32 CPU step resolves only to
+   ~2e-3, so the card is not held to it; its error is printed beside the
+   card's); ``fit`` for 2 epochs
+   over 64 maps (every loss finite); ms per synchronized step after
+   warm-up on both routes; a ``torch.profiler`` window over 3 steps (device
+   ops, device-busy share, the kernels that take the most time);
+6. the headline conv (nside 1024, K=5 Chebyshev, Fin=Fout=4, batch 4) on
+   the kernels against the plain per-step path, both on the card: forward,
+   then forward + backward with a fixed random cotangent on both routes
+   (dx to 2e-5, dW to 1e-4).
 
-It then prints the card line, one JSON line with every kernel's launches,
-error and times, and finally ``{"ok": true, "device": {...}}``.  Any
-failure raises: the script exits non-zero and prints no result line.  It
-needs one card, never falls back to the CPU, and imports no JAX.
+It then prints the card line, one JSON line with every kernel's launches on
+the training path, error, times and bound, and finally
+``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
+non-zero and prints no result line.  It needs one card, never falls back to
+the CPU, and imports no JAX.
 """
 
 import copy
@@ -40,6 +58,11 @@ import numpy as np
 import torch
 
 TOL = 2e-5  # max|kernel - plain| / max|plain|, float32 sums in another order
+DW_TOL = 1e-4  # the same for a dW: each entry sums a whole map of products
+GRAD_TOL = 1e-3  # a train step's gradients against float64, of each max
+BN_TOL = 1e-5  # its BN statistics against float64
+HBM = 3.35e12  # H100 SXM bytes/s
+FP32 = 67e12  # H100 SXM float32 FLOP/s outside the tensor cores
 T0 = time.perf_counter()
 
 
@@ -76,23 +99,52 @@ def card_line():
     return res.stdout.strip().splitlines()[0]
 
 
+def bound(nbytes, flops):
+    """(ms, "bytes" | "operations"): the least time of the work on the card,
+    the larger of its bytes over HBM and its float32 operations over the
+    non-tensor-core peak."""
+    tb, tf = nbytes / HBM * 1e3, flops / FP32 * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def tile_work(st, K, C):
+    """Bytes of C channels' halo ring and of the weight planes the
+    recursion needs, and its operations (taps, Chebyshev combine)."""
+    n, h, r = st.nside, st.n_steps, st.radius
+    nplanes = len(st.offsets)
+    halo = C * 12 * ((n + 2 * h) ** 2 - n * n) * 4
+    planes = nplanes * 12 * (n + 2 * h - 2 * r) ** 2 * 4
+    side = [n + 2 * (h - r * k) for k in range(1, K)]
+    laps = C * 12 * sum(s * s for s in side) * nplanes * 2
+    cheby = C * 12 * sum(s * s for s in side[1:]) * 2
+    return halo + planes, laps + cheby
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script runs only on a CUDA card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import deepsphere_tpu_torch as dt
+    from deepsphere_tpu_torch import config
     from deepsphere_tpu_torch.graph import build_sphere_graph
+    from deepsphere_tpu_torch.interop import export_jax_variables
     from deepsphere_tpu_torch.nn import healpy_layers as hp_nn
     from deepsphere_tpu_torch.ops import _cuda
     from deepsphere_tpu_torch.ops import fused_stencil as fs
     from deepsphere_tpu_torch.ops.stencil import (
         as_tensors,
         cface_embed,
+        cface_extract,
         stencil_graph_conv,
         stencil_tables,
     )
-    from deepsphere_tpu_torch.ops.strips import build_strips, strip_arrays
+    from deepsphere_tpu_torch.ops.strips import (
+        build_strips,
+        strip_arrays,
+        strip_index_map,
+    )
+    from deepsphere_tpu_torch.train.losses import resolve_loss
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -113,33 +165,62 @@ def main():
         print("    " + ln)
 
     rng = np.random.RandomState(1234)
-    results = {"strips": [], "stencil_conv": []}
+    # kernel -> rows (label, max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    # library_ms)
+    results = {"strips": [], "stencil_conv": [], "dxdw": [], "grad": []}
 
     def conv_case(label, st, B, Fin, Fout, K):
-        """Phase-3 checks and times at one conv shape."""
+        """Phase-3 checks and times of the four kernels at one conv shape."""
         n, h = st.nside, st.n_steps
-        _, P_l = fs.cfp_geometry(n, h)
+        R, P_l = fs.cfp_geometry(n, h)
         tables = as_tensors(stencil_tables(st), dev)
-        # garbage in the halo lanes too: neither path may read them
+        offs = tables["offsets"]
+        mask = tables.get("corr_mask")
+        # garbage in the halo lanes too: no path may read them
         xc = torch.from_numpy(
             rng.normal(size=(B * Fin, 12, n, P_l)).astype(np.float32)).to(dev)
+        dy = torch.from_numpy(
+            rng.normal(size=(B * Fout, 12, n, P_l)).astype(np.float32)).to(dev)
         kernel = torch.from_numpy(
             (rng.normal(size=(Fin * K, Fout)) / np.sqrt(Fin * K)).astype(np.float32)
         ).to(dev)
         wk3 = kernel.reshape(Fin, K, Fout).permute(1, 0, 2).contiguous()
+        wk3t = kernel.reshape(Fin, K, Fout).permute(1, 2, 0).contiguous()
         idx = tables["strip_idx"]
+        w = tables["weights"]
+        # bytes of C channels' interior lanes: outputs count only these, as
+        # nothing downstream reads the zeroed pad lanes
+        interior = lambda C: C * 12 * n * n * 4
+        cells = 2 * K * Fin * Fout * B * 12 * n * n  # one contraction
 
+        # K4: strips
         got = build_strips(st, xc, idx)
         want = strip_arrays(st, xc)
-        for nm, g, w in zip(("top", "bot", "ls"), got, want):
-            if not torch.equal(g, w):
+        for nm, g, wnt in zip(("top", "bot", "ls"), got, want):
+            if not torch.equal(g, wnt):
                 raise AssertionError(f"{label}: strip {nm} differs from the "
                                      "plain version")
         ms_k4 = cuda_ms(lambda: build_strips(st, xc, idx))
         ms_k4p = cuda_ms(lambda: strip_arrays(st, xc), iters=3, warmup=1)
+        # the same gather as one PyTorch call: index_select along the flat
+        # map with -1 pointing at an appended zero column
+        slab = 12 * n * P_l
+        xz = torch.cat([xc.reshape(B * Fin, slab),
+                        xc.new_zeros((B * Fin, 1))], dim=1)
+        sel = torch.where(idx >= 0, idx, slab).long()
+        lib = torch.index_select(xz, 1, sel)
+        if not torch.equal(lib, torch.cat([g.reshape(B * Fin, -1) for g in got], 1)):
+            raise AssertionError(f"{label}: index_select strips differ")
+        ms_k4l = cuda_ms(lambda: torch.index_select(xz, 1, sel))
+        src = np.unique(strip_index_map(st))
+        k4_bytes = (int((src >= 0).sum()) * 4 * B * Fin
+                    + B * Fin * (2 * 12 * R * P_l + 12 * n * 128) * 4)
+        results["strips"].append((label, 0.0, ms_k4, ms_k4p,
+                                  *bound(k4_bytes, 0), ms_k4l))
 
-        args = (st, "cheby", K, xc, tables["weights"], want, wk3, B)
-        y_k = fs.run_stencil_kernel(*args, offsets=tables["offsets"])
+        # K1: the raw conv, then the corrected conv
+        args = (st, "cheby", K, xc, w, want, wk3, B)
+        y_k = fs.run_stencil_kernel(*args, offsets=offs)
         y_p = fs.run_stencil_plain(*args)
         torch.cuda.synchronize()
         inner = slice(h, h + n)
@@ -150,21 +231,76 @@ def main():
             raise AssertionError(f"{label}: raw conv rel err {raw:.3e} "
                                  f"(tol {TOL}), pad lanes zero: {pad_zero}")
         conv = (st, tables, xc, kernel, K, "cheby", B)
-        yc_k = fs.fused_stencil_conv_cfp(*conv)
-        yc_p = fs.fused_stencil_conv_cfp_plain(*conv)
+        with torch.no_grad():
+            yc_k = fs.fused_stencil_conv_cfp(*conv)
+            yc_p = fs.fused_stencil_conv_cfp_plain(*conv)
         corr = rel_err(yc_k[..., inner], yc_p[..., inner])
         if not corr <= TOL:
             raise AssertionError(f"{label}: corrected conv rel err {corr:.3e}")
-        ms_k1 = cuda_ms(lambda: fs.run_stencil_kernel(
-            *args, offsets=tables["offsets"]))
+        ms_k1 = cuda_ms(lambda: fs.run_stencil_kernel(*args, offsets=offs))
         ms_k1p = cuda_ms(lambda: fs.run_stencil_plain(*args), iters=3,
                          warmup=1)
         abs_k1 = (y_k[..., inner] - y_p[..., inner]).abs().max().item()
-        say("kernels", f"{label}: strips exact {ms_k4:.4f} ms (plain "
-            f"{ms_k4p:.4f}) | raw conv rel {raw:.2e} abs {abs_k1:.2e} "
-            f"{ms_k1:.4f} ms (plain {ms_k1p:.4f}) | corrected rel {corr:.2e}")
-        results["strips"].append((label, 0.0, ms_k4, ms_k4p))
-        results["stencil_conv"].append((label, abs_k1, ms_k1, ms_k1p))
+        tb, tf = tile_work(st, K, B * Fin)
+        k1 = bound(interior(B * Fin) + tb + wk3.numel() * 4
+                   + interior(B * Fout), tf + cells)
+        results["stencil_conv"].append((label, abs_k1, ms_k1, ms_k1p, *k1,
+                                        None))
+
+        # K2: dx and dW in one pass over dy
+        dy_s = strip_arrays(st, dy)
+        a2 = (st, "cheby", K, dy, w, dy_s, wk3t, xc, mask, B)
+        dx_k, dw_k = fs.run_dxdw_kernel(*a2, offsets=offs)
+        _, dw_k2 = fs.run_dxdw_kernel(*a2, offsets=offs)
+        dx_p, dw_p = fs.run_dxdw_plain(*a2)
+        torch.cuda.synchronize()
+        e_dx = rel_err(dx_k[..., inner], dx_p[..., inner])
+        e_dw2 = rel_err(dw_k, dw_p)
+        pad_zero = (dx_k[..., :h].abs().max().item() == 0.0
+                    and dx_k[..., h + n:].abs().max().item() == 0.0)
+        if not (e_dx <= TOL and e_dw2 <= DW_TOL and pad_zero
+                and torch.equal(dw_k, dw_k2)):
+            raise AssertionError(
+                f"{label}: K2 dx rel {e_dx:.3e} dW rel {e_dw2:.3e} pad zero "
+                f"{pad_zero} dW repeatable {torch.equal(dw_k, dw_k2)}")
+        ms_k2 = cuda_ms(lambda: fs.run_dxdw_kernel(*a2, offsets=offs))
+        ms_k2p = cuda_ms(lambda: fs.run_dxdw_plain(*a2), iters=3, warmup=1)
+        abs_k2 = max((dx_k[..., inner] - dx_p[..., inner]).abs().max().item(),
+                     (dw_k - dw_p).abs().max().item())
+        tb, tf = tile_work(st, K, B * Fout)
+        k2 = bound(interior(B * Fout) + tb + wk3t.numel() * 4
+                   + interior(B * Fin) + 12 * n * n * 4 + interior(B * Fin)
+                   + dw_k.numel() * 4,
+                   tf + 2 * cells + B * Fin * 12 * n * n)
+        results["dxdw"].append((label, abs_k2, ms_k2, ms_k2p, *k2, None))
+
+        # K3: dW from the recursion on x
+        a3 = (st, "cheby", K, xc, w, want, dy, B)
+        g_k = fs.run_grad_kernel(*a3, offsets=offs)
+        g_k2 = fs.run_grad_kernel(*a3, offsets=offs)
+        g_p = fs.run_grad_plain(*a3)
+        torch.cuda.synchronize()
+        e_dw3 = rel_err(g_k, g_p)
+        if not (e_dw3 <= DW_TOL and torch.equal(g_k, g_k2)):
+            raise AssertionError(f"{label}: K3 dW rel {e_dw3:.3e} repeatable "
+                                 f"{torch.equal(g_k, g_k2)}")
+        ms_k3 = cuda_ms(lambda: fs.run_grad_kernel(*a3, offsets=offs))
+        ms_k3p = cuda_ms(lambda: fs.run_grad_plain(*a3), iters=3, warmup=1)
+        tb, tf = tile_work(st, K, B * Fin)
+        k3 = bound(interior(B * Fin) + tb + interior(B * Fout)
+                   + g_k.numel() * 4, tf + cells)
+        results["grad"].append((label, (g_k - g_p).abs().max().item(), ms_k3,
+                                ms_k3p, *k3, None))
+
+        say("kernels", f"{label}: K4 strips exact {ms_k4:.4f} ms (plain "
+            f"{ms_k4p:.4f}, index_select {ms_k4l:.4f}, bound "
+            f"{results['strips'][-1][4]:.4f}) | K1 raw rel {raw:.2e} "
+            f"{ms_k1:.4f} ms (plain {ms_k1p:.4f}, bound {k1[0]:.4f} "
+            f"{k1[1]}) corrected rel {corr:.2e} | K2 dx rel {e_dx:.2e} dW rel "
+            f"{e_dw2:.2e} {ms_k2:.4f} ms (plain {ms_k2p:.4f}, bound "
+            f"{k2[0]:.4f} {k2[1]}) | K3 dW rel {e_dw3:.2e} {ms_k3:.4f} ms "
+            f"(plain {ms_k3p:.4f}, bound {k3[0]:.4f} {k3[1]}) | dW "
+            "bitwise-repeatable")
 
     # 3. kernels against their plain versions
     qs_convs = [(64, 1, 8), (32, 8, 16), (16, 16, 32)]  # (nside, Fin, Fout)
@@ -188,20 +324,24 @@ def main():
     # 4. serving: the quick_start classifier at nside 64
     nside = 64
     npix = 12 * nside * nside
-    layers = [
-        hp_nn.HealpyChebyshev(K=10, Fout=8, activation="relu", use_bn=True),
-        hp_nn.HealpyPool(p=1),
-        hp_nn.HealpyChebyshev(K=10, Fout=16, activation="relu", use_bn=True),
-        hp_nn.HealpyPool(p=1),
-        hp_nn.HealpyChebyshev(K=10, Fout=32, activation="relu", use_bn=True),
-        hp_nn.HealpyPool(p=1),
-        hp_nn.HealpyChebyshev(K=10, Fout=32, activation="relu"),
-        hp_nn.Flatten(),
-        hp_nn.Dense(4),
-    ]
+
+    def quick_start():
+        return [
+            hp_nn.HealpyChebyshev(K=10, Fout=8, activation="relu", use_bn=True),
+            hp_nn.HealpyPool(p=1),
+            hp_nn.HealpyChebyshev(K=10, Fout=16, activation="relu", use_bn=True),
+            hp_nn.HealpyPool(p=1),
+            hp_nn.HealpyChebyshev(K=10, Fout=32, activation="relu", use_bn=True),
+            hp_nn.HealpyPool(p=1),
+            hp_nn.HealpyChebyshev(K=10, Fout=32, activation="relu"),
+            hp_nn.Flatten(),
+            hp_nn.Dense(4),
+        ]
+
     t = time.perf_counter()
-    model = dt.HealpyGCNN(nside=nside, indices=np.arange(npix), layers=layers)
-    model.build((16, npix, 1), seed=7)
+    model = dt.HealpyGCNN(nside=nside, indices=np.arange(npix),
+                          layers=quick_start())
+    model.build((16, npix, 1), seed=7)  # on the card
     bn_rng = np.random.RandomState(8)
     cface_convs = []
     for key, layer in model.layers.items():
@@ -213,11 +353,12 @@ def main():
                 bn_rng.uniform(0.5, 2.0, size=F).astype(np.float32)))
         if getattr(layer, "layout", None) == "cface" and hasattr(layer, "graph"):
             cface_convs.append((key, layer._stencil()))
+    if next(model.parameters()).device.type != "cuda":
+        raise AssertionError("build did not place the model on the card")
     plan = [type(m).__name__ for m in model.layers.values()]
-    cpu_model = copy.deepcopy(model)
-    model.to(dev)
-    say("serving", f"model built in {time.perf_counter() - t:.2f} s; plan "
-        f"{plan}")
+    cpu_model = copy.deepcopy(model).to("cpu")
+    say("serving", f"model built on the card in {time.perf_counter() - t:.2f}"
+        f" s; plan {plan}")
     for key, st in cface_convs:
         rows = int(np.asarray(st.corr_out_face).shape[0])
         say("serving", f"{key}: nside {st.nside} h={st.n_steps}: correction "
@@ -230,16 +371,17 @@ def main():
     torch.cuda.synchronize()
     launches = dict(_cuda.launch_counts)
     n_fwd = 4
-    for k in ("strips", "stencil_conv"):
-        if launches[k] != 3 * n_fwd:
-            raise AssertionError(f"{k} launched {launches[k]} times in "
-                                 f"{n_fwd} forwards, expected {3 * n_fwd}")
+    want = {"strips": 3 * n_fwd, "stencil_conv": 3 * n_fwd, "dxdw": 0,
+            "grad": 0}
+    if launches != want:
+        raise AssertionError(f"serving launched {launches} in {n_fwd} "
+                             f"forwards, expected {want}")
     if logits.shape != (64, 4) or not np.all(np.isfinite(logits)):
         raise AssertionError(f"bad logits: shape {logits.shape}")
     t = time.perf_counter()
-    ref = cpu_model.predict(x, batch_size=16)
+    ref = cpu_model.predict(x[:16], batch_size=16)  # 1 request on the CPU
     cpu_s = time.perf_counter() - t
-    rel = float(np.abs(logits - ref).max() / np.abs(ref).max())
+    rel = float(np.abs(logits[:16] - ref).max() / np.abs(ref).max())
     if not rel <= 1e-4:
         raise AssertionError(f"card logits differ from the CPU by rel {rel:.3e}")
     xb = torch.from_numpy(x[:16]).to(dev)
@@ -247,11 +389,176 @@ def main():
     with torch.inference_mode():
         fwd_ms = cuda_ms(lambda: model(xb), iters=20, warmup=3)
     say("serving", f"4 requests x 16 maps: logits {logits.shape}, finite, "
-        f"launches {launches}; max rel vs CPU {rel:.2e} (CPU took "
-        f"{cpu_s:.1f} s); {fwd_ms:.3f} ms per forward of 16 maps "
+        f"launches {launches}; max rel vs CPU {rel:.2e} over 1 request (CPU "
+        f"took {cpu_s:.1f} s); {fwd_ms:.3f} ms per forward of 16 maps "
         f"({16e3 / fwd_ms:.1f} maps/s) on {card}")
+    del model, cpu_model
 
-    # 5. headline conv: kernels vs the plain per-step path, both on the card
+    # 5. training: the quick_start classifier at nside 64, batch 16
+    loss_name = "sparse_categorical_crossentropy_from_logits"
+    t = time.perf_counter()
+    model = dt.HealpyGCNN(nside=nside, indices=np.arange(npix),
+                          layers=quick_start())
+    model.build((16, npix, 1), seed=11)
+    init = copy.deepcopy(model)  # the starting point of every route
+    data = np.random.RandomState(12)
+    xt = data.normal(size=(64, npix, 1)).astype(np.float32)
+    yt = data.randint(0, 4, size=64)
+    say("train", f"model built in {time.perf_counter() - t:.2f} s")
+
+    def grads_of(m):
+        return export_jax_variables(m, grads=True)
+
+    def stats_of(m):
+        return export_jax_variables(m)["batch_stats"]
+
+    def tree_errs(got, want, path=""):
+        """{leaf path: max|got - want| / max|want|}."""
+        out = {}
+        for k, v in want.items():
+            if isinstance(v, dict):
+                out.update(tree_errs(got[k], v, f"{path}/{k}"))
+            else:
+                out[f"{path}/{k}"] = float(np.abs(got[k] - v).max()
+                                           / max(np.abs(v).max(), 1e-30))
+        return out
+
+    # the reference is a float64 copy on the CPU.  A conv followed by batch
+    # norm (no affine) gives the same loss for any scale of its kernel, so
+    # its gradient is orthogonal to the kernel: a cancellation, which
+    # float32 rounding in any order disturbs at ~1e-3 of its max.  The card
+    # is held to float64 at fixed limits; a float32 CPU step's distance
+    # from float64 is printed beside it, not used as a limit.
+    cpu32 = copy.deepcopy(model).to("cpu")
+    cpu64 = copy.deepcopy(model).to("cpu").double()
+    cpu32.compile(optimizer=1e-3, loss=loss_name, metrics=["accuracy"])
+    t = time.perf_counter()
+    cpu_logs = cpu32._trainer.train_on_batch(xt[:16], yt[:16])
+    cpu_s = time.perf_counter() - t
+    cpu64.train()
+    out64 = cpu64(torch.from_numpy(xt[:16].astype(np.float64)))
+    loss64 = resolve_loss(loss_name)(torch.from_numpy(yt[:16]), out64)
+    loss64.backward()
+    loss64 = float(loss64.detach())
+    g64, s64 = grads_of(cpu64), stats_of(cpu64)
+    g_cpu = tree_errs(grads_of(cpu32), g64)
+    s_cpu = tree_errs(stats_of(cpu32), s64)
+    del cpu32, cpu64, out64
+
+    def held(errs, tol):
+        """Leaves where the card is further from float64 than ``tol``."""
+        return {k: e for k, e in errs.items() if not e <= tol}
+
+    # the main path of this slice, counted from 0: one step on each route
+    route_want = {
+        True: {"strips": 6, "stencil_conv": 3, "dxdw": 3, "grad": 0},
+        # conv 1's input needs no gradient, so its dx conv is skipped
+        False: {"strips": 5, "stencil_conv": 5, "dxdw": 0, "grad": 3},
+    }
+    train_launches = {k: 0 for k in _cuda.launch_counts}
+    routes = {}
+    for fused in (True, False):
+        config.set_fused_dw(fused)
+        m = copy.deepcopy(init)
+        m.compile(optimizer=1e-3, loss=loss_name, metrics=["accuracy"])
+        _cuda.reset_launch_counts()
+        logs = m._trainer.train_on_batch(xt[:16], yt[:16])
+        torch.cuda.synchronize()
+        counts = dict(_cuda.launch_counts)
+        for k, v in counts.items():
+            train_launches[k] += v
+        if counts != route_want[fused]:
+            raise AssertionError(f"fused_dw={fused}: one train step launched "
+                                 f"{counts}, expected {route_want[fused]}")
+        g, st_ = grads_of(m), stats_of(m)
+        loss_rel = abs(logs["loss"] - loss64) / abs(loss64)
+        g_err, s_err = tree_errs(g, g64), tree_errs(st_, s64)
+        bad = {**held(g_err, GRAD_TOL), **held(s_err, BN_TOL)}
+        if not (np.isfinite(logs["loss"]) and loss_rel <= 1e-5) or bad:
+            raise AssertionError(
+                f"fused_dw={fused}: loss rel {loss_rel:.3e} against float64; "
+                f"errors against float64 above {GRAD_TOL} (gradients) or "
+                f"{BN_TOL} (BN): {bad}")
+        routes[fused] = (m, g, logs, loss_rel, max(g_err.values()),
+                         max(s_err.values()), counts)
+    route_err = max(tree_errs(routes[False][1], routes[True][1]).values())
+    say("train", f"one train_on_batch of 16 maps: float64 CPU loss "
+        f"{loss64:.6f}, float32 CPU loss {cpu_logs['loss']:.6f} (step "
+        f"{cpu_s:.1f} s); float32 CPU against float64: gradients "
+        f"{max(g_cpu.values()):.2e} (per tensor {g_cpu}), BN "
+        f"{max(s_cpu.values()):.2e}; K2 route: loss rel {routes[True][3]:.2e}"
+        f", gradients {routes[True][4]:.2e}, BN {routes[True][5]:.2e}, "
+        f"launches {routes[True][6]}; K1+K3 route: loss rel "
+        f"{routes[False][3]:.2e}, gradients {routes[False][4]:.2e}, BN "
+        f"{routes[False][5]:.2e}, launches {routes[False][6]}; the routes "
+        f"differ by {route_err:.2e}")
+
+    config.set_fused_dw(True)
+    m = routes[True][0]
+    _cuda.reset_launch_counts()
+    hist = m.fit(xt, yt, batch_size=16, epochs=2, verbose=0)
+    torch.cuda.synchronize()
+    fit_counts = dict(_cuda.launch_counts)
+    for k, v in fit_counts.items():
+        train_launches[k] += v
+    if not (len(hist["loss"]) == 2
+            and all(np.isfinite(v) for v in hist["loss"] + hist["accuracy"])):
+        raise AssertionError(f"fit history {hist}")
+    if fit_counts != {k: 8 * v for k, v in route_want[True].items()}:
+        raise AssertionError(f"fit over 8 steps launched {fit_counts}")
+    missing = [k for k, v in train_launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"the training path never launched {missing}")
+
+    step_ms = {}
+    for fused in (True, False):
+        config.set_fused_dw(fused)
+        tr = routes[fused][0]._trainer
+        for _ in range(3):
+            tr.train_on_batch(xt[:16], yt[:16])
+        torch.cuda.synchronize()
+        times = []
+        for i in range(10):
+            t = time.perf_counter()
+            tr.train_on_batch(xt[16 * (i % 4):16 * (i % 4) + 16],
+                              yt[16 * (i % 4):16 * (i % 4) + 16])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        step_ms[fused] = float(np.mean(times))
+    config.set_fused_dw(True)
+    # where a step's time goes: kernels on the card over 3 steps
+    from torch.profiler import ProfilerActivity, profile
+
+    tr = routes[True][0]._trainer
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(3):
+            tr.train_on_batch(xt[16 * i:16 * i + 16], yt[16 * i:16 * i + 16])
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            d = by_name.setdefault(e.name, [0, 0.0])
+            d[0] += 1
+            d[1] += e.time_range.elapsed_us() / 1e3
+    busy = sum(v[1] for v in by_name.values()) / 3
+    n_dev = sum(v[0] for v in by_name.values()) / 3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    if n_dev == 0:
+        raise AssertionError("the profiler saw no device work in 3 steps")
+    say("train", f"profile of the K2-route step: {n_dev:.0f} device ops, "
+        f"{busy:.3f} ms device-busy per step = {busy / step_ms[True]:.1%} of "
+        f"the unprofiled {step_ms[True]:.3f} ms; top by device time per step: "
+        + "; ".join(f"{nm[:60]} x{c / 3:.0f} {t / 3:.3f} ms"
+                    for nm, (c, t) in top))
+    say("train", f"fit 2 epochs x 64 maps: loss {hist['loss']}, accuracy "
+        f"{hist['accuracy']}, launches {fit_counts}; ms per train step of 16 "
+        f"maps (host clock, synchronized, mean of 10 after 3 warm-up): K2 "
+        f"route {step_ms[True]:.3f} ({16e3 / step_ms[True]:.1f} maps/s), "
+        f"K1+K3 route {step_ms[False]:.3f} ({16e3 / step_ms[False]:.1f} "
+        f"maps/s) on {card}")
+    del routes, m, init
+
+    # 6. headline conv: kernels vs the plain per-step path, both on the card
     B, Fin, Fout, K = 4, 4, 4, 5
     n, h = 1024, st1024.n_steps
     tables = as_tensors(stencil_tables(st1024), dev)
@@ -287,15 +594,59 @@ def main():
         f"graph + stencil build {head_graph_s:.2f} s (quick_start graphs "
         f"{qs_graph_s:.2f} s) on {card}")
 
-    # main-path kernel times: the quick_start forward's three shapes summed
+    # the headline train step: forward + backward with a fixed cotangent
+    cot = torch.from_numpy(
+        rng.normal(size=(B, M, Fout)).astype(np.float32)).to(dev)
+    xl = xf.clone().requires_grad_()
+    kl = kernel.clone().requires_grad_()
+
+    def fused_step():
+        xc_ = cface_embed(xl, n, h).reshape(B * Fin, 12, n, -1)
+        y = fs.fused_stencil_conv_cfp(st1024, tables, xc_, kl, K, "cheby", B)
+        yi = cface_extract(y.reshape(B, Fout, 12, n, -1), h)
+        return torch.autograd.grad(yi, (xl, kl), cot)
+
+    def plain_step():
+        y = stencil_graph_conv(st1024, xl, kl, K, "cheby", tables=tables,
+                               layout="face")
+        return torch.autograd.grad(y, (xl, kl), cot)
+
+    dx_s, dk_s = plain_step()
+    train_ms = {}
+    for fused_dw in (True, False):
+        config.set_fused_dw(fused_dw)
+        dx_f, dk_f = fused_step()
+        e_dx, e_dk = rel_err(dx_f, dx_s), rel_err(dk_f, dk_s)
+        if not (e_dx <= TOL and e_dk <= DW_TOL):
+            raise AssertionError(f"headline train step fused_dw={fused_dw}: "
+                                 f"dx rel {e_dx:.3e}, dW rel {e_dk:.3e}")
+        train_ms[fused_dw] = (cuda_ms(fused_step, iters=5, warmup=1), e_dx,
+                              e_dk)
+    config.set_fused_dw(True)
+    ms_plain_train = cuda_ms(plain_step, iters=3, warmup=1)
+    del dx_s, dk_s
+    say("headline", f"train step (fwd + bwd, fixed cotangent): K2 route "
+        f"{train_ms[True][0]:.3f} ms (dx rel {train_ms[True][1]:.2e}, dW rel "
+        f"{train_ms[True][2]:.2e}), K1+K3 route {train_ms[False][0]:.3f} ms "
+        f"(dx rel {train_ms[False][1]:.2e}, dW rel {train_ms[False][2]:.2e}), "
+        f"per-step plain autograd {ms_plain_train:.3f} ms on {card}")
+
+    # main-path kernel times: the quick_start convs' three shapes summed
     def entry(kname, route, source, replaces):
         rows = results[kname]
         qs = [r for r in rows if r[0].startswith("quick_start")]
+        # the side of the bound that holds most of the summed bound
+        share = {b: sum(r[4] for r in qs if r[5] == b)
+                 for b in ("bytes", "operations")}
         return {
             "name": kname, "route": route, "source": source,
-            "replaces": replaces, "launches": launches[kname],
+            "replaces": replaces, "launches": train_launches[kname],
             "max_abs_err": max(r[1] for r in rows),
             "ms": sum(r[2] for r in qs), "plain_ms": sum(r[3] for r in qs),
+            "bound_ms": sum(r[4] for r in qs),
+            "bound_by": max(share, key=share.get),
+            "library_ms": (None if qs[0][6] is None
+                           else sum(r[6] for r in qs)),
         }
 
     kernels = [
@@ -304,7 +655,17 @@ def main():
         entry("stencil_conv", "cuda",
               "deepsphere_tpu_torch/csrc/stencil_conv.cu",
               "deepsphere_tpu/ops/pallas_stencil.py:522"),
+        entry("dxdw", "cuda", "deepsphere_tpu_torch/csrc/stencil_dxdw.cu",
+              "deepsphere_tpu/ops/pallas_stencil.py:688"),
+        entry("grad", "cuda", "deepsphere_tpu_torch/csrc/stencil_grad.cu",
+              "deepsphere_tpu/ops/pallas_stencil.py:614"),
     ]
+    for kname, rows in results.items():
+        for r in rows:
+            if r[0].startswith("headline"):
+                say("headline", f"{kname}: {r[2]:.4f} ms, plain {r[3]:.4f} ms, "
+                    f"bound {r[4]:.4f} ms ({r[5]}), library "
+                    f"{'none' if r[6] is None else f'{r[6]:.4f} ms'}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

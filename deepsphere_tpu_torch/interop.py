@@ -1,4 +1,4 @@
-"""Load the JAX package's model variables into the PyTorch port.
+"""Move model variables between the JAX package and the PyTorch port.
 
 :func:`load_jax_variables` takes a JAX ``HealpyGCNN``'s (or a single flax
 layer's) ``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy
@@ -12,6 +12,10 @@ arrays and copies them into the matching port modules:
 
 The port's parameters must exist first (``HealpyGCNN.build`` or one
 forward).  Any missing, unexpected or mis-shaped entry raises.
+
+:func:`export_jax_variables` is the reverse: the port's parameters and
+batch statistics (or the parameters' gradients) as the JAX tree of numpy
+arrays, so tests compare whole trees.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import torch
 from .models import HealpyGCNN
 from .nn.layers import Dense, _GraphPolyConv
 
-__all__ = ["load_jax_variables"]
+__all__ = ["load_jax_variables", "export_jax_variables"]
 
 
 def _copy(dst, src, what):
@@ -99,3 +103,58 @@ def load_jax_variables(model, variables):
                 and key not in params):
             raise KeyError(f"{key}: missing from the JAX variables")
     return model
+
+
+def _np(t, grads):
+    if grads:
+        t = t.grad
+        if t is None:
+            raise ValueError("a parameter has no gradient; run a backward "
+                             "(e.g. one train_on_batch) first")
+    return t.detach().cpu().numpy().copy()
+
+
+def _export_layer(module, grads):
+    """(params, batch_stats) of one port layer, JAX keys, numpy."""
+    params, stats = {}, {}
+    if isinstance(module, _GraphPolyConv):
+        if module.kernel is None:
+            raise ValueError("build the model (or run one forward) first")
+        params["kernel"] = _np(module.kernel, grads)
+        if module.use_bias:
+            params["bias"] = _np(module.bias, grads)
+        if module.use_bn:
+            stats["bn"] = {"mean": module.bn.mean.cpu().numpy().copy(),
+                           "var": module.bn.var.cpu().numpy().copy()}
+    elif isinstance(module, Dense):
+        if module.dense is None:
+            raise ValueError("build the model (or run one forward) first")
+        d = {"kernel": _np(module.dense.weight, grads).T.copy()}
+        if module.use_bias:
+            d["bias"] = _np(module.dense.bias, grads)
+        params["dense"] = d
+    return params, stats
+
+
+def export_jax_variables(model, grads=False):
+    """The port model's variables as the JAX package's tree of numpy arrays.
+
+    :param model: a built :class:`HealpyGCNN`, or one port layer
+    :param grads: False: ``{"params": ..., "batch_stats": ...}`` (the tree
+        :func:`load_jax_variables` takes); True: the parameters' ``.grad``
+        in the ``params`` structure (what ``jax.grad`` of a loss over the
+        params returns)
+    """
+    if not isinstance(model, HealpyGCNN):
+        params, stats = _export_layer(model, grads)
+    else:
+        params, stats = {}, {}
+        for name, module in model.layers.items():
+            p, st = _export_layer(module, grads)
+            if p:
+                params[f"layers_{name}"] = p
+            if st:
+                stats[f"layers_{name}"] = st
+    if grads:
+        return params
+    return {"params": params, "batch_stats": stats}

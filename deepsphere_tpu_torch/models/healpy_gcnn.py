@@ -9,15 +9,17 @@ layout (:meth:`HealpyGCNN._plan_internal_layout`) and wires everything into
 one ``nn.Module``:
 
     model = HealpyGCNN(nside, indices, layers)
-    model.build((B, n_pix, F), seed=0)     # creates the parameters (CPU)
-    model.to("cuda")
+    model.build((B, n_pix, F), seed=0)     # parameters on the card
+    model.compile(optimizer=1e-3, loss="sparse_categorical_crossentropy",
+                  metrics=["accuracy"])
+    history = model.fit(x, y, batch_size=16, epochs=10)
     logits = model.predict(x, batch_size=16)
 
 Submodules are named ``layer_{i}`` after the user layer list (layout
 converters get positional names), the JAX package's ``layers_layer_{i}``
 keys, so :func:`deepsphere_tpu_torch.interop.load_jax_variables` can load a
-JAX model's variables.  Only inference is ported: training, checkpoints
-and export come later (ROADMAP.md, queue 1).
+JAX model's variables and :func:`~deepsphere_tpu_torch.interop.export_jax_variables`
+write them back.  Export and sharding come later (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -85,7 +87,7 @@ class HealpyGCNN(nn.Module):
                 "queue 1, parallel)")
         if remat:
             raise NotImplementedError(
-                "remat is a training option; training is not ported yet")
+                "remat: rematerialization is not ported yet")
 
         self.nside_in = nside
         self.indices_in = np.asarray(indices, dtype=np.int64)
@@ -162,6 +164,7 @@ class HealpyGCNN(nn.Module):
         self.layers = nn.ModuleDict(dict(zip(names, self._module_layers)))
         self.order = tuple(names)
         self._built_input_shape = None
+        self._trainer = None
 
     def _plan_internal_layout(self, internal_layout):
         """Run as much of the model as possible in the conv's native layout.
@@ -326,10 +329,18 @@ class HealpyGCNN(nn.Module):
             x = self.layers[key](x)
         return x
 
-    def build(self, input_shape, seed=0):
-        """Create the parameters (on the CPU, from a seeded
-        ``torch.Generator``) by running one eval-mode forward on zeros of
-        ``(1,) + input_shape[1:]``; move the model afterwards."""
+    def build(self, input_shape, seed=0, device=None):
+        """Create the parameters and graph tables on ``device`` (default
+        ``"cuda"``; pass ``device="cpu"`` for the CPU) by running one
+        eval-mode forward on zeros of ``(1,) + input_shape[1:]``.  The
+        weights come from a seeded CPU ``torch.Generator``, so they are the
+        same on either device.  Raises when the card is asked for and there
+        is none."""
+        dev = torch.device("cuda" if device is None else device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "HealpyGCNN.build: no CUDA card; pass device='cpu' to build "
+                "on the CPU")
         gen = torch.Generator().manual_seed(int(seed))
         lazy = [m for m in self.modules() if hasattr(m, "_init_generator")]
         for m in lazy:
@@ -338,7 +349,7 @@ class HealpyGCNN(nn.Module):
         self.eval()
         try:
             with torch.no_grad():
-                self(torch.zeros((1,) + tuple(input_shape[1:])))
+                self(torch.zeros((1,) + tuple(input_shape[1:]), device=dev))
         finally:
             self.train(was_training)
             for m in lazy:
@@ -346,10 +357,7 @@ class HealpyGCNN(nn.Module):
         self._built_input_shape = tuple(input_shape)
         return self
 
-    def predict(self, x, batch_size=16):
-        """Logits of ``x`` (N, n_pix, F), numpy or tensor, in eval mode and
-        under ``torch.inference_mode``, ``batch_size`` maps at a time on
-        the model's device.  Returns a numpy array."""
+    def _predict(self, x, batch_size=16):
         if self._built_input_shape is None:
             raise ValueError("Build the model first (model.build(input_shape)).")
         dev = next(self.parameters()).device
@@ -365,3 +373,66 @@ class HealpyGCNN(nn.Module):
         finally:
             self.train(was_training)
         return np.concatenate(outs, axis=0)
+
+    def predict(self, x, batch_size=16):
+        """Logits of ``x`` (N, n_pix, F), numpy or tensor, in eval mode and
+        under ``torch.inference_mode``, ``batch_size`` maps at a time on
+        the model's device (through the trainer once compiled).  Returns a
+        numpy array."""
+        if self._trainer is not None:
+            return self._trainer.predict(x, batch_size=batch_size)
+        return self._predict(x, batch_size=batch_size)
+
+    # ------------------------------------------------------------------
+    # Keras-style training surface (delegates to train.Trainer)
+    # ------------------------------------------------------------------
+
+    def compile(self, optimizer=1e-3, loss="sparse_categorical_crossentropy",
+                metrics=(), data_sharding=None):
+        from ..train import Trainer
+
+        self._trainer = Trainer(
+            self, optimizer=optimizer, loss=loss, metrics=metrics,
+            data_sharding=data_sharding,
+        )
+        return self._trainer
+
+    def _require_trainer(self):
+        if self._trainer is None:
+            raise ValueError("Call compile(...) before fit/evaluate.")
+        return self._trainer
+
+    def fit(self, x, y, batch_size=16, epochs=1, validation_data=None,
+            shuffle=True, verbose=1, callbacks=None):
+        if self._built_input_shape is None:
+            self.build((batch_size,) + tuple(np.asarray(x).shape[1:]))
+        return self._require_trainer().fit(
+            x, y, batch_size=batch_size, epochs=epochs,
+            validation_data=validation_data, shuffle=shuffle, verbose=verbose,
+            callbacks=callbacks,
+        )
+
+    def evaluate(self, x, y, batch_size=16, verbose=1):
+        return self._require_trainer().evaluate(x, y, batch_size=batch_size,
+                                                verbose=verbose)
+
+    # ------------------------------------------------------------------
+    # checkpointing (torch.save of the state_dict)
+    # ------------------------------------------------------------------
+
+    def save_weights(self, path):
+        """Write the parameters and batch statistics (``state_dict``).  The
+        graph tables are non-persistent buffers, deterministic precompute,
+        and stay out of the file."""
+        if self._built_input_shape is None:
+            raise ValueError("Model has no variables yet; call build() first.")
+        torch.save(self.state_dict(), path)
+
+    def load_weights(self, path):
+        """Load what :meth:`save_weights` wrote into this built model, on
+        its device."""
+        if self._built_input_shape is None:
+            raise ValueError("Build the model before loading weights.")
+        dev = next(self.parameters()).device
+        self.load_state_dict(torch.load(path, map_location=dev), strict=True)
+        return self

@@ -1,11 +1,10 @@
 """ctypes bindings for the native host-precompute core.
 
-The C++ library is the JAX package's ``deepsphere_tpu/native/healpix_core.cpp``,
-read by path (the port does not duplicate it and does not import the JAX
-package).  It is compiled on first use with the system g++ into the port's
-build directory, under a name keyed on a hash of the source and the host;
-every entry point has a pure-numpy fallback in :mod:`..sphere` /
-:mod:`..graph`.
+The C++ library is ``healpix_core.cpp`` beside this file, the port's own
+copy of the JAX package's native core (the tests hold the two byte-equal).
+It is compiled on first use with the system g++ into the port's build
+directory, under a name keyed on a hash of the source and the host; every
+entry point has a pure-numpy fallback in :mod:`..sphere` / :mod:`..graph`.
 
 Disable with ``DEEPSPHERE_NO_NATIVE=1``.
 """
@@ -27,8 +26,7 @@ __all__ = ["available", "ellpack_stencil_planes", "gauss_template",
            "stencil_weights"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(os.path.dirname(os.path.dirname(_HERE)),
-                    "deepsphere_tpu", "native", "healpix_core.cpp")
+_SRC = os.path.join(_HERE, "healpix_core.cpp")
 _BUILD = os.path.join(os.path.dirname(_HERE), "_build")
 
 _lib = None

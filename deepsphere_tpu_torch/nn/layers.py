@@ -131,6 +131,11 @@ class CfaceReEmbed(_Layer):
         return _pad_lanes(xi, self.off_out, P_out)
 
 
+def _stat_dtype(x):
+    """Batch statistics in float32 (float64 for a float64 input)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 class _BatchNorm(nn.Module):
     """flax ``nn.BatchNorm`` semantics on (..., F): momentum 0.9 (running =
     0.9 running + 0.1 batch), biased batch variance E[x^2] - E[x]^2 clipped
@@ -146,7 +151,7 @@ class _BatchNorm(nn.Module):
 
     def _stats(self, x):
         axes = tuple(range(x.ndim - 1))
-        xf = x.float()
+        xf = _stat_dtype(x)
         mean = xf.mean(axes)
         var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
         return mean, var
@@ -179,7 +184,7 @@ class _CfaceBatchNorm(_BatchNorm):
 
     def _stats(self, x):
         n = x.shape[3]
-        xi = x[:, :, :, :, self.off : self.off + n].float()
+        xi = _stat_dtype(x[:, :, :, :, self.off : self.off + n])
         mean = xi.mean((0, 2, 3, 4))
         var = (xi * xi).mean((0, 2, 3, 4)) - mean * mean
         return mean, var

@@ -1,8 +1,10 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 The sources under ``deepsphere_tpu_torch/csrc/`` (``strips.cu``,
-``stencil_conv.cu``) have a plain C interface.  At first use they are
-compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared library in the
+``stencil_conv.cu``, and ``stencil_dxdw.cu`` and ``stencil_grad.cu`` over
+the shared ``stencil_tile.cuh``) have a plain C interface.  At first use each
+``.cu`` is compiled by its own ``nvcc`` for Hopper (``sm_90a``), all of
+them at once, and the objects are linked into one shared library in the
 package's ``_build/`` directory, named by a hash of the sources and flags,
 and loaded with ``ctypes``.  Nothing here runs at import: the CPU tests
 import every module of the port on a machine without ``nvcc``.
@@ -27,10 +29,10 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+          "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: kernel name -> launches since the last :func:`reset_launch_counts`
-launch_counts = {"strips": 0, "stencil_conv": 0}
+launch_counts = {"strips": 0, "stencil_conv": 0, "dxdw": 0, "grad": 0}
 
 _lib = None
 
@@ -69,17 +71,30 @@ def build():
                            "machine with the CUDA toolkit")
     os.makedirs(_BUILD, exist_ok=True)
     tmp = path + f".{os.getpid()}.tmp"
+    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
     cu = [s for s in srcs if s.endswith(".cu")]
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in cu]
     t0 = time.perf_counter()
-    res = subprocess.run(
-        [os.path.join(CUDA_HOME, "bin", "nvcc"), *_FLAGS, "-I", _CSRC,
-         "-o", tmp, *cu],
-        capture_output=True, text=True, timeout=600,
-    )
+    # one nvcc per source, all started together, then one link
+    procs = [subprocess.Popen([nvcc, *_FLAGS, "-I", _CSRC, "-c", "-o", o, s],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for s, o in zip(cu, objs)]
+    outs = [p.communicate(timeout=600)[0] for p in procs]
+    log = "".join(outs)
+    bad = [s for s, p in zip(cu, procs) if p.returncode != 0]
+    if not bad:
+        res = subprocess.run([nvcc, *_FLAGS, "-shared", "-o", tmp, *objs],
+                             capture_output=True, text=True, timeout=600)
+        log += res.stdout + res.stderr
+        if res.returncode != 0:
+            bad = ["(link)"]
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
     seconds = time.perf_counter() - t0
-    log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+    if bad:
+        raise RuntimeError(f"nvcc failed for {bad}:\n{log}")
     with open(log_path, "w") as fh:
         fh.write(log)
     os.replace(tmp, path)
@@ -97,6 +112,10 @@ def lib():
         L.ds_strips.restype = ci
         L.ds_stencil_conv.argtypes = [vp] * 8 + [ci] * 12 + [vp]
         L.ds_stencil_conv.restype = ci
+        L.ds_stencil_dxdw.argtypes = [vp] * 12 + [ci] * 12 + [vp]
+        L.ds_stencil_dxdw.restype = ci
+        L.ds_stencil_grad.argtypes = [vp] * 9 + [ci] * 12 + [vp]
+        L.ds_stencil_grad.restype = ci
         L.ds_error_string.argtypes = [ci]
         L.ds_error_string.restype = ctypes.c_char_p
         _lib = L

@@ -1,15 +1,25 @@
-"""The fused K-term polynomial stencil conv: CUDA kernel and plain version.
+"""The fused K-term polynomial stencil conv, forward and backward: CUDA
+kernels and their plain versions.
 
-Counterpart of the JAX package's ``deepsphere_tpu.ops.pallas_stencil``
-(TPU kernel ``_stencil_kernel``, launched by ``_run_stencil_kernel``).  The
-per-step path (:func:`.stencil.stencil_graph_conv`) writes every Laplacian
-application to device memory; the fused conv instead assembles each
-tile's halo window on chip, runs all K-1 applications there and folds the
-``[K*Fin, Fout]`` contraction in term by term, so the activation is read
-about once per conv.
+Counterpart of the JAX package's ``deepsphere_tpu.ops.pallas_stencil``.
+Three kernels share one tile design (K1 in its own source, K2 and K3 as
+two modes of ``csrc/stencil_tile.cuh``):
+
+* K1, the forward (TPU kernel ``_stencil_kernel``, ``csrc/stencil_conv.cu``,
+  :func:`run_stencil_kernel`);
+* K2, the fused backward dx + dW (TPU kernel ``_dxdw_kernel``,
+  ``csrc/stencil_dxdw.cu``, :func:`run_dxdw_kernel`);
+* K3, the dW of the two-kernel backward (TPU kernel ``_grad_kernel``,
+  ``csrc/stencil_grad.cu``, :func:`run_grad_kernel`).
+
+The per-step path (:func:`.stencil.stencil_graph_conv`) writes every
+Laplacian application to device memory; the fused kernels instead assemble
+each tile's halo window on chip, run all K-1 applications there and fold
+each term into the contraction (and, backward, into the dW sums) as it is
+made, so the activation is read about once per conv.
 
 Layout ("cface"): activations are ``(C, 12, n, P_l)`` channels-first face
-images, C = B*Fin batch-major, face column y at lane ``y + h`` (h the halo
+images, C = B*F batch-major, face column y at lane ``y + h`` (h the halo
 depth, ``P_l = roundup(n + 2h, 128)``); input and output share it.  Cross-
 face halos come from three strip arrays (:mod:`.strips`).
 
@@ -19,16 +29,17 @@ comes out wrong; they are recomputed exactly from a precomputed ELLPACK
 "ball" around them (:func:`_corrected_rows`) with one flat gather and one
 flat scatter (``tables["corr_src_cfp"]`` / ``["corr_rows_cfp"]``).  At the
 quick_start widths this is a large share of the map (K=10 at nside 16:
-every row), so tests always check the raw conv as well.
+every row), so tests always check the raw kernels as well.
 
-No backward yet: on a CUDA tensor with autograd recording, the conv
-raises (ROADMAP.md, queue 1: backward kernels K2 and K3).
+The conv is a ``torch.autograd.Function`` (:func:`fused_stencil_conv_cfp`);
+its backward takes the route that ``config.fused_dw`` names.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import config
 from ..graph.stencil import FaceStencil
 from . import _cuda
 from .strips import build_strips, strip_arrays
@@ -38,28 +49,37 @@ __all__ = [
     "cfp_structural_available",
     "run_stencil_kernel",
     "run_stencil_plain",
+    "run_grad_kernel",
+    "run_grad_plain",
+    "run_dxdw_kernel",
+    "run_dxdw_plain",
     "fused_stencil_conv_cfp",
     "fused_stencil_conv_cfp_plain",
 ]
 
-# the kernel's largest tile side and its dynamic shared-memory ceiling (an
-# H100 block gets 227 KB; the kernel's static arrays take the rest)
+# the kernels' largest tile side, their chunk of channels per block and
+# warps per block, and the dynamic shared-memory ceiling (an H100 block
+# gets 227 KB; the kernels' static arrays take the rest)
 _TILE = 32
+_CHUNK = 8
+_WARPS = 8
 _SMEM_MAX = 232448 - 1024
 
 
-def _conv_smem(T, h, r, nplanes):
-    """Bytes of dynamic shared memory of one block of the conv kernel:
-    the weight window plus three term buffers."""
+def _conv_smem(T, h, r, nplanes, n_red=0):
+    """Bytes of dynamic shared memory of one block of the tile kernels:
+    the weight window, three term buffers and, for the backward kernels
+    (``n_red`` = K), the per-warp dW sums of one channel's K terms."""
     W0 = T + 2 * h
-    return 4 * (nplanes * (W0 - 2 * r) ** 2 + 3 * W0 * W0)
+    return 4 * (nplanes * (W0 - 2 * r) ** 2 + 3 * W0 * W0
+                + n_red * _WARPS * _CHUNK)
 
 
-def _conv_tile(n, h, r, nplanes):
+def _conv_tile(n, h, r, nplanes, n_red=0):
     """The largest tile side (32, 16 or 8, dividing n) whose window fits in
     shared memory, or None."""
     for T in (_TILE, 16, 8):
-        if n % T == 0 and _conv_smem(T, h, r, nplanes) <= _SMEM_MAX:
+        if n % T == 0 and _conv_smem(T, h, r, nplanes, n_red) <= _SMEM_MAX:
             return T
     return None
 
@@ -93,6 +113,11 @@ def cfp_geometry(n, h):
     return _round_up(h, 8), _round_up(n + 2 * h, 128)
 
 
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
 def _window(st, xc, wext, strips):
     """The halo-extended maps of the plain version: activation (C, 12,
     n+2R, P_l) and weight planes (T2, 12, n+2R, P_l), window row w holding
@@ -109,19 +134,15 @@ def _window(st, xc, wext, strips):
     return win, ww.to(xc.dtype)
 
 
-def run_stencil_plain(st, kind, n_terms, xc, wext, strips, wk3, B):
-    """Plain version of the raw fused conv (no corner correction).
-
-    Same contract as :func:`run_stencil_kernel`: the padded-window
-    recursion with ``torch.roll`` taps over each face's halo-extended map.
-    Roll wrap-around only reaches the window border, r rows/lanes per
-    step, never the interior lanes that are written out.
-    """
+def _plain_terms(st, kind, n_terms, xc, wext, strips):
+    """Yield the K recursion terms T_k(L~) xc at the face rows, (C, 12, n,
+    P_l) each: the padded-window recursion with ``torch.roll`` taps over
+    each face's halo-extended map.  Roll wrap-around only reaches the
+    window border, r rows/lanes per step, never the interior lanes."""
     if kind not in ("cheby", "mono"):
         raise ValueError(f"unknown basis kind: {kind}")
     n, h = st.nside, st.n_steps
-    R, P_l = cfp_geometry(n, h)
-    K, Fin, Fout = wk3.shape
+    R, _ = cfp_geometry(n, h)
     win, ww = _window(st, xc, wext, strips)
     offs = st.offsets
 
@@ -132,9 +153,8 @@ def run_stencil_plain(st, kind, n_terms, xc, wext, strips, wk3, B):
             t = c if t is None else t + c
         return t
 
-    y = xc.new_zeros((B, Fout, 12, n, P_l))
     prev2, prev1 = None, win
-    for k in range(K):
+    for k in range(n_terms):
         if k == 0:
             t = win
         elif k == 1 or kind == "mono":
@@ -143,62 +163,202 @@ def run_stencil_plain(st, kind, n_terms, xc, wext, strips, wk3, B):
             t = 2.0 * lap(prev1) - prev2
         if k:
             prev2, prev1 = prev1, t
-        ctr = t[:, :, R : R + n].reshape(B, Fin, 12, n, P_l)
-        y = y + torch.einsum("bfgxp,fo->bogxp", ctr, wk3[k])
+        yield t[:, :, R : R + n]
+
+
+def _zero_pad_lanes(y, h, n):
     y[..., :h] = 0.0
     y[..., h + n :] = 0.0
-    return y.reshape(B * Fout, 12, n, P_l)
+    return y
 
 
-def _stencil_cuda(st, kind, xc, wext, strips, wk3, B, offsets):
-    """Launch the fused conv kernel (``csrc/stencil_conv.cu``)."""
+def run_stencil_plain(st, kind, n_terms, xc, wext, strips, wk3, B):
+    """Plain version of the raw fused conv (no corner correction); same
+    contract as :func:`run_stencil_kernel`."""
+    n, h = st.nside, st.n_steps
+    _, P_l = cfp_geometry(n, h)
+    K, Fin, Fout = wk3.shape
+    y = xc.new_zeros((B, Fout, 12, n, P_l))
+    for k, ctr in enumerate(_plain_terms(st, kind, n_terms, xc, wext,
+                                         strips)):
+        y = y + torch.einsum("bfgxp,fo->bogxp",
+                             ctr.reshape(B, Fin, 12, n, P_l), wk3[k])
+    return _zero_pad_lanes(y, h, n).reshape(B * Fout, 12, n, P_l)
+
+
+def run_grad_plain(st, kind, n_terms, xc, wext, strips, dy, B):
+    """Plain version of the raw dW of the two-kernel backward; same
+    contract as :func:`run_grad_kernel`."""
+    n, h = st.nside, st.n_steps
+    Fin = xc.shape[0] // B
+    Fout = dy.shape[0] // B
+    dyi = dy[..., h : h + n].reshape(B, Fout, 12, n, n)
+    dw = [
+        torch.einsum("bfgxy,bogxy->fo",
+                     ctr[..., h : h + n].reshape(B, Fin, 12, n, n), dyi)
+        for ctr in _plain_terms(st, kind, n_terms, xc, wext, strips)
+    ]
+    return torch.stack(dw).reshape(n_terms * Fin, Fout)
+
+
+def run_dxdw_plain(st, kind, n_terms, dy, wext, strips, wk3t, xr, mask, B):
+    """Plain version of the raw fused backward; same contract as
+    :func:`run_dxdw_kernel`."""
+    n, h = st.nside, st.n_steps
+    _, P_l = cfp_geometry(n, h)
+    K, Fc, Fx = wk3t.shape  # recursion channels Fout, x channels Fin
+    xm = xr[..., h : h + n]
+    if mask is not None:
+        xm = xm * mask[..., h : h + n].to(xm.dtype)
+    xm = xm.reshape(B, Fx, 12, n, n)
+    dx = dy.new_zeros((B, Fx, 12, n, P_l))
+    dws = []
+    for k, ctr in enumerate(_plain_terms(st, kind, n_terms, dy, wext,
+                                         strips)):
+        c5 = ctr.reshape(B, Fc, 12, n, P_l)
+        dx = dx + torch.einsum("bfgxp,fo->bogxp", c5, wk3t[k])
+        dws.append(torch.einsum("bogxy,bfgxy->of", xm, c5[..., h : h + n]))
+    dx = _zero_pad_lanes(dx, h, n).reshape(B * Fx, 12, n, P_l)
+    return dx, torch.stack(dws).reshape(K * Fx, Fc)
+
+
+# ---------------------------------------------------------------------------
+# CUDA launches
+# ---------------------------------------------------------------------------
+
+
+def _check_tensors(what, dev, want):
+    for name, (t, shape) in want.items():
+        if (t.device != dev or t.dtype != torch.float32
+                or not t.is_contiguous() or tuple(t.shape) != shape):
+            raise ValueError(f"{what}: {name} must be a contiguous float32 "
+                             f"{shape} tensor on {dev}")
+
+
+def _launch_plan(what, st, kind, K, strips, wext, B, Crec, Cch, offsets, dev,
+                 n_red):
+    """Checks shared by the three tile kernels (recursion over B*Crec
+    channels through ``strips``, blocks over chunks of Cch channels).
+
+    :return: (T, offsets, geometry): the tile side, the device tap offsets
+        and the trailing ints of the C entry points (kind, K, radius,
+        nplanes, then after B and the channel counts n, h, R, P, T)
+    """
     n, h = st.nside, st.n_steps
     R, P_l = cfp_geometry(n, h)
     r = st.radius
-    K, Fin, Fout = wk3.shape
-    C = xc.shape[0]
     nplanes = len(st.offsets)
     top, bot, ls = strips
-    dev = xc.device
-    want = {
-        "xc": (xc, (B * Fin, 12, n, P_l)),
+    C = B * Crec
+    _check_tensors(what, dev, {
         "top": (top, (C, 12, R, P_l)),
         "bot": (bot, (C, 12, R, P_l)),
         "ls": (ls, (C, 12, n, 128)),
         "wext": (wext, (nplanes, 12, n + 2 * R, P_l)),
-        "wk3": (wk3, (K, Fin, Fout)),
-    }
-    for name, (t, shape) in want.items():
-        if (t.device != dev or t.dtype != torch.float32
-                or not t.is_contiguous() or tuple(t.shape) != shape):
-            raise ValueError(f"stencil kernel: {name} must be a contiguous "
-                             f"float32 {shape} tensor on {dev}")
+    })
     if kind not in ("cheby", "mono"):
         raise ValueError(f"unknown basis kind: {kind}")
-    T = _conv_tile(n, h, r, nplanes)
+    T = _conv_tile(n, h, r, nplanes, n_red)
     if T is None or r * (K - 1) > h or nplanes > 81:
-        raise ValueError(f"stencil kernel does not take n={n} h={h} r={r} "
-                         f"K={K}: no tile fits shared memory")
-    if B * -(-Fout // 8) > 65535:
-        raise ValueError("stencil kernel: batch * Fout too large for the grid")
+        raise ValueError(f"{what} does not take n={n} h={h} r={r} K={K}: "
+                         "no tile fits shared memory")
+    if B * -(-Cch // _CHUNK) > 65535:
+        raise ValueError(f"{what}: batch * channels too large for the grid")
     if offsets is None:
         offsets = torch.tensor(st.offsets, dtype=torch.int32, device=dev)
     if (offsets.dtype != torch.int32 or offsets.device != dev
             or tuple(offsets.shape) != (nplanes, 2)):
-        raise ValueError("stencil kernel: offsets must be int32 (nplanes, 2)")
-    out = torch.empty((B * Fout, 12, n, P_l), dtype=xc.dtype, device=dev)
-    lib = _cuda.lib()
+        raise ValueError(f"{what}: offsets must be int32 (nplanes, 2)")
+    head = (0 if kind == "cheby" else 1, K, r, nplanes)
+    return T, offsets, (head, (n, h, R, P_l, T))
+
+
+def _stream(dev):
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.ds_stencil_conv(
-            xc.data_ptr(), top.data_ptr(), bot.data_ptr(), ls.data_ptr(),
-            wext.data_ptr(), wk3.data_ptr(), offsets.data_ptr(),
-            out.data_ptr(), 0 if kind == "cheby" else 1, K, r, nplanes, B,
-            Fin, Fout, n, h, R, P_l, T, stream,
-        )
+        return torch.cuda.current_stream().cuda_stream
+
+
+def _partials(K, Crec, Cch, B, n, T, dev):
+    """Scratch of per-block dW sums, (K*Crec*Cch, B*12*tiles^2): each block
+    writes its own column, a second launch reduces the rows in a fixed
+    order (no float atomics, so two calls give bitwise-equal dW)."""
+    G = B * 12 * (n // T) ** 2
+    return torch.empty((K * Crec * Cch, G), dtype=torch.float32, device=dev)
+
+
+def _stencil_cuda(st, kind, xc, wext, strips, wk3, B, offsets):
+    """Launch the fused conv kernel (``csrc/stencil_conv.cu``)."""
+    n = st.nside
+    _, P_l = cfp_geometry(n, st.n_steps)
+    K, Fin, Fout = wk3.shape
+    dev = xc.device
+    _check_tensors("stencil kernel", dev, {
+        "xc": (xc, (B * Fin, 12, n, P_l)), "wk3": (wk3, (K, Fin, Fout))})
+    T, offsets, (head, tail) = _launch_plan(
+        "stencil kernel", st, kind, K, strips, wext, B, Fin, Fout, offsets,
+        dev, 0)
+    out = torch.empty((B * Fout, 12, n, P_l), dtype=xc.dtype, device=dev)
+    top, bot, ls = strips
+    rc = _cuda.lib().ds_stencil_conv(
+        xc.data_ptr(), top.data_ptr(), bot.data_ptr(), ls.data_ptr(),
+        wext.data_ptr(), wk3.data_ptr(), offsets.data_ptr(), out.data_ptr(),
+        *head, B, Fin, Fout, *tail, _stream(dev),
+    )
     _cuda.check(rc, "ds_stencil_conv")
     _cuda.launch_counts["stencil_conv"] += 1
     return out
+
+
+def _grad_cuda(st, kind, K, xc, wext, strips, dy, B, offsets):
+    """Launch the dW kernel (``csrc/stencil_grad.cu``)."""
+    n = st.nside
+    _, P_l = cfp_geometry(n, st.n_steps)
+    Fin, Fout = xc.shape[0] // B, dy.shape[0] // B
+    dev = xc.device
+    _check_tensors("grad kernel", dev, {
+        "xc": (xc, (B * Fin, 12, n, P_l)), "dy": (dy, (B * Fout, 12, n, P_l))})
+    T, offsets, (head, tail) = _launch_plan(
+        "grad kernel", st, kind, K, strips, wext, B, Fin, Fout, offsets, dev, K)
+    partial = _partials(K, Fin, Fout, B, n, T, dev)
+    dw = torch.empty((K * Fin, Fout), dtype=torch.float32, device=dev)
+    top, bot, ls = strips
+    rc = _cuda.lib().ds_stencil_grad(
+        xc.data_ptr(), top.data_ptr(), bot.data_ptr(), ls.data_ptr(),
+        wext.data_ptr(), offsets.data_ptr(), dy.data_ptr(), partial.data_ptr(),
+        dw.data_ptr(), *head, B, Fin, Fout, *tail, _stream(dev),
+    )
+    _cuda.check(rc, "ds_stencil_grad")
+    _cuda.launch_counts["grad"] += 1
+    return dw
+
+
+def _dxdw_cuda(st, kind, dy, wext, strips, wk3t, xr, mask, B, offsets):
+    """Launch the fused backward kernel (``csrc/stencil_dxdw.cu``)."""
+    n = st.nside
+    _, P_l = cfp_geometry(n, st.n_steps)
+    K, Fc, Fx = wk3t.shape
+    dev = dy.device
+    want = {"dy": (dy, (B * Fc, 12, n, P_l)), "wk3t": (wk3t, (K, Fc, Fx)),
+            "xr": (xr, (B * Fx, 12, n, P_l))}
+    if mask is not None:
+        want["mask"] = (mask, (12, n, P_l))
+    _check_tensors("dxdw kernel", dev, want)
+    T, offsets, (head, tail) = _launch_plan(
+        "dxdw kernel", st, kind, K, strips, wext, B, Fc, Fx, offsets, dev, K)
+    dx = torch.empty((B * Fx, 12, n, P_l), dtype=torch.float32, device=dev)
+    partial = _partials(K, Fc, Fx, B, n, T, dev)
+    dw = torch.empty((K * Fx, Fc), dtype=torch.float32, device=dev)
+    top, bot, ls = strips
+    rc = _cuda.lib().ds_stencil_dxdw(
+        dy.data_ptr(), top.data_ptr(), bot.data_ptr(), ls.data_ptr(),
+        wext.data_ptr(), wk3t.data_ptr(), offsets.data_ptr(), xr.data_ptr(),
+        0 if mask is None else mask.data_ptr(), dx.data_ptr(),
+        partial.data_ptr(), dw.data_ptr(), *head, B, Fc, Fx, *tail,
+        _stream(dev),
+    )
+    _cuda.check(rc, "ds_stencil_dxdw")
+    _cuda.launch_counts["dxdw"] += 1
+    return dx, dw
 
 
 def run_stencil_kernel(st, kind, n_terms, xc, wext, strips, wk3, B,
@@ -225,6 +385,56 @@ def run_stencil_kernel(st, kind, n_terms, xc, wext, strips, wk3, B,
     return run_stencil_plain(st, kind, n_terms, xc, wext, strips, wk3, B)
 
 
+def run_grad_kernel(st, kind, n_terms, xc, wext, strips, dy, B,
+                    offsets=None):
+    """The raw dW of the two-kernel backward (K3).
+
+    dW[k, fi, fo] = sum_b sum of T_k(L~) x[b, fi] * dy[b, fo] over the
+    interior lanes, the recursion run on ``xc`` through its strips.  The
+    caller has zeroed dy's corrupt rows; dy's halo lanes are never read.
+
+    :param xc: (B*Fin, 12, n, P_l) forward input
+    :param strips: (top, bot, ls) halo strips of ``xc``
+    :param dy: (B*Fout, 12, n, P_l) cotangent of the conv output
+    :return: (K*Fin, Fout) float, Fin-major per term (k-major rows)
+    """
+    if xc.is_cuda:
+        return _grad_cuda(st, kind, n_terms, xc, wext, strips, dy, B, offsets)
+    if xc.device.type != "cpu":
+        raise ValueError(f"no grad kernel implementation for device {xc.device}")
+    return run_grad_plain(st, kind, n_terms, xc, wext, strips, dy, B)
+
+
+def run_dxdw_kernel(st, kind, n_terms, dy, wext, strips, wk3t, xr, mask, B,
+                    offsets=None):
+    """The raw fused backward (K2): dx and dW in one pass over dy.
+
+    Channel roles are the forward's swapped: the recursion runs on ``dy``
+    through its strips, with ``wk3t`` = (K, Fout, Fin).  L~ is symmetric,
+    so dW[k] = <T_k(L~) x, dy> = <x, T_k(L~) dy>, over the terms the dx pass
+    already makes.
+
+    :param dy: (B*Fout, 12, n, P_l) cotangent (interior lanes read)
+    :param strips: (top, bot, ls) halo strips of ``dy``
+    :param wk3t: (K, Fout, Fin) transposed channel kernel per term
+    :param xr: (B*Fin, 12, n, P_l) forward input (interior lanes read)
+    :param mask: (12, n, P_l) plane multiplied into x at the interior lanes
+        (``tables["corr_mask"]``: 0 at the corrupt rows), or None
+    :return: ``(dx, dW)``: dx (B*Fin, 12, n, P_l) = sum_k T_k(L~) dy W_k^T,
+        0 outside the interior lanes and wrong at the corrupt rows, as the
+        forward's y; dW (K*Fin, Fout) in the forward's orientation
+    """
+    if wk3t.shape[0] != n_terms:
+        raise ValueError(f"wk3t has {wk3t.shape[0]} terms, expected {n_terms}")
+    if dy.is_cuda:
+        return _dxdw_cuda(st, kind, dy, wext, strips, wk3t, xr, mask, B,
+                          offsets)
+    if dy.device.type != "cpu":
+        raise ValueError(f"no dxdw kernel implementation for device {dy.device}")
+    return run_dxdw_plain(st, kind, n_terms, dy, wext, strips, wk3t, xr, mask,
+                          B)
+
+
 # ---------------------------------------------------------------------------
 # corner correction: exact recompute of the rows the rectangular face
 # extension cannot represent
@@ -243,9 +453,8 @@ def _ball_terms(tables, xc, n_terms, kind):
     """Exact per-term basis values over the correction ball, (Bn, C) each;
     the ball's source rows are read with one flat gather."""
     idx = tables["corr_idx"]
-    val = tables["corr_val"]
-    C = xc.shape[0]
-    t = xc.reshape(C, -1)[:, tables["corr_src_cfp"]].t().float()
+    val = tables["corr_val"].to(xc.dtype)
+    t = _gather_rows(xc, tables["corr_src_cfp"])
     yield t
     prev2, prev1 = None, t
     for k in range(1, n_terms):
@@ -268,30 +477,138 @@ def _corrected_rows(tables, xc, wk3, n_terms, kind, B):
     return acc
 
 
-def _forward_cfp(st, tables, xc, kernel, n_terms, kind, B, strips_fn, conv_fn):
-    C = xc.shape[0]
-    Fin = C // B
-    Fout = kernel.shape[-1]
-    wk3 = kernel.float().reshape(Fin, n_terms, Fout).permute(1, 0, 2).contiguous()
-    xc = xc.float().contiguous()
-    strips = strips_fn(xc)
+def _basis_at_rows(tables, xc, n_terms, kind):
+    """Exact per-term basis values at the corrupt rows: (K, Rc, C)."""
+    out_rows = tables["corr_out_ball"]
+    return torch.stack([tk[out_rows] for tk in
+                        _ball_terms(tables, xc, n_terms, kind)])
+
+
+def _gather_rows(a, rows):
+    """(C, 12, n, P_l) at flat cface rows ``rows`` -> (len(rows), C), one
+    gather."""
+    return a.reshape(a.shape[0], -1)[:, rows].t()
+
+
+def _patch_rows(y, rows, y_fix):
+    """Overwrite the rows ``rows`` of y (C, 12, n, P_l) with ``y_fix``
+    (len(rows), C), one scatter (in place)."""
+    y.reshape(y.shape[0], -1)[:, rows] = y_fix.t().to(y.dtype)
+    return y
+
+
+def _forward_cfp(st, tables, xc, wk3, n_terms, kind, B, strips, conv_fn):
     y = conv_fn(st, kind, n_terms, xc, tables["weights"], strips, wk3, B)
     if "corr_rows_cfp" in tables:
         y_fix = _corrected_rows(tables, xc, wk3, n_terms, kind, B)
-        y = y.reshape(B * Fout, -1)
-        y[:, tables["corr_rows_cfp"]] = y_fix.t().to(y.dtype)
-        y = y.reshape(B * Fout, 12, st.nside, -1)
+        y = _patch_rows(y, tables["corr_rows_cfp"], y_fix)
     return y
+
+
+def _wk3(kernel, n_terms):
+    """(Fin*K, Fout) Fin-major kernel -> (K, Fin, Fout)."""
+    Fin = kernel.shape[0] // n_terms
+    return kernel.reshape(Fin, n_terms, -1).permute(1, 0, 2).contiguous()
+
+
+def _wk3t(kernel, n_terms):
+    """(Fin*K, Fout) Fin-major kernel -> (K, Fout, Fin), the dx pass's."""
+    Fin = kernel.shape[0] // n_terms
+    return kernel.reshape(Fin, n_terms, -1).permute(1, 2, 0).contiguous()
+
+
+class _FusedConv(torch.autograd.Function):
+    """Strips, then K1, then the correction; backward on the
+    ``config.fused_dw`` route (the JAX package's custom VJP without its
+    TPU routing)."""
+
+    @staticmethod
+    def forward(ctx, xc, kernel, st, tables, n_terms, kind, B):
+        strips = build_strips(st, xc, tables.get("strip_idx"))
+        conv = lambda *a: run_stencil_kernel(*a, offsets=tables.get("offsets"))
+        y = _forward_cfp(st, tables, xc, _wk3(kernel, n_terms), n_terms, kind,
+                         B, strips, conv)
+        # the fused backward rebuilds its strips from dy: keep x's only for
+        # the two-kernel backward
+        ctx.save_for_backward(xc, kernel,
+                              *(() if config.fused_dw else strips))
+        ctx.meta = (st, tables, n_terms, kind, B)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        st, tables, K, kind, B = ctx.meta
+        xc, kernel, *strips = ctx.saved_tensors
+        dy = dy.to(xc.dtype).contiguous()
+        Fin = xc.shape[0] // B
+        Fout = kernel.shape[-1]
+        need_dx = ctx.needs_input_grad[0]
+        has_corr = "corr_rows_cfp" in tables
+        rows = tables.get("corr_rows_cfp")
+        offsets = tables.get("offsets")
+        wext = tables["weights"]
+        wk3t = _wk3t(kernel, K)
+        dx = None
+        if config.fused_dw:
+            # one pass over dy: dx, and dW at every row but the corrupt
+            # ones (x is zeroed there by the mask), whose exact terms
+            # <x, T_k(L~) dy> come from the ball
+            dy_strips = build_strips(st, dy, tables.get("strip_idx"))
+            dx, dw = run_dxdw_kernel(st, kind, K, dy, wext, dy_strips, wk3t,
+                                     xc, tables.get("corr_mask"), B,
+                                     offsets=offsets)
+            dwk = dw.reshape(K, Fin, Fout)
+            if has_corr:
+                if need_dx:
+                    dx = _patch_rows(
+                        dx, rows, _corrected_rows(tables, dy, wk3t, K, kind, B))
+                tdy = _basis_at_rows(tables, dy, K, kind)
+                x_rc = _gather_rows(xc, rows)
+                dwk = dwk + torch.einsum(
+                    "rbf,krbo->kfo", x_rc.reshape(-1, B, Fin),
+                    tdy.reshape(K, -1, B, Fout))
+        else:
+            # dx: the patched conv is the exact symmetric operator, so its
+            # adjoint is the same conv with the transposed channel kernel
+            if need_dx:
+                conv = lambda *a: run_stencil_kernel(*a, offsets=offsets)
+                dx = _forward_cfp(st, tables, dy, wk3t, K, kind, B,
+                                  build_strips(st, dy, tables.get("strip_idx")),
+                                  conv)
+            if not strips:  # fused_dw was switched on between fwd and bwd
+                strips = build_strips(st, xc, tables.get("strip_idx"))
+            dy_clean = dy * tables["corr_mask"].to(dy.dtype) if has_corr else dy
+            dwk = run_grad_kernel(st, kind, K, xc, wext, tuple(strips),
+                                  dy_clean, B,
+                                  offsets=offsets).reshape(K, Fin, Fout)
+            if has_corr:
+                basis = _basis_at_rows(tables, xc, K, kind)
+                dy_rc = _gather_rows(dy, rows)
+                dwk = dwk + torch.einsum(
+                    "krbf,rbo->kfo", basis.reshape(K, -1, B, Fin),
+                    dy_rc.reshape(-1, B, Fout))
+        dkernel = dwk.permute(1, 0, 2).reshape(Fin * K, Fout)
+        return (dx if need_dx else None, dkernel.to(kernel.dtype), None, None,
+                None, None, None)
+
+
+def _compute_dtype(xc):
+    """float64 on the plain path when asked for (gradient checks); every
+    other input computes in float32, the kernels' type."""
+    return torch.float64 if xc.dtype == torch.float64 else torch.float32
 
 
 def fused_stencil_conv_cfp(st: FaceStencil, tables, xc, kernel, n_terms,
                            kind, B):
-    """Fused K-term polynomial graph conv in the cface layout.
+    """Fused K-term polynomial graph conv in the cface layout, with its
+    backward.
 
     Strips (:func:`.strips.build_strips`), then the raw conv
     (:func:`run_stencil_kernel`), then the corner-row correction.  The
-    device of ``xc`` decides: CUDA kernels for a CUDA tensor, their plain
-    versions for a CPU tensor.
+    backward takes the route that ``config.fused_dw`` names: K2
+    (:func:`run_dxdw_kernel`) on dy's strips, or the forward conv on dy plus
+    K3 (:func:`run_grad_kernel`).  The device of ``xc`` decides: CUDA
+    kernels for a CUDA tensor, their plain versions for a CPU tensor.
 
     :param st: FaceStencil with ``n_steps >= radius * (n_terms - 1)``
     :param tables: :func:`.stencil.as_tensors` of ``stencil_tables(st)`` on
@@ -300,29 +617,21 @@ def fused_stencil_conv_cfp(st: FaceStencil, tables, xc, kernel, n_terms,
         the interior (lanes [h, h+n)) is read
     :param kernel: (Fin*n_terms, Fout)
     :param B: batch size (the channel packing)
-    :return: (B*Fout, 12, n, P_l) float32, 0 outside the interior lanes
+    :return: (B*Fout, 12, n, P_l) float32 (float64 for a float64 input on
+        the CPU), 0 outside the interior lanes; its gradient with respect
+        to ``xc`` is 0 outside the interior lanes too
     """
-    if xc.is_cuda and torch.is_grad_enabled() and (
-            xc.requires_grad or kernel.requires_grad):
-        raise NotImplementedError(
-            "the fused stencil conv has no CUDA backward yet (ROADMAP.md, "
-            "queue 1: backward kernels K2 and K3); run the forward under "
-            "torch.no_grad() or torch.inference_mode()"
-        )
-    offsets = tables.get("offsets")
-    index = tables.get("strip_idx")
-    return _forward_cfp(
-        st, tables, xc, kernel, n_terms, kind, B,
-        lambda x: build_strips(st, x, index),
-        lambda *a: run_stencil_kernel(*a, offsets=offsets),
-    )
+    dt = _compute_dtype(xc)
+    return _FusedConv.apply(xc.to(dt).contiguous(), kernel.to(dt), st, tables,
+                            n_terms, kind, B)
 
 
 def fused_stencil_conv_cfp_plain(st: FaceStencil, tables, xc, kernel,
                                  n_terms, kind, B):
     """:func:`fused_stencil_conv_cfp` through the plain versions of both
-    kernels, on any device (the reference the kernels are held to)."""
-    return _forward_cfp(
-        st, tables, xc, kernel, n_terms, kind, B,
-        lambda x: strip_arrays(st, x), run_stencil_plain,
-    )
+    forward kernels, on any device, differentiated by autograd through the
+    torch ops (the reference the kernels are held to)."""
+    dt = _compute_dtype(xc)
+    xc = xc.to(dt).contiguous()
+    return _forward_cfp(st, tables, xc, _wk3(kernel.to(dt), n_terms), n_terms,
+                        kind, B, strip_arrays(st, xc), run_stencil_plain)

@@ -152,7 +152,9 @@ def stencil_tables(st: FaceStencil):
     fix rows it holds, for the fused conv:
     ``corr_src_cfp`` / ``corr_rows_cfp``, the correction ball's source rows
     and the corrupt rows as flat indices into one channel of the cface
-    layout (one gather and one scatter per conv); ``strip_idx``, the halo
+    layout (one gather and one scatter per conv); ``corr_mask``, the
+    (12, n, P_l) plane that is 0 at the corrupt rows and 1 elsewhere (the
+    backward's masks); ``strip_idx``, the halo
     strips' source map (:func:`.strips.strip_index_map`); and ``offsets``,
     the (nplanes, 2) tap offsets.
     """
@@ -171,6 +173,11 @@ def stencil_tables(st: FaceStencil):
 
         extra["corr_src_cfp"] = cfp_rows(st.corr_src)
         extra["corr_rows_cfp"] = cfp_rows(st.corr_out_face)
+        # (12, n, P_l) plane, 0 at the corrupt rows and 1 elsewhere: the
+        # backward zeroes those rows of x (K2) or dy (K3) with it
+        cm = np.ones(12 * n * P_l, np.float32)
+        cm[extra["corr_rows_cfp"]] = 0.0
+        extra["corr_mask"] = cm.reshape(12, n, P_l)
     if cfp_structural_available(st, "mono", 2):
         extra["strip_idx"] = strip_index_map(st)
     return {

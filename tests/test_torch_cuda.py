@@ -1,6 +1,6 @@
 """PyTorch port on a CUDA card: each hand-written kernel against its plain
-version on identical CUDA inputs, and a small model forward against the
-CPU.
+version on identical CUDA inputs, and a small model's forward and train
+step against the CPU.
 
 Marked ``cuda``; every test skips where ``torch.cuda.is_available()`` is
 false.  The file imports neither jax nor the JAX package, so it also runs
@@ -10,8 +10,12 @@ fixtures):
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
 Tolerance: 2e-5 of the plain version's max (both float32 without TF32;
-only the order of the sums differs); the strip gather must be exact.
+only the order of the sums differs), 1e-4 for a dW, which sums a whole map
+of products per entry; the strip gather must be exact, and a dW must be
+bitwise-equal across two calls (no atomics).
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -19,6 +23,8 @@ import torch
 
 import deepsphere_tpu_torch as dt
 from deepsphere_tpu_torch.graph import build_sphere_graph
+from deepsphere_tpu_torch import config
+from deepsphere_tpu_torch.interop import export_jax_variables
 from deepsphere_tpu_torch.nn import healpy_layers as hp_nn
 from deepsphere_tpu_torch.ops import _cuda
 from deepsphere_tpu_torch.ops import fused_stencil as fs
@@ -28,6 +34,7 @@ from deepsphere_tpu_torch.ops.stencil import as_tensors, stencil_tables
 pytestmark = pytest.mark.cuda
 
 TOL = 2e-5
+DW_TOL = 1e-4
 
 _GRAPHS = {}
 
@@ -48,7 +55,8 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     _cuda.reset_launch_counts()
-    return torch.device("cuda")
+    yield torch.device("cuda")
+    config.set_fused_dw(True)
 
 
 def _xc(rng, dev, n, h, C):
@@ -102,16 +110,86 @@ def test_conv_kernel_matches_plain(rng, dev, n, k, kind, scale, K, B, Fin,
     y_p = fs.fused_stencil_conv_cfp_plain(st, tables, x, kern, K, kind, B)
     torch.cuda.synchronize()
     _close(y[..., h:h + n], y_p[..., h:h + n])
-    assert _cuda.launch_counts == {"strips": 1, "stencil_conv": 2}
+    assert _cuda.launch_counts == {"strips": 1, "stencil_conv": 2, "dxdw": 0,
+                                   "grad": 0}
 
 
-def test_conv_raises_under_autograd(rng, dev):
-    st = _stencil(16, 0.75, 4)
+_BWD = [(16, 8, "cheby", 0.75, 10, 2, 3, 9), (32, 8, "cheby", 0.75, 5, 1, 2, 4),
+        (64, 8, "mono", 1.0, 3, 2, 1, 8), (8, 8, "cheby", 0.75, 3, 3, 2, 2),
+        (16, 20, "cheby", 0.75, 3, 2, 2, 3), (32, 20, "mono", 1.0, 10, 1, 2, 2)]
+
+
+@pytest.mark.parametrize("n,k,kind,scale,K,B,Fin,Fout", _BWD)
+def test_dxdw_kernel_matches_plain(rng, dev, n, k, kind, scale, K, B, Fin,
+                                   Fout):
+    """K2 raw: dx on every interior lane, zero halo lanes, dW with the
+    corr_mask plane; dW bitwise-equal across two calls."""
+    st = _stencil(n, scale, (K - 1) * (2 if k == 20 else 1), k)
+    h = st.n_steps
     tables = as_tensors(stencil_tables(st), dev)
-    x = _xc(rng, dev, 16, 4, 1)
-    kern = torch.ones(5, 1, device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        fs.fused_stencil_conv_cfp(st, tables, x, kern, 5, "cheby", 1)
+    dy = _xc(rng, dev, n, h, B * Fout)
+    x = _xc(rng, dev, n, h, B * Fin)
+    wk3t = torch.from_numpy(
+        rng.normal(size=(K, Fout, Fin)).astype(np.float32)).to(dev)
+    s = tstrips.strip_arrays(st, dy)
+    args = (st, kind, K, dy, tables["weights"], s, wk3t, x,
+            tables.get("corr_mask"), B)
+    dx, dw = fs.run_dxdw_kernel(*args)
+    _, dw2 = fs.run_dxdw_kernel(*args)
+    dx_p, dw_p = fs.run_dxdw_plain(*args)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts["dxdw"] == 2
+    _close(dx[..., h:h + n], dx_p[..., h:h + n])
+    assert dx[..., :h].abs().max() == 0 and dx[..., h + n:].abs().max() == 0
+    _close(dw, dw_p, DW_TOL)
+    assert torch.equal(dw, dw2)
+
+
+@pytest.mark.parametrize("n,k,kind,scale,K,B,Fin,Fout", _BWD)
+def test_grad_kernel_matches_plain(rng, dev, n, k, kind, scale, K, B, Fin,
+                                   Fout):
+    """K3 raw against its plain version; dW bitwise-equal across calls."""
+    st = _stencil(n, scale, (K - 1) * (2 if k == 20 else 1), k)
+    h = st.n_steps
+    tables = as_tensors(stencil_tables(st), dev)
+    x = _xc(rng, dev, n, h, B * Fin)
+    dy = _xc(rng, dev, n, h, B * Fout)
+    args = (st, kind, K, x, tables["weights"], tstrips.strip_arrays(st, x),
+            dy, B)
+    dw = fs.run_grad_kernel(*args)
+    dw2 = fs.run_grad_kernel(*args)
+    dw_p = fs.run_grad_plain(*args)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts["grad"] == 2
+    _close(dw, dw_p, DW_TOL)
+    assert torch.equal(dw, dw2)
+
+
+@pytest.mark.parametrize("fused_dw", [True, False])
+def test_conv_backward_matches_plain_autograd(rng, dev, fused_dw):
+    """The autograd function on the card (kernels) against autograd through
+    the plain forward on the card, nside 32, K=5 (corrections live)."""
+    config.set_fused_dw(fused_dw)
+    n, K, B, Fin, Fout = 32, 5, 2, 3, 4
+    st = _stencil(n, 0.75, K - 1)
+    h = st.n_steps
+    tables = as_tensors(stencil_tables(st), dev)
+    x = _xc(rng, dev, n, h, B * Fin).requires_grad_()
+    kern = torch.from_numpy(
+        rng.normal(size=(Fin * K, Fout)).astype(np.float32)).to(dev)
+    kern.requires_grad_()
+    dy = _xc(rng, dev, n, h, B * Fout)
+    grads = []
+    for conv in (fs.fused_stencil_conv_cfp, fs.fused_stencil_conv_cfp_plain):
+        y = conv(st, tables, x, kern, K, "cheby", B)
+        grads.append(torch.autograd.grad(y, (x, kern), dy))
+    (dx, dk), (dx_p, dk_p) = grads
+    _close(dx[..., h:h + n], dx_p[..., h:h + n])
+    _close(dk, dk_p, DW_TOL)
+    assert dx[..., :h].abs().max() == 0
+    want = ({"strips": 2, "stencil_conv": 1, "dxdw": 1, "grad": 0} if fused_dw
+            else {"strips": 2, "stencil_conv": 2, "dxdw": 0, "grad": 1})
+    assert _cuda.launch_counts == want
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(rng, dev):
@@ -127,13 +205,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(rng, dev):
                                          device=dev), 1)
 
 
-def test_model_forward_matches_cpu(rng, dev):
-    """quick_start architecture at nside 16: the card's logits match the
-    CPU plain path, and the one cface conv launched both kernels once per
-    forward."""
-    nside = 16
-    npix = 12 * nside * nside
-    layers = [
+def _small_quick_start():
+    return [
         hp_nn.HealpyChebyshev(K=10, Fout=8, activation="relu", use_bn=True),
         hp_nn.HealpyPool(p=1),
         hp_nn.HealpyChebyshev(K=10, Fout=16, activation="relu", use_bn=True),
@@ -141,11 +214,58 @@ def test_model_forward_matches_cpu(rng, dev):
         hp_nn.Flatten(),
         hp_nn.Dense(4),
     ]
-    model = dt.HealpyGCNN(nside, np.arange(npix), layers).build((2, npix, 1))
+
+
+def test_model_forward_matches_cpu(rng, dev):
+    """quick_start architecture at nside 16: the card's logits match the
+    CPU plain path, and the one cface conv launched both kernels once per
+    forward."""
+    nside = 16
+    npix = 12 * nside * nside
+    model = dt.HealpyGCNN(nside, np.arange(npix), _small_quick_start()).build(
+        (2, npix, 1), device="cpu")
     x = rng.normal(size=(4, npix, 1)).astype(np.float32)
     want = model.predict(x, batch_size=2)
     _cuda.reset_launch_counts()
     got = model.to(dev).predict(x, batch_size=2)
-    assert _cuda.launch_counts == {"strips": 2, "stencil_conv": 2}
+    assert _cuda.launch_counts == {"strips": 2, "stencil_conv": 2, "dxdw": 0,
+                                   "grad": 0}
     err = np.abs(got - want).max() / np.abs(want).max()
     assert err <= 1e-4, err
+
+
+@pytest.mark.parametrize("fused_dw", [True, False])
+def test_train_step_matches_cpu(rng, dev, fused_dw):
+    """One train_on_batch of the same quick_start-shaped model at nside 16
+    built on the card and copied to the CPU: loss, every gradient and the
+    BN statistics agree."""
+    config.set_fused_dw(fused_dw)
+    nside = 16
+    npix = 12 * nside * nside
+    model = dt.HealpyGCNN(nside, np.arange(npix), _small_quick_start()).build(
+        (4, npix, 1), seed=2)
+    cpu = copy.deepcopy(model).to("cpu")
+    x = rng.normal(size=(4, npix, 1)).astype(np.float32)
+    y = rng.randint(0, 4, size=4)
+    logs = []
+    for m in (model, cpu):
+        m.compile(optimizer=1e-3,
+                  loss="sparse_categorical_crossentropy_from_logits")
+        _cuda.reset_launch_counts()
+        logs.append(m._trainer.train_on_batch(x, y))
+    assert abs(logs[0]["loss"] - logs[1]["loss"]) <= 1e-5 * abs(logs[1]["loss"])
+    g, g_c = (export_jax_variables(m, grads=True) for m in (model, cpu))
+    for key, sub in g_c.items():
+        for name, want in sub.items():
+            got = g[key][name]
+            if isinstance(want, dict):
+                for nm in want:
+                    _close(torch.from_numpy(got[nm]), torch.from_numpy(want[nm]),
+                           DW_TOL)
+            else:
+                _close(torch.from_numpy(got), torch.from_numpy(want), DW_TOL)
+    s, s_c = (export_jax_variables(m)["batch_stats"] for m in (model, cpu))
+    for key in s_c:
+        for nm in ("mean", "var"):
+            _close(torch.from_numpy(s[key]["bn"][nm]),
+                   torch.from_numpy(s_c[key]["bn"][nm]), 1e-5)

@@ -115,12 +115,12 @@ def test_index_helpers_match_jax():
 
 
 def test_native_core_builds_from_the_jax_source():
-    """The port compiles the JAX package's C++ file (not a copy) into its
-    own build directory, and it computes the same graph."""
+    """The port compiles its own copy of the JAX package's C++ file into
+    its own build directory, and it computes the same graph."""
     if not jnative.available():
         pytest.skip("no C++ toolchain: both packages use the numpy fallback")
     assert tnative.available()
-    assert tnative._SRC.endswith("deepsphere_tpu/native/healpix_core.cpp")
+    assert tnative._SRC.endswith("deepsphere_tpu_torch/native/healpix_core.cpp")
     assert tnative._lib._name.startswith(tnative._BUILD)
     a, b = jnative.grid_laplacian(8, -0.5166), tnative.grid_laplacian(8, -0.5166)
     for k in a:

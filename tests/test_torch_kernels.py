@@ -1,4 +1,4 @@
-"""PyTorch port, the two kernels of the slice and their plain versions.
+"""PyTorch port, the hand-written kernels' plain versions.
 
 * K4, the halo-strip builder (``csrc/strips.cu``): its plain version
   (``strip_arrays``) and its host source map must reproduce the JAX
@@ -7,6 +7,9 @@
   is held RAW (before the corner correction — at small nside the correction
   overwrites most rows and would hide it) against the JAX Pallas kernel in
   interpret mode, and the corrected conv against the JAX cface conv.
+* K2, the fused backward dx + dW (``csrc/stencil_dxdw.cu``), and K3, the
+  dW of the two-kernel backward (``csrc/stencil_grad.cu``): their plain
+  versions held RAW against the JAX Pallas kernels in interpret mode.
 
 On the CPU the wrappers run the plain versions and never launch; the
 kernels themselves are compared with their plain versions on a card in
@@ -113,7 +116,8 @@ def test_build_strips_on_cpu_is_the_plain_version(rng):
     x = torch.from_numpy(_xc(rng, 8, 4, 2))
     for g, w in zip(tstrips.build_strips(st, x), tstrips.strip_arrays(st, x)):
         assert torch.equal(g, w)
-    assert _cuda.launch_counts == {"strips": 0, "stencil_conv": 0}
+    assert _cuda.launch_counts == {"strips": 0, "stencil_conv": 0, "dxdw": 0,
+                                   "grad": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -217,12 +221,13 @@ def test_fused_conv_matches_jax(rng, K, n_corr):
     plain = tfs.fused_stencil_conv_cfp_plain(
         st, tables, torch.from_numpy(x), torch.from_numpy(kern), K, "cheby", B)
     assert torch.equal(got, plain)
-    assert _cuda.launch_counts == {"strips": 0, "stencil_conv": 0}
+    assert _cuda.launch_counts == {"strips": 0, "stencil_conv": 0, "dxdw": 0,
+                                   "grad": 0}
 
 
 def test_fused_conv_backward_runs_on_cpu(rng):
-    """On the CPU the plain path is differentiable (the CUDA path raises
-    under autograd until the backward kernels land)."""
+    """On the CPU the conv's backward runs the plain versions of its
+    kernels (``tests/test_torch_train.py`` holds it to JAX)."""
     n, h, K, B = 8, 2, 3, 1
     _, st = _stencils(n, 1.0, h)
     tables = as_tensors(stencil_tables(st))
@@ -230,3 +235,88 @@ def test_fused_conv_backward_runs_on_cpu(rng):
     kern = torch.ones(2 * K, 2, requires_grad=True)
     tfs.fused_stencil_conv_cfp(st, tables, x, kern, K, "mono", B).sum().backward()
     assert torch.isfinite(x.grad).all() and torch.isfinite(kern.grad).all()
+
+
+# ---------------------------------------------------------------------------
+# K2 and K3: the raw backward kernels
+# ---------------------------------------------------------------------------
+
+# (nside, k, kind, scale, K): cheby and mono, one radius-2 stencil (k=20)
+_BWD_CASES = [(8, 8, "cheby", 0.75, 5), (16, 8, "mono", 1.0, 3),
+              (16, 20, "cheby", 0.75, 3)]
+
+
+def _bwd_inputs(rng, n, k, scale, K):
+    """Stencils and inputs with garbage in every halo lane; B=2, Fin=2,
+    Fout=3 (Fin != Fout, so a transposed dW cannot pass)."""
+    r = 2 if k == 20 else 1
+    h = r * (K - 1)
+    sj, st = _stencils(n, scale, h, k)
+    assert st.radius == r
+    B, Fin, Fout = 2, 2, 3
+    x = _xc(rng, n, h, B * Fin, garbage=True)
+    dy = _xc(rng, n, h, B * Fout, garbage=True)
+    return sj, st, h, B, Fin, Fout, x, dy
+
+
+@pytest.mark.parametrize("n,k,kind,scale,K", _BWD_CASES)
+def test_raw_dxdw_matches_jax_kernel(rng, n, k, kind, scale, K):
+    """Plain K2 against ``_run_dxdw_kernel`` (interpret mode): dx on every
+    interior lane (corner rows included, before their patch) and dW with
+    the corr_mask plane applied to x."""
+    sj, st, h, B, Fin, Fout, x, dy = _bwd_inputs(rng, n, k, scale, K)
+    wk3t = rng.normal(size=(K, Fout, Fin)).astype(np.float32)
+    jt = {kk: jnp.asarray(v) for kk, v in jstencil.stencil_tables(sj).items()}
+    dx_j, dw_j = jps._run_dxdw_kernel(
+        sj, kind, K, jnp.asarray(dy), jnp.asarray(sj.weights),
+        jps._strip_arrays(sj, jnp.asarray(dy)), jnp.asarray(wk3t),
+        jnp.asarray(x), jps._dw_mask_graph(sj, jnp.float32, jt), B,
+        interpret=True)
+    tables = as_tensors(stencil_tables(st))
+    dyt = torch.from_numpy(dy)
+    dx, dw = tfs.run_dxdw_kernel(
+        st, kind, K, dyt, torch.from_numpy(st.weights),
+        tstrips.strip_arrays(st, dyt), torch.from_numpy(wk3t),
+        torch.from_numpy(x), tables["corr_mask"], B)
+    assert dx.shape == (B * Fin, 12, n, 128) and dw.shape == (K * Fin, Fout)
+    _close(dx[..., h:h + n].numpy(), np.asarray(dx_j)[..., h:h + n])
+    _close(dw.numpy(), np.asarray(dw_j))
+    assert dx[..., :h].abs().max() == 0 and dx[..., h + n:].abs().max() == 0
+    assert _cuda.launch_counts["dxdw"] == 0
+
+
+@pytest.mark.parametrize("n,k,kind,scale,K", _BWD_CASES)
+def test_raw_grad_matches_jax_kernel(rng, n, k, kind, scale, K):
+    """Plain K3 against ``_run_grad_kernel`` (interpret mode); dy's halo
+    lanes hold garbage that neither may read."""
+    sj, st, h, B, Fin, Fout, x, dy = _bwd_inputs(rng, n, k, scale, K)
+    want = jps._run_grad_kernel(
+        sj, kind, K, jnp.asarray(x), jnp.asarray(sj.weights),
+        jps._strip_arrays(sj, jnp.asarray(x)), jnp.asarray(dy), B, Fin,
+        interpret=True)
+    xt = torch.from_numpy(x)
+    got = tfs.run_grad_kernel(st, kind, K, xt, torch.from_numpy(st.weights),
+                              tstrips.strip_arrays(st, xt),
+                              torch.from_numpy(dy), B)
+    assert got.shape == (K * Fin, Fout)
+    _close(got.numpy(), np.asarray(want))
+    assert _cuda.launch_counts["grad"] == 0
+
+
+def test_corr_mask_zeroes_exactly_the_corrupt_rows():
+    n, h = 16, 4
+    sj, st = _stencils(n, 0.75, h)
+    cm = stencil_tables(st)["corr_mask"]
+    np.testing.assert_array_equal(cm, jstencil.stencil_tables(sj)["corr_mask"])
+    assert cm.shape == (12, n, 128) and (cm == 0).sum() == st.corr_out_face.shape[0]
+
+
+@pytest.mark.parametrize("n,h,r,nplanes,K,T", [(64, 9, 1, 9, 10, 32),
+                                               (16, 9, 1, 9, 10, 16),
+                                               (1024, 4, 1, 9, 5, 32)])
+def test_backward_tile_fits_shared_memory(n, h, r, nplanes, K, T):
+    """The backward kernels add K x 8 warps x 8 floats of dW scratch to
+    K1's window and still take the largest tile at the main-path shapes."""
+    assert tfs._conv_tile(n, h, r, nplanes, K) == T
+    assert tfs._conv_smem(T, h, r, nplanes, K) == (
+        tfs._conv_smem(T, h, r, nplanes) + 4 * K * 64)

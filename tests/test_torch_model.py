@@ -216,12 +216,12 @@ def test_quick_start_model_matches_jax(rng):
     vv = _random_stats(_np_tree({k: v[k] for k in ("params", "batch_stats")}),
                        rng)
     want = np.asarray(jm.apply({**v, **vv}, jnp.asarray(x)))
-    tm.build(x.shape)
+    tm.build(x.shape, device="cpu")
     load_jax_variables(tm, vv)
     _cuda.reset_launch_counts()
     got = tm.predict(x, batch_size=1)
     _close(got, want, rtol=1e-4)
-    assert _cuda.launch_counts == {"strips": 0, "stencil_conv": 0}
+    assert all(v == 0 for v in _cuda.launch_counts.values())
     # graph tables are buffers but stay out of the checkpoint state
     keys = list(tm.state_dict())
     assert "layers.layer_0.kernel" in keys and "layers.layer_0.bn.var" in keys
@@ -234,8 +234,10 @@ def test_build_is_seeded_and_load_checks_shapes():
     npix = 12 * nside * nside
     layers = lambda: [thp.HealpyChebyshev(K=3, Fout=2, use_bn=True),
                       thp.HealpyPool(p=1), thp.Flatten(), thp.Dense(3)]
-    a = dt.HealpyGCNN(nside, np.arange(npix), layers()).build((1, npix, 1), seed=3)
-    b = dt.HealpyGCNN(nside, np.arange(npix), layers()).build((1, npix, 1), seed=3)
+    a = dt.HealpyGCNN(nside, np.arange(npix), layers()).build(
+        (1, npix, 1), seed=3, device="cpu")
+    b = dt.HealpyGCNN(nside, np.arange(npix), layers()).build(
+        (1, npix, 1), seed=3, device="cpu")
     for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)
     good = {"params": {"layers_layer_0": {"kernel": np.zeros((3, 2))},
@@ -297,7 +299,7 @@ def test_port_imports_no_jax():
             hp.HealpyChebyshev(K=10, Fout=32, activation="relu", use_bn=True),
             hp.HealpyPool(p=1),
             hp.HealpyChebyshev(K=10, Fout=32, activation="relu"),
-            hp.Flatten(), hp.Dense(4)]).build((2, npix, 1))
+            hp.Flatten(), hp.Dense(4)]).build((2, npix, 1), device="cpu")
         y = m.predict(np.random.RandomState(0).normal(size=(2, npix, 1)))
         assert y.shape == (2, 4) and np.isfinite(y).all()
         assert not any(k.split(".")[0] in ("jax", "flax", "deepsphere_tpu")
