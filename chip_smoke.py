@@ -38,10 +38,25 @@ Phases, one result line each (with the elapsed seconds):
 6. the headline conv (nside 1024, K=5 Chebyshev, Fin=Fout=4, batch 4) on
    the kernels against the plain per-step path, both on the card: forward,
    then forward + backward with a fixed random cotangent on both routes
-   (dx to 2e-5, dW to 1e-4).
+   (dx to 2e-5, dW to 1e-4);
+7. sharded, on a 1 x 1 ``("data", "pixel")`` mesh of one NCCL rank: (a) the
+   edge-band cut (K5) against its plain version, exactly, at the quick_start
+   convs' shapes on 12 and on 3 faces and at the headline, with its time,
+   bound and the ``index_select`` of the same map; (b) the shard data flow:
+   K5 on 4 face slices, the buffers concatenated as the all-gather returns
+   them, every shard's strips from them, exactly the unsharded K4 strips'
+   slices and the plain band strips; (c) the face-sharded headline conv,
+   forward and forward + backward, against the unsharded conv on the K1+K3
+   route (y, dx 2e-5; dW 1e-4); (d) the quick_start classifier under the
+   mesh (``shard_cfg``, ``Trainer(data_sharding=...)``), 3 steps through
+   ``data_iterator`` with their launches counted (3 K5 per forward), the
+   first from phase 5's weights and batch held to the unsharded K1+K3 step
+   on the card and to phase 5's float64 CPU step (loss 1e-5, gradients
+   1e-3, BN 1e-5), and ms per step of both.
 
 It then prints the card line, one JSON line with every kernel's launches on
-the training path, error, times and bound, and finally
+its slice's training path (phase 5 for K1-K4, phase 7 for K5), error, times
+and bound, and finally
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
 non-zero and prints no result line.  It needs one card, never falls back to
 the CPU, and imports no JAX.
@@ -50,6 +65,7 @@ the CPU, and imports no JAX.
 import copy
 import json
 import os
+import socket
 import subprocess
 import sys
 import time
@@ -83,6 +99,47 @@ def cuda_ms(fn, iters=10, warmup=2):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def graph_ms(fn, iters=20):
+    """Mean device milliseconds of ``fn()`` with no host in between: ``iters``
+    calls captured in one CUDA graph, one replay timed with CUDA events.  For
+    a kernel whose eager call costs the host more than the card (a few MB
+    moved), where ``cuda_ms`` would time the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def device_profile(fn, steps):
+    """(device ops, device-busy ms) per call of ``fn`` over ``steps`` calls,
+    from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            fn(i)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (len(ev) / steps,
+            sum(e.time_range.elapsed_us() for e in ev) / 1e3 / steps)
 
 
 def rel_err(got, want):
@@ -136,15 +193,28 @@ def main():
         as_tensors,
         cface_embed,
         cface_extract,
+        pack_edge_bands,
+        pack_edge_bands_plain,
         stencil_graph_conv,
         stencil_tables,
+        unpack_edge_bands,
     )
     from deepsphere_tpu_torch.ops.strips import (
+        build_band_strips,
         build_strips,
         strip_arrays,
         strip_index_map,
     )
+    from deepsphere_tpu_torch.parallel import (
+        ShardConfig,
+        batch_sharding,
+        data_iterator,
+        face_shard_tables,
+        face_sharded_cfp_conv,
+        make_mesh,
+    )
     from deepsphere_tpu_torch.train.losses import resolve_loss
+    import torch.distributed as dist
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -372,7 +442,7 @@ def main():
     launches = dict(_cuda.launch_counts)
     n_fwd = 4
     want = {"strips": 3 * n_fwd, "stencil_conv": 3 * n_fwd, "dxdw": 0,
-            "grad": 0}
+            "grad": 0, "bands": 0}
     if launches != want:
         raise AssertionError(f"serving launched {launches} in {n_fwd} "
                              f"forwards, expected {want}")
@@ -451,9 +521,11 @@ def main():
 
     # the main path of this slice, counted from 0: one step on each route
     route_want = {
-        True: {"strips": 6, "stencil_conv": 3, "dxdw": 3, "grad": 0},
+        True: {"strips": 6, "stencil_conv": 3, "dxdw": 3, "grad": 0,
+               "bands": 0},
         # conv 1's input needs no gradient, so its dx conv is skipped
-        False: {"strips": 5, "stencil_conv": 5, "dxdw": 0, "grad": 3},
+        False: {"strips": 5, "stencil_conv": 5, "dxdw": 0, "grad": 3,
+                "bands": 0},
     }
     train_launches = {k: 0 for k in _cuda.launch_counts}
     routes = {}
@@ -506,7 +578,8 @@ def main():
         raise AssertionError(f"fit history {hist}")
     if fit_counts != {k: 8 * v for k, v in route_want[True].items()}:
         raise AssertionError(f"fit over 8 steps launched {fit_counts}")
-    missing = [k for k, v in train_launches.items() if v == 0]
+    missing = [k for k in ("strips", "stencil_conv", "dxdw", "grad")
+               if train_launches[k] == 0]
     if missing:
         raise AssertionError(f"the training path never launched {missing}")
 
@@ -556,7 +629,7 @@ def main():
         f"route {step_ms[True]:.3f} ({16e3 / step_ms[True]:.1f} maps/s), "
         f"K1+K3 route {step_ms[False]:.3f} ({16e3 / step_ms[False]:.1f} "
         f"maps/s) on {card}")
-    del routes, m, init
+    del routes, m  # phase 7 starts from ``init`` too
 
     # 6. headline conv: kernels vs the plain per-step path, both on the card
     B, Fin, Fout, K = 4, 4, 4, 5
@@ -631,8 +704,230 @@ def main():
         f"(dx rel {train_ms[False][1]:.2e}, dW rel {train_ms[False][2]:.2e}), "
         f"per-step plain autograd {ms_plain_train:.3f} ms on {card}")
 
+    # 7. sharded: the DP x face-sharded path on a 1 x 1 mesh (one NCCL rank)
+    results["bands"] = []
+    gen = torch.Generator(device=dev).manual_seed(77)
+
+    def band_map(C, F, n, h, P):
+        """Flat index into xc (C, F, n, P) of every element of the packed
+        bands (F, C, 4hn), face col y at lane y + h (the yardstick's map)."""
+        hn = torch.arange(h * n, device=dev)
+        rows = torch.cat([hn // n, n - h + hn // n, hn // h, hn // h])
+        cols = torch.cat([hn % n, hn % n, hn % h, n - h + hn % h]) + h
+        f = torch.arange(F, device=dev)[:, None, None]
+        c = torch.arange(C, device=dev)[None, :, None]
+        return (((c * F + f) * n + rows) * P + cols).reshape(-1)
+
+    def bands_case(label, n, h, C, F):
+        """(a) K5 against its plain version (exact) and index_select."""
+        _, P = fs.cfp_geometry(n, h)
+        xc = torch.randn((C, F, n, P), generator=gen, device=dev)
+        got = pack_edge_bands(xc, n, h)
+        if not torch.equal(got, pack_edge_bands_plain(xc, n, h)):
+            raise AssertionError(f"{label}: K5 differs from the plain version")
+        flat, idx = xc.reshape(-1), band_map(C, F, n, h, P)
+        if not torch.equal(torch.index_select(flat, 0, idx), got.reshape(-1)):
+            raise AssertionError(f"{label}: index_select bands differ")
+        # device time (graph replay): the eager call is host-bound here
+        ms = graph_ms(lambda: pack_edge_bands(xc, n, h))
+        ms_p = graph_ms(lambda: pack_edge_bands_plain(xc, n, h))
+        ms_l = graph_ms(lambda: torch.index_select(flat, 0, idx))
+        eager = cuda_ms(lambda: pack_edge_bands(xc, n, h), iters=20, warmup=3)
+        b = bound(2 * got.numel() * 4, 0)  # read once, written once
+        results["bands"].append((label, 0.0, ms, ms_p, *b, ms_l))
+        say("sharded", f"{label}: K5 exact, {ms:.4f} ms on the device (plain "
+            f"{ms_p:.4f}, index_select {ms_l:.4f}, bound {b[0]:.4f} {b[1]}; "
+            f"{got.numel() * 4 / 1e6:.2f} MB each way); {eager:.4f} ms per "
+            "eager call")
+
+    def dataflow(label, st, C, S=4):
+        """(b) K5 on S face slices, the buffers concatenated (what the
+        all-gather returns), each shard's strips from them: exactly the
+        unsharded K4 strips' slices and the plain band strips."""
+        n, h = st.nside, st.n_steps
+        _, P = fs.cfp_geometry(n, h)
+        xc = torch.randn((C, 12, n, P), generator=gen, device=dev)
+        F = 12 // S
+        bands = torch.cat([pack_edge_bands(xc[:, s * F:(s + 1) * F]
+                                           .contiguous(), n, h)
+                           for s in range(S)])
+        full = build_strips(st, xc)
+        for s in range(S):
+            faces = range(s * F, (s + 1) * F)
+            got = build_band_strips(st, bands, faces)
+            plain = strip_arrays(st, None, faces, unpack_edge_bands(bands, n, h))
+            for nm, g, f, p_ in zip(("top", "bot", "ls"), got, full, plain):
+                if not (torch.equal(g, f[:, s * F:(s + 1) * F])
+                        and torch.equal(g, p_)):
+                    raise AssertionError(f"{label}: shard {s} strip {nm} "
+                                         "differs")
+        say("sharded", f"{label}: {S} shards' strips from the gathered bands "
+            "equal the unsharded strips and the plain band strips")
+
+    qs_bands = [(64, 16), (32, 128), (16, 256)]  # (nside, B*Fin), h = 9
+    for F in (12, 3):
+        for n, C in qs_bands:
+            pre = "quick_start" if F == 12 else "face shard of 3:"
+            bands_case(f"{pre} nside={n} C={C} h=9 F_loc={F}", n, 9, C, F)
+    bands_case("headline nside=1024 C=16 h=4 F_loc=12", 1024, 4, 16, 12)
+    for n, C in qs_bands:
+        dataflow(f"quick_start nside={n} C={C}", qs_st[n], C)
+    dataflow("headline nside=1024 C=16", st1024, 16)
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "pixel"))
+        cfg = ShardConfig(mesh)
+
+        # (c) the sharded conv at the headline against the unsharded conv
+        # on the K1 + K3 route
+        B, Fin, Fout, K = 4, 4, 4, 5
+        n, h = 1024, st1024.n_steps
+        inner = slice(h, h + n)
+        tab_sh = as_tensors(face_shard_tables(st1024, 0, 1), dev)
+        _, P = fs.cfp_geometry(n, h)
+        xc = torch.randn((B * Fin, 12, n, P), generator=gen, device=dev)
+        cot = torch.randn((B * Fout, 12, n, P), generator=gen, device=dev)
+        kernel = (torch.randn((Fin * K, Fout), generator=gen, device=dev)
+                  / np.sqrt(Fin * K))
+        xl = xc.clone().requires_grad_()
+        kl = kernel.clone().requires_grad_()
+        sharded = lambda a, k: face_sharded_cfp_conv(
+            st1024, tab_sh, a, k, K, "cheby", B, cfg.pixel_group)
+        unsharded = lambda a, k: fs.fused_stencil_conv_cfp(
+            st1024, tables, a, k, K, "cheby", B)
+        config.set_fused_dw(False)
+        with torch.no_grad():
+            y_s, y_u = sharded(xc, kernel), unsharded(xc, kernel)
+        e_y = rel_err(y_s[..., inner], y_u[..., inner])
+        step_s = lambda: torch.autograd.grad(sharded(xl, kl), (xl, kl), cot)
+        step_u = lambda: torch.autograd.grad(unsharded(xl, kl), (xl, kl), cot)
+        (dx_s, dk_s), (dx_u, dk_u) = step_s(), step_u()
+        e_dx = rel_err(dx_s[..., inner], dx_u[..., inner])
+        e_dk = rel_err(dk_s, dk_u)
+        if not (e_y <= TOL and e_dx <= TOL and e_dk <= DW_TOL):
+            raise AssertionError(f"sharded headline conv: y rel {e_y:.3e}, dx "
+                                 f"rel {e_dx:.3e}, dW rel {e_dk:.3e}")
+        with torch.no_grad():
+            ms_fs = cuda_ms(lambda: sharded(xc, kernel), iters=5, warmup=1)
+            ms_fu = cuda_ms(lambda: unsharded(xc, kernel), iters=5, warmup=1)
+        ms_ts = cuda_ms(step_s, iters=5, warmup=1)
+        ms_tu = cuda_ms(step_u, iters=5, warmup=1)
+        config.set_fused_dw(True)
+        say("sharded", f"headline conv nside {n} K={K} B={B} Fin=Fout={Fin} "
+            f"on a 1 x 1 mesh: y rel {e_y:.2e}, dx rel {e_dx:.2e}, dW rel "
+            f"{e_dk:.2e} against the unsharded K1+K3 route; forward "
+            f"{ms_fs:.3f} ms sharded vs {ms_fu:.3f} ms unsharded; fwd + bwd "
+            f"{ms_ts:.3f} ms vs {ms_tu:.3f} ms on {card}")
+        del xc, cot, xl, kl, y_s, y_u, dx_s, dk_s, dx_u, dk_u, tab_sh
+
+        # (d) the full-width quick_start classifier trained under the mesh,
+        # from phase 5's weights and first batch, so its float64 CPU step
+        # is a reference too
+        t = time.perf_counter()
+        plain = copy.deepcopy(init)
+        model = dt.HealpyGCNN(nside=nside, indices=np.arange(npix),
+                              layers=quick_start(), shard_cfg=cfg)
+        model.build((16, npix, 1), seed=11)
+        model.load_state_dict(init.state_dict())
+        plan = [type(m).__name__ + ("*" if getattr(m, "shard_cfg", None)
+                                    is not None else "")
+                for m in model.layers.values()]
+        say("sharded", f"models built in {time.perf_counter() - t:.2f} s; "
+            f"plan (* under the mesh) {plan}")
+        config.set_fused_dw(False)
+        plain.compile(optimizer=1e-3, loss=loss_name, metrics=["accuracy"])
+        logs_u = plain._trainer.train_on_batch(xt[:16], yt[:16])
+        g_u, s_u = grads_of(plain), stats_of(plain)
+        tr = model.compile(optimizer=1e-3, loss=loss_name,
+                           metrics=["accuracy"],
+                           data_sharding=batch_sharding(mesh))
+        want_step = {"strips": 5, "stencil_conv": 5, "dxdw": 0, "grad": 3,
+                     "bands": 5}
+        batches = data_iterator(mesh, xt, yt, batch_size=16, shuffle=False)
+        _cuda.reset_launch_counts()  # the main path of this slice
+        for i in range(3):
+            xb, yb = next(batches)
+            before = dict(_cuda.launch_counts)
+            logs = tr.train_on_batch(xb, yb)
+            torch.cuda.synchronize()
+            step = {k: v - before[k] for k, v in _cuda.launch_counts.items()}
+            if step != want_step:
+                raise AssertionError(f"sharded step {i} launched {step}, "
+                                     f"expected {want_step}")
+            if i == 0:  # against the unsharded card step and float64
+                g_s, s_s = grads_of(model), stats_of(model)
+                loss_rel = abs(logs["loss"] - logs_u["loss"]) / abs(logs_u["loss"])
+                g_err, s_err = tree_errs(g_s, g_u), tree_errs(s_s, s_u)
+                loss64_rel = abs(logs["loss"] - loss64) / abs(loss64)
+                g64_err, s64_err = tree_errs(g_s, g64), tree_errs(s_s, s64)
+                bad = {**held(g_err, GRAD_TOL), **held(s_err, BN_TOL),
+                       **held(g64_err, GRAD_TOL), **held(s64_err, BN_TOL)}
+                if not (loss_rel <= 1e-5 and loss64_rel <= 1e-5) or bad:
+                    raise AssertionError(
+                        f"sharded step: loss rel {loss_rel:.3e} (float64: "
+                        f"{loss64_rel:.3e}); against the unsharded step "
+                        f"{g_err} {s_err}, against float64 {g64_err} "
+                        f"{s64_err}; above {GRAD_TOL} / {BN_TOL}: {bad}")
+            if not np.isfinite(logs["loss"]):
+                raise AssertionError(f"sharded step {i}: loss {logs['loss']}")
+        shard_launches = dict(_cuda.launch_counts)
+        missing = [k for k in ("bands", "strips", "stencil_conv", "grad")
+                   if shard_launches[k] == 0]
+        if missing:
+            raise AssertionError(f"the sharded path never launched {missing}")
+        _cuda.reset_launch_counts()
+        model.eval()
+        with torch.no_grad():
+            model(torch.from_numpy(xt[:16]).to(dev))
+        torch.cuda.synchronize()
+        fwd_counts = dict(_cuda.launch_counts)
+        if fwd_counts["bands"] != 3 or fwd_counts["stencil_conv"] != 3:
+            raise AssertionError(f"a sharded forward launched {fwd_counts}")
+        model.train()
+
+        trainers = {"sharded": tr, "unsharded": plain._trainer}
+        step_of = lambda who: lambda i: trainers[who].train_on_batch(
+            xt[16 * (i % 4):16 * (i % 4) + 16], yt[16 * (i % 4):16 * (i % 4) + 16])
+        times = {"sharded": [], "unsharded": []}
+        for who in ("unsharded", "sharded", "sharded", "unsharded"):
+            step_of(who)(0)  # warm-up
+            for i in range(4):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                step_of(who)(i)
+                torch.cuda.synchronize()
+                times[who].append((time.perf_counter() - t) * 1e3)
+        ms_sh, ms_un = (float(np.mean(times[w])) for w in ("sharded",
+                                                          "unsharded"))
+        prof = {w: device_profile(step_of(w), 3) for w in times}
+        config.set_fused_dw(True)
+        say("sharded", f"quick_start nside {nside} batch 16 under the 1 x 1 "
+            f"mesh: 3 steps through data_iterator, launches per step "
+            f"{want_step} ({shard_launches} in all; a forward {fwd_counts}); "
+            f"first step against the unsharded K1+K3 step: loss rel "
+            f"{loss_rel:.2e}, gradients {max(g_err.values()):.2e} (per tensor "
+            f"{g_err}), BN {max(s_err.values()):.2e}; against the float64 CPU"
+            f" step: loss rel {loss64_rel:.2e}, gradients "
+            f"{max(g64_err.values()):.2e}, BN {max(s64_err.values()):.2e}; "
+            f"ms per step (host clock, synchronized, 8 each in turns "
+            f"unsharded, sharded, sharded, unsharded): sharded {ms_sh:.3f} "
+            f"({16e3 / ms_sh:.1f} maps/s), unsharded K1+K3 {ms_un:.3f} "
+            f"({16e3 / ms_un:.1f} maps/s); profiled per step: sharded "
+            f"{prof['sharded'][0]:.0f} device ops, {prof['sharded'][1]:.3f} ms "
+            f"device-busy; unsharded {prof['unsharded'][0]:.0f} ops, "
+            f"{prof['unsharded'][1]:.3f} ms on {card}")
+        del model, plain, tr, init
+    finally:
+        config.set_fused_dw(True)
+        dist.destroy_process_group()
+
     # main-path kernel times: the quick_start convs' three shapes summed
-    def entry(kname, route, source, replaces):
+    def entry(kname, route, source, replaces, launches):
         rows = results[kname]
         qs = [r for r in rows if r[0].startswith("quick_start")]
         # the side of the bound that holds most of the summed bound
@@ -640,7 +935,7 @@ def main():
                  for b in ("bytes", "operations")}
         return {
             "name": kname, "route": route, "source": source,
-            "replaces": replaces, "launches": train_launches[kname],
+            "replaces": replaces, "launches": launches[kname],
             "max_abs_err": max(r[1] for r in rows),
             "ms": sum(r[2] for r in qs), "plain_ms": sum(r[3] for r in qs),
             "bound_ms": sum(r[4] for r in qs),
@@ -649,16 +944,20 @@ def main():
                            else sum(r[6] for r in qs)),
         }
 
+    # launches: each kernel's count on its slice's main path (training for
+    # K1-K4, the sharded training for K5)
     kernels = [
         entry("strips", "cuda", "deepsphere_tpu_torch/csrc/strips.cu",
-              "deepsphere_tpu/ops/pallas_strips.py:183"),
+              "deepsphere_tpu/ops/pallas_strips.py:183", train_launches),
         entry("stencil_conv", "cuda",
               "deepsphere_tpu_torch/csrc/stencil_conv.cu",
-              "deepsphere_tpu/ops/pallas_stencil.py:522"),
+              "deepsphere_tpu/ops/pallas_stencil.py:522", train_launches),
         entry("dxdw", "cuda", "deepsphere_tpu_torch/csrc/stencil_dxdw.cu",
-              "deepsphere_tpu/ops/pallas_stencil.py:688"),
+              "deepsphere_tpu/ops/pallas_stencil.py:688", train_launches),
         entry("grad", "cuda", "deepsphere_tpu_torch/csrc/stencil_grad.cu",
-              "deepsphere_tpu/ops/pallas_stencil.py:614"),
+              "deepsphere_tpu/ops/pallas_stencil.py:614", train_launches),
+        entry("bands", "cuda", "deepsphere_tpu_torch/csrc/bands.cu",
+              "deepsphere_tpu/ops/stencil.py:82", shard_launches),
     ]
     for kname, rows in results.items():
         for r in rows:

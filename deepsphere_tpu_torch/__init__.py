@@ -9,7 +9,8 @@ What runs today: the ``HealpyGCNN`` (Chebyshev/monomial graph convs,
 pooling, dense head) in inference and in training (``compile``/``fit``,
 :mod:`.train`), on the CPU through plain PyTorch and on an H100 through the
 hand-written kernels in ``csrc/``: the fused stencil conv, its two backward
-kernels and the halo-strip gather.  See ROADMAP.md for what is still to
+kernels, the halo-strip gather and the edge-band cut; and DP x face-sharded
+over a device mesh (:mod:`.parallel`).  See ROADMAP.md for what is still to
 port.
 """
 
@@ -21,5 +22,5 @@ __version__ = "0.1.0"
 
 __all__ = ["HealpyGCNN", "logger", "__version__"]
 
-from . import graph, models, nn, ops, sphere, train, utils  # noqa: E402
+from . import graph, models, nn, ops, parallel, sphere, train, utils  # noqa: E402
 from .nn import healpy_layers  # noqa: E402

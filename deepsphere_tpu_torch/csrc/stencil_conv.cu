@@ -9,13 +9,13 @@
 // corners that a rectangular face extension cannot represent are corrected
 // afterwards in ops/fused_stencil.py, as on the TPU.
 //
-// Layout: xc (B*Fin, 12, n, P) with face col y at lane y + h; row-halo strips
-// top/bot (B*Fin, 12, R, P) with the h halo rows at [R-h, R) / [0, h); lane
-// strips ls (B*Fin, 12, n, 128), west at [0, h), east at [h, 2h); weight
-// planes wext (nplanes, 12, n + 2R, P) in the wrapped-extended layout (rows
-// [n, n+R) hold face rows [-R, 0), rows [n+R, n+2R) hold face rows
-// [n, n+R)); wk3 (K, Fin, Fout); out (B*Fout, 12, n, P), zero outside the
-// interior lanes.
+// Layout: xc (B*Fin, F, n, P) with face col y at lane y + h, F the faces the
+// arrays hold (12, or a face shard's F_loc); row-halo strips top/bot
+// (B*Fin, F, R, P) with the h halo rows at [R-h, R) / [0, h); lane strips ls
+// (B*Fin, F, n, 128), west at [0, h), east at [h, 2h); weight planes wext
+// (nplanes, F, n + 2R, P) in the wrapped-extended layout (rows [n, n+R) hold
+// face rows [-R, 0), rows [n+R, n+2R) hold face rows [n, n+R)); wk3
+// (K, Fin, Fout); out (B*Fout, F, n, P), zero outside the interior lanes.
 //
 // What bounds it on an H100, by count: at the quick_start widths, arithmetic
 // (the contraction is Fin*Fout FMAs per pixel and term, the recursion 9 per
@@ -53,7 +53,7 @@ struct ConvArgs {
   const float* wk3;
   const int* offs;
   float* out;
-  int cheby, K, radius, nplanes, Fin, Fout, n, h, R, P, T, tiles, chunks;
+  int cheby, K, radius, nplanes, F, Fin, Fout, n, h, R, P, T, tiles, chunks;
 };
 
 __global__ void __launch_bounds__(kThreads)
@@ -92,7 +92,7 @@ stencil_conv_kernel(const ConvArgs a) {
     const int j = rem - i * Ww;
     const int x = x0 - a.h + r + i;
     const int row = x < 0 ? a.n + a.R + x : (x >= a.n ? a.R + x : x);
-    s_w[e] = a.wext[((long long)(d * 12 + f) * nr + row) * a.P + y0 + r + j];
+    s_w[e] = a.wext[((long long)(d * a.F + f) * nr + row) * a.P + y0 + r + j];
   }
 
   float acc[kMaxPix][kFoChunk];
@@ -103,7 +103,7 @@ stencil_conv_kernel(const ConvArgs a) {
 
   const int npix = a.T * a.T;
   for (int fi = 0; fi < a.Fin; ++fi) {
-    const long long cf = ((long long)b * a.Fin + fi) * 12 + f;
+    const long long cf = ((long long)b * a.Fin + fi) * a.F + f;
     __syncthreads();  // the previous channel is done with the buffers
     float* p2 = b2;
     float* p1 = b0;
@@ -183,7 +183,7 @@ stencil_conv_kernel(const ConvArgs a) {
       for (int j = 0; j < kFoChunk; ++j) {
         const int fo = fo0 + j;
         if (fo < a.Fout) {
-          const long long o = ((long long)(b * a.Fout + fo) * 12 + f) * a.n;
+          const long long o = ((long long)(b * a.Fout + fo) * a.F + f) * a.n;
           a.out[(o + x0 + ti) * a.P + a.h + y0 + tj] = acc[p][j];
         }
       }
@@ -202,7 +202,7 @@ stencil_conv_kernel(const ConvArgs a) {
       const int l = rem - ti * wpad;
       const int fo = fo0 + j;
       if (fo < a.Fout) {
-        const long long o = ((long long)(b * a.Fout + fo) * 12 + f) * a.n;
+        const long long o = ((long long)(b * a.Fout + fo) * a.F + f) * a.n;
         const int lane = l < wlo ? l : a.h + a.n + (l - wlo);
         a.out[(o + x0 + ti) * a.P + lane] = 0.f;
       }
@@ -214,18 +214,19 @@ stencil_conv_kernel(const ConvArgs a) {
 
 extern "C" {
 
-// kind: 0 Chebyshev, 1 monomial.  T: tile side (<= 32, divides n).
-// Returns cudaGetLastError() after the launch (or the attribute error).
+// kind: 0 Chebyshev, 1 monomial.  F: faces in the arrays.  T: tile side
+// (<= 32, divides n).  Returns cudaGetLastError() after the launch (or the
+// attribute error).
 int ds_stencil_conv(const float* xc, const float* top, const float* bot,
                     const float* ls, const float* wext, const float* wk3,
                     const int* offs, float* out, int kind, int K, int radius,
-                    int nplanes, int B, int Fin, int Fout, int n, int h, int R,
-                    int P, int T, void* stream) {
+                    int nplanes, int B, int F, int Fin, int Fout, int n, int h,
+                    int R, int P, int T, void* stream) {
   if (T < 1 || T > 32 || n % T || nplanes > kMaxPlanes || radius * (K - 1) > h
-      || K < 1 || B < 1 || Fin < 1 || Fout < 1)
+      || K < 1 || B < 1 || F < 1 || F > 12 || Fin < 1 || Fout < 1)
     return (int)cudaErrorInvalidValue;
   ConvArgs a{xc, top, bot, ls, wext, wk3, offs, out,
-             kind == 0, K, radius, nplanes, Fin, Fout, n, h, R, P, T,
+             kind == 0, K, radius, nplanes, F, Fin, Fout, n, h, R, P, T,
              n / T, (Fout + kFoChunk - 1) / kFoChunk};
   const int W0 = T + 2 * h;
   const int Ww = W0 - 2 * radius;
@@ -235,7 +236,7 @@ int ds_stencil_conv(const float* xc, const float* top, const float* bot,
       stencil_conv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(a.tiles * a.tiles, 12, B * a.chunks);
+  dim3 grid(a.tiles * a.tiles, F, B * a.chunks);
   stencil_conv_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -11,12 +11,12 @@
 // dW terms ops/fused_stencil.py adds from the correction ball).  dx is the
 // raw conv of dy: its corrupt rows are patched afterwards, as the forward's.
 //
-// Layout: dy (B*Fout, 12, n, P) with its strips and the weight planes as in
-// stencil_tile.cuh (recursion channels Fout, chunk channels Fin); wk3t
-// (K, Fout, Fin); xr (B*Fin, 12, n, P) the forward input; mask (12, n, P) or
-// null; dx (B*Fin, 12, n, P), zero outside the interior lanes; dw (K*Fin,
+// Layout: dy (B*Fout, F, n, P) with its strips and the weight planes as in
+// stencil_tile.cuh (recursion channels Fout, chunk channels Fin; F faces);
+// wk3t (K, Fout, Fin); xr (B*Fin, F, n, P) the forward input; mask (F, n, P)
+// or null; dx (B*Fin, F, n, P), zero outside the interior lanes; dw (K*Fin,
 // Fout) in the forward kernel's orientation; partial (K*Fin*Fout, G)
-// scratch, G = B * 12 * (n/T)^2.
+// scratch, G = B * F * (n/T)^2.
 //
 // What bounds it on an H100, by count: the same as K1 (the recursion's
 // shared-memory taps and, at Fin*Fout >= 100, the contraction), plus one
@@ -33,18 +33,19 @@
 
 extern "C" {
 
-// kind: 0 Chebyshev, 1 monomial.  Fc: recursion channels (the forward's
-// Fout); Fx: x channels (the forward's Fin).  T: tile side (<= 32, divides
-// n).  Returns cudaGetLastError() after the two launches (or the first
+// kind: 0 Chebyshev, 1 monomial.  F: faces in the arrays.  Fc: recursion
+// channels (the forward's Fout); Fx: x channels (the forward's Fin).  T: tile
+// side (<= 32, divides n).  Returns cudaGetLastError() after the two launches (or the first
 // error).
 int ds_stencil_dxdw(const float* dy, const float* top, const float* bot,
                     const float* ls, const float* wext, const float* wk3t,
                     const int* offs, const float* xr, const float* mask,
                     float* dx, float* partial, float* dw, int kind, int K,
-                    int radius, int nplanes, int B, int Fc, int Fx, int n,
-                    int h, int R, int P, int T, void* stream) {
+                    int radius, int nplanes, int B, int F, int Fc, int Fx,
+                    int n, int h, int R, int P, int T, void* stream) {
   TileArgs a{dy, top, bot, ls, wext, wk3t, offs, xr, mask, dx, partial,
-             kind == 0, K, radius, nplanes, Fc, Fx, n, h, R, P, T, 0, 0, 0};
+             kind == 0, K, radius, nplanes, F, Fc, Fx, n, h, R, P, T, 0, 0,
+             0};
   return launch_tile<kDxDw>(a, B, dw, stream);
 }
 

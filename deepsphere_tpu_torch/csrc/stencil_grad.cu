@@ -9,10 +9,10 @@
 // adds their exact terms from the correction ball.  dx of this route is the
 // forward conv (K4 + K1) on dy.
 //
-// Layout: xc (B*Fin, 12, n, P) with its strips and the weight planes as in
-// stencil_tile.cuh (recursion channels Fin, chunk channels Fout); dy
-// (B*Fout, 12, n, P); dw (K*Fin, Fout); partial (K*Fin*Fout, G) scratch,
-// G = B * 12 * (n/T)^2.
+// Layout: xc (B*Fin, F, n, P) with its strips and the weight planes as in
+// stencil_tile.cuh (recursion channels Fin, chunk channels Fout; F faces);
+// dy (B*Fout, F, n, P); dw (K*Fin, Fout); partial (K*Fin*Fout, G) scratch,
+// G = B * F * (n/T)^2.
 //
 // What bounds it on an H100, by count: the recursion's shared-memory taps
 // (9 per pixel, channel and lap, as in K1) and the dW contraction (Fin*Fout
@@ -29,16 +29,18 @@
 
 extern "C" {
 
-// kind: 0 Chebyshev, 1 monomial.  T: tile side (<= 32, divides n).
+// kind: 0 Chebyshev, 1 monomial.  F: faces in the arrays.  T: tile side
+// (<= 32, divides n).
 // Returns cudaGetLastError() after the two launches (or the first error).
 int ds_stencil_grad(const float* xc, const float* top, const float* bot,
                     const float* ls, const float* wext, const int* offs,
                     const float* dy, float* partial, float* dw, int kind,
-                    int K, int radius, int nplanes, int B, int Fin, int Fout,
-                    int n, int h, int R, int P, int T, void* stream) {
+                    int K, int radius, int nplanes, int B, int F, int Fin,
+                    int Fout, int n, int h, int R, int P, int T,
+                    void* stream) {
   TileArgs a{xc, top, bot, ls, wext, nullptr, offs, dy, nullptr, nullptr,
-             partial, kind == 0, K, radius, nplanes, Fin, Fout, n, h, R, P,
-             T, 0, 0, 0};
+             partial, kind == 0, K, radius, nplanes, F, Fin, Fout, n, h, R,
+             P, T, 0, 0, 0};
   return launch_tile<kGrad>(a, B, dw, stream);
 }
 

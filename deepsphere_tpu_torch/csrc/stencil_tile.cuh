@@ -31,13 +31,14 @@
 // (reduce_partials) sums each row in a fixed order.  No float atomics: two
 // calls on the same inputs give bitwise-equal dW.
 //
-// Layout: x (B*Crec, 12, n, P) with face col y at lane y + h; row-halo strips
-// top/bot (B*Crec, 12, R, P) with the h halo rows at [R-h, R) / [0, h); lane
-// strips ls (B*Crec, 12, n, 128), west at [0, h), east at [h, 2h); weight
-// planes wext (nplanes, 12, n + 2R, P) in the wrapped-extended layout (rows
-// [n, n+R) hold face rows [-R, 0), rows [n+R, n+2R) hold face rows
-// [n, n+R)); wk3 (K, Crec, Cch); other and out (B*Cch, 12, n, P); out is
-// zero outside the interior lanes.
+// Layout: x (B*Crec, F, n, P) with face col y at lane y + h, F the faces the
+// arrays hold (12, or a face shard's F_loc); row-halo strips top/bot
+// (B*Crec, F, R, P) with the h halo rows at [R-h, R) / [0, h); lane strips ls
+// (B*Crec, F, n, 128), west at [0, h), east at [h, 2h); weight planes wext
+// (nplanes, F, n + 2R, P) in the wrapped-extended layout (rows [n, n+R) hold
+// face rows [-R, 0), rows [n+R, n+2R) hold face rows [n, n+R)); wk3
+// (K, Crec, Cch); other and out (B*Cch, F, n, P); out is zero outside the
+// interior lanes.
 
 #pragma once
 
@@ -54,18 +55,18 @@ constexpr int kMaxPlanes = 81;  // stencil radius <= 4
 enum Mode { kDxDw = 1, kGrad = 2 };
 
 struct TileArgs {
-  const float* x;      // recursion input (B*Crec, 12, n, P)
+  const float* x;      // recursion input (B*Crec, F, n, P)
   const float* top;    // its strips
   const float* bot;
   const float* ls;
-  const float* wext;   // (nplanes, 12, n + 2R, P)
+  const float* wext;   // (nplanes, F, n + 2R, P)
   const float* wk3;    // (K, Crec, Cch)            [kDxDw]
   const int* offs;     // (nplanes, 2) tap offsets
-  const float* other;  // (B*Cch, 12, n, P)
-  const float* mask;   // (12, n, P) or null        [kDxDw]
-  float* out;          // (B*Cch, 12, n, P)         [kDxDw]
+  const float* other;  // (B*Cch, F, n, P)
+  const float* mask;   // (F, n, P) or null         [kDxDw]
+  float* out;          // (B*Cch, F, n, P)          [kDxDw]
   float* partial;      // (K*Crec*Cch, G)
-  int cheby, K, radius, nplanes, Crec, Cch, n, h, R, P, T, tiles, chunks, G;
+  int cheby, K, radius, nplanes, F, Crec, Cch, n, h, R, P, T, tiles, chunks, G;
 };
 
 // Sum of v[j] over the 32 lanes of the warp, for j = (lane >> 2) & 7: each
@@ -121,7 +122,7 @@ stencil_tile_kernel(const TileArgs a) {
   const long long nr = a.n + 2 * a.R;  // rows of one weight plane
   const int npix = a.T * a.T;
   // this block's column of the partial sums
-  const long long g = ((long long)b * 12 + f) * a.tiles * a.tiles + blockIdx.x;
+  const long long g = ((long long)b * a.F + f) * a.tiles * a.tiles + blockIdx.x;
 
   for (int d = tid; d < a.nplanes; d += kThreads) {
     s_dx[d] = a.offs[2 * d];
@@ -136,7 +137,7 @@ stencil_tile_kernel(const TileArgs a) {
     const int j = rem - i * Ww;
     const int x = x0 - a.h + r + i;
     const int row = x < 0 ? a.n + a.R + x : (x >= a.n ? a.R + x : x);
-    s_w[e] = a.wext[((long long)(d * 12 + f) * nr + row) * a.P + y0 + r + j];
+    s_w[e] = a.wext[((long long)(d * a.F + f) * nr + row) * a.P + y0 + r + j];
   }
 
   float acc[kMaxPix][kChunk];
@@ -157,7 +158,7 @@ stencil_tile_kernel(const TileArgs a) {
       oth[p][j] = 0.f;
       const int ch = c0 + j;
       if (pix < npix && ch < a.Cch)
-        oth[p][j] = m * a.other[((long long)(b * a.Cch + ch) * 12 + f) * a.n * a.P + rowl];
+        oth[p][j] = m * a.other[((long long)(b * a.Cch + ch) * a.F + f) * a.n * a.P + rowl];
     }
   }
 
@@ -179,7 +180,7 @@ stencil_tile_kernel(const TileArgs a) {
   };
 
   for (int rc = 0; rc < a.Crec; ++rc) {
-    const long long cf = ((long long)b * a.Crec + rc) * 12 + f;
+    const long long cf = ((long long)b * a.Crec + rc) * a.F + f;
     __syncthreads();  // the previous channel is done with the buffers
     if (rc > 0) flush(rc - 1);
     float* p2 = b2;
@@ -276,7 +277,7 @@ stencil_tile_kernel(const TileArgs a) {
         for (int j = 0; j < kChunk; ++j) {
           const int ch = c0 + j;
           if (ch < a.Cch) {
-            const long long o = ((long long)(b * a.Cch + ch) * 12 + f) * a.n;
+            const long long o = ((long long)(b * a.Cch + ch) * a.F + f) * a.n;
             a.out[(o + x0 + ti) * a.P + a.h + y0 + tj] = acc[p][j];
           }
         }
@@ -295,7 +296,7 @@ stencil_tile_kernel(const TileArgs a) {
         const int l = rem - ti * wpad;
         const int ch = c0 + j;
         if (ch < a.Cch) {
-          const long long o = ((long long)(b * a.Cch + ch) * 12 + f) * a.n;
+          const long long o = ((long long)(b * a.Cch + ch) * a.F + f) * a.n;
           const int lane_ = l < wlo ? l : a.h + a.n + (l - wlo);
           a.out[(o + x0 + ti) * a.P + lane_] = 0.f;
         }
@@ -328,12 +329,12 @@ reduce_partials(const float* __restrict__ partial, float* __restrict__ out,
 template <int kMode>
 int launch_tile(TileArgs a, int B, float* dw, void* stream) {
   if (a.T < 1 || a.T > 32 || a.n % a.T || a.nplanes > kMaxPlanes
-      || a.radius * (a.K - 1) > a.h || a.K < 1 || B < 1 || a.Crec < 1
-      || a.Cch < 1)
+      || a.radius * (a.K - 1) > a.h || a.K < 1 || B < 1 || a.F < 1
+      || a.F > 12 || a.Crec < 1 || a.Cch < 1)
     return (int)cudaErrorInvalidValue;
   a.tiles = a.n / a.T;
   a.chunks = (a.Cch + kChunk - 1) / kChunk;
-  a.G = B * 12 * a.tiles * a.tiles;
+  a.G = B * a.F * a.tiles * a.tiles;
   if ((long long)B * a.chunks > 65535) return (int)cudaErrorInvalidValue;
   const int W0 = a.T + 2 * a.h;
   const int Ww = W0 - 2 * a.radius;
@@ -344,7 +345,7 @@ int launch_tile(TileArgs a, int B, float* dw, void* stream) {
       stencil_tile_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(a.tiles * a.tiles, 12, B * a.chunks);
+  dim3 grid(a.tiles * a.tiles, a.F, B * a.chunks);
   stencil_tile_kernel<kMode><<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

@@ -11,7 +11,10 @@ arrays and copies them into the matching port modules:
 * model-level keys ``layers_layer_{i}`` name the port's ``layer_{i}``.
 
 The port's parameters must exist first (``HealpyGCNN.build`` or one
-forward).  Any missing, unexpected or mis-shaped entry raises.
+forward).  Any missing, unexpected or mis-shaped entry raises.  A sharded
+model (``shard_cfg``) has the unsharded model's tree, so both functions
+work on it unchanged; the JAX package's ``graph_tables`` (``stencil``,
+``sharded``) are never read, since the port builds its own.
 
 :func:`export_jax_variables` is the reverse: the port's parameters and
 batch statistics (or the parameters' gradients) as the JAX tree of numpy

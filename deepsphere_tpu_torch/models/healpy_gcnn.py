@@ -19,7 +19,8 @@ Submodules are named ``layer_{i}`` after the user layer list (layout
 converters get positional names), the JAX package's ``layers_layer_{i}``
 keys, so :func:`deepsphere_tpu_torch.interop.load_jax_variables` can load a
 JAX model's variables and :func:`~deepsphere_tpu_torch.interop.export_jax_variables`
-write them back.  Export and sharding come later (ROADMAP.md, queue 1).
+write them back.  A sharded model (``shard_cfg``) has the same parameter
+tree as an unsharded one.  Export comes later (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -49,8 +50,13 @@ class HealpyGCNN(nn.Module):
         reference (no matmul splitting is needed)
     :param graph_cache_dir: optional on-disk cache for built graphs
     :param kernel_width: optional Gaussian kernel width override
-    :param shard_cfg, remat: sharding and rematerialization are not ported
-        yet; anything but the defaults raises ``NotImplementedError``
+    :param shard_cfg: optional :class:`~deepsphere_tpu_torch.parallel.ShardConfig`:
+        DP x pixel sharding over a device mesh.  Every rank feeds its data
+        rank's rows; the cface convs run face-sharded over the pixel axis
+        (when it divides the 12 faces), the other graph convs on the
+        halo-sharded ELLPACK
+    :param remat: rematerialization is not ported yet; True raises
+        ``NotImplementedError``
     :param graph_method: "auto" (grid/ring graph where a template exists),
         "grid" or "knn"
     :param internal_layout: "auto" (cface/face planning) or "nest"
@@ -81,10 +87,6 @@ class HealpyGCNN(nn.Module):
                 f"The requested number of neighbors {n_neighbors} is nor supported. "
                 f"Choose either 8, 20, 40 or 60."
             )
-        if shard_cfg is not None:
-            raise NotImplementedError(
-                "shard_cfg: sharded execution is not ported yet (ROADMAP.md, "
-                "queue 1, parallel)")
         if remat:
             raise NotImplementedError(
                 "remat: rematerialization is not ported yet")
@@ -93,6 +95,7 @@ class HealpyGCNN(nn.Module):
         self.indices_in = np.asarray(indices, dtype=np.int64)
         self.layers_in = list(layers)
         self.n_neighbors = n_neighbors
+        self.shard_cfg = shard_cfg
         self.max_batch_size = max_batch_size
         self._graph_cache_dir = graph_cache_dir
         self._kernel_width = kernel_width
@@ -141,7 +144,10 @@ class HealpyGCNN(nn.Module):
         for layer in self.layers_in:
             if isinstance(layer, _DeferredLayer):
                 graph = self._get_graph(current_nside, current_indices)
-                self.layers_use.append(layer._get_layer(graph))
+                extra = {}
+                if shard_cfg is not None and layer.needs == "L":
+                    extra["shard_cfg"] = shard_cfg
+                self.layers_use.append(layer._get_layer(graph, **extra))
             elif isinstance(layer, HealpyPool):
                 new_nside = int(current_nside // 2**layer.p)
                 current_indices = transform_indices(current_nside, new_nside, current_indices)
@@ -176,6 +182,10 @@ class HealpyGCNN(nn.Module):
           not depend on the device).
         * **face** — face-flat pixel axis (B, M, F), for stencil-capable
           convs that cannot run cface (e.g. a halo deeper than the face).
+
+        Under a mesh a cface conv runs face-sharded, so its pixel axis must
+        divide the 12 faces; the other convs take the halo-sharded ELLPACK
+        in the NEST layout (no face layout), as in the JAX package.
         """
         from ..nn.layers import (
             CfaceReEmbed,
@@ -187,6 +197,13 @@ class HealpyGCNN(nn.Module):
         )
         from ..ops.fused_stencil import cfp_structural_available
 
+        def shardable(layer):
+            """A shard_cfg is cface-compatible when its pixel axis divides
+            the 12 faces (the conv then runs face-sharded,
+            ``parallel.cface_sharded.cface_model_conv``)."""
+            cfg = layer.shard_cfg
+            return cfg is None or 12 % cfg.n_pixel_shards == 0
+
         def full_sphere(layer):
             g = layer.graph
             return g.n_pixels == hp.nside2npix(g.nside)
@@ -197,7 +214,9 @@ class HealpyGCNN(nn.Module):
             if internal_layout == "nest":
                 return None
             if isinstance(layer, _GraphPolyConv):
-                if layer.conv_method not in ("auto", "stencil") or not full_sphere(layer):
+                if (not shardable(layer)
+                        or layer.conv_method not in ("auto", "stencil")
+                        or not full_sphere(layer)):
                     return None
                 n_terms = layer.n_terms
                 if layer._basis_kind not in ("cheby", "mono") or n_terms < 2:
@@ -217,7 +236,8 @@ class HealpyGCNN(nn.Module):
                 return None
             if isinstance(layer, _GraphPolyConv):
                 if (
-                    layer.conv_method in ("auto", "stencil")
+                    layer.shard_cfg is None
+                    and layer.conv_method in ("auto", "stencil")
                     and full_sphere(layer)
                     and layer.graph.face_stencil(layer._scale) is not None
                 ):
@@ -263,7 +283,8 @@ class HealpyGCNN(nn.Module):
                     in_face = False
                 if i == a:  # segment entry
                     cur_off = next_cf_h(a, j)
-                    self._module_layers.append(NestToCface(off=cur_off))
+                    self._module_layers.append(
+                        NestToCface(off=cur_off, shard_cfg=self.shard_cfg))
                 if infos[i][0] == "cf":
                     h = infos[i][1]
                     if cur_off != h:
@@ -283,7 +304,8 @@ class HealpyGCNN(nn.Module):
                 self._index_to_module[len(self._module_layers) - 1] = i
                 self.layers_use[i] = actual
                 if i == j - 1:  # segment exit
-                    self._module_layers.append(CfaceToNest(off=cur_off))
+                    self._module_layers.append(
+                        CfaceToNest(off=cur_off, shard_cfg=self.shard_cfg))
                 continue
 
             fc = face_version(layer)

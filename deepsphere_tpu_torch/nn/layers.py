@@ -13,6 +13,14 @@ the quick_start classifier runs):
 
 All layers keep the JAX package's tensor layouts: ``(batch, nodes,
 channels)`` in nest/face order, ``(batch, channels, 12, n, P_l)`` in cface.
+
+Under a mesh (``shard_cfg``, :class:`~deepsphere_tpu_torch.parallel.ShardConfig`)
+every rank holds its data rank's rows; a NEST activation is the whole map
+on every pixel rank, a cface activation only the rank's faces
+``(batch, channels, 12 / n_pixel_shards, n, P_l)``.  The layout converters
+shard and unshard the face axis, the cface convs run face-sharded, the nest
+convs on the halo-sharded ELLPACK, and the batch-norm statistics are those
+of the global batch (summed over the data and, in cface, the pixel ranks).
 Parameters are created at the first forward (their input width is known
 only then), like flax's ``@nn.compact``; :meth:`HealpyGCNN.build` runs that
 forward.  Parameter shapes follow the flax modules, so JAX checkpoints load
@@ -25,6 +33,7 @@ from typing import ClassVar
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..ops import spmv
@@ -37,6 +46,10 @@ from ..ops.stencil import (
     stencil_graph_conv_cface,
     stencil_tables,
 )
+from ..parallel.cface_sharded import cface_model_conv, face_shard_tables
+from ..parallel.collectives import all_reduce_sum, shard, unshard
+from ..parallel.halo import shard_ellpack_cached
+from ..parallel.sharded_ops import sharded_poly_conv
 from ..utils import resolve_activation
 
 __all__ = [
@@ -90,26 +103,37 @@ class FaceToNest(_Layer):
 
 class NestToCface(_Layer):
     """NEST (B, M, F) -> the cface layout (B, F, 12, n, P_l) with face col y
-    at lane ``y + off``."""
+    at lane ``y + off``; under ``shard_cfg``, this pixel rank's faces of the
+    whole map (backward: all-gather)."""
 
-    def __init__(self, off):
-        super().__init__(off=off)
+    def __init__(self, off, shard_cfg=None):
+        super().__init__(off=off, shard_cfg=shard_cfg)
         self.off = off
+        self.shard_cfg = shard_cfg
 
     def forward(self, x):
         n = nside_of_axis(x.shape[1])
-        return cface_embed(nest_to_face(x), n, self.off)
+        xf = nest_to_face(x)
+        if self.shard_cfg is not None:
+            xf = shard(xf, 1, self.shard_cfg.pixel_group)
+        return cface_embed(xf, n, self.off)
 
 
 class CfaceToNest(_Layer):
-    """Inverse of :class:`NestToCface`."""
+    """Inverse of :class:`NestToCface`; under ``shard_cfg`` it all-gathers
+    the faces, so the map is whole on every pixel rank again (backward:
+    this rank's faces of the gradient)."""
 
-    def __init__(self, off):
-        super().__init__(off=off)
+    def __init__(self, off, shard_cfg=None):
+        super().__init__(off=off, shard_cfg=shard_cfg)
         self.off = off
+        self.shard_cfg = shard_cfg
 
     def forward(self, x):
-        return face_to_nest(cface_extract(x, self.off))
+        xf = cface_extract(x, self.off)
+        if self.shard_cfg is not None:
+            xf = unshard(xf, 1, self.shard_cfg.pixel_group)
+        return face_to_nest(xf)
 
 
 class CfaceReEmbed(_Layer):
@@ -140,21 +164,38 @@ class _BatchNorm(nn.Module):
     """flax ``nn.BatchNorm`` semantics on (..., F): momentum 0.9 (running =
     0.9 running + 0.1 batch), biased batch variance E[x^2] - E[x]^2 clipped
     at 0, epsilon 1e-5, no affine parameters; eval uses the running
-    averages.  State ``mean``/``var`` matches flax's ``batch_stats``."""
+    averages.  State ``mean``/``var`` matches flax's ``batch_stats``.
+
+    ``shard_cfg``/``shard_axes``: the mesh axes over which the batch
+    moments are averaged (set by a sharded conv: every rank holds an equal
+    share of the global batch), so every rank normalizes with, and keeps,
+    the global batch's statistics."""
 
     def __init__(self, num_features, momentum=0.9, epsilon=1e-5):
         super().__init__()
         self.momentum = momentum
         self.epsilon = epsilon
+        self.shard_cfg = None
+        self.shard_axes = ()
         self.register_buffer("mean", torch.zeros(num_features))
         self.register_buffer("var", torch.ones(num_features))
 
+    def _moments(self, xf, axes):
+        """E[x] and E[x^2] over ``axes``, and over the ranks of the
+        ``shard_axes``."""
+        m = torch.stack([xf.mean(axes), (xf * xf).mean(axes)])
+        if self.shard_axes:
+            ranks = 1
+            for axis in self.shard_axes:
+                g = self.shard_cfg.mesh.get_group(axis)
+                m = all_reduce_sum(m, g)
+                ranks *= dist.get_world_size(g)
+            m = m / ranks
+        return m[0], m[1]
+
     def _stats(self, x):
-        axes = tuple(range(x.ndim - 1))
-        xf = _stat_dtype(x)
-        mean = xf.mean(axes)
-        var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
-        return mean, var
+        mean, mean2 = self._moments(_stat_dtype(x), tuple(range(x.ndim - 1)))
+        return mean, (mean2 - mean * mean).clamp_min(0.0)
 
     def _shape(self, x):
         return (1,) * (x.ndim - 1) + (-1,)
@@ -185,9 +226,8 @@ class _CfaceBatchNorm(_BatchNorm):
     def _stats(self, x):
         n = x.shape[3]
         xi = _stat_dtype(x[:, :, :, :, self.off : self.off + n])
-        mean = xi.mean((0, 2, 3, 4))
-        var = (xi * xi).mean((0, 2, 3, 4)) - mean * mean
-        return mean, var
+        mean, mean2 = self._moments(xi, (0, 2, 3, 4))
+        return mean, mean2 - mean * mean
 
     def _shape(self, x):
         return (1, -1, 1, 1, 1)
@@ -213,7 +253,9 @@ class _GraphPolyConv(_Layer):
     The graph tables (stencil or ELLPACK arrays) are registered at the
     first forward as non-persistent buffers: they move with ``.to(device)``
     and stay out of ``state_dict()`` (deterministic precompute, like the
-    JAX package's ``graph_tables`` collection).
+    JAX package's ``graph_tables`` collection).  Under ``shard_cfg`` they
+    are this rank's share: its faces' stencil tables (cface) or its rows of
+    the halo-sharded ELLPACK (nest).
     """
 
     _scale: ClassVar[float] = 1.0
@@ -223,10 +265,11 @@ class _GraphPolyConv(_Layer):
 
     def __init__(self, graph, K, Fout=None, initializer=None, activation=None,
                  use_bias=False, use_bn=False, conv_method="auto",
-                 layout="nest"):
+                 layout="nest", shard_cfg=None):
         super().__init__(graph=graph, K=K, Fout=Fout, initializer=initializer,
                          activation=activation, use_bias=use_bias,
-                         use_bn=use_bn, conv_method=conv_method, layout=layout)
+                         use_bn=use_bn, conv_method=conv_method, layout=layout,
+                         shard_cfg=shard_cfg)
         self.graph = graph
         self.K = K
         self.Fout = Fout
@@ -236,6 +279,7 @@ class _GraphPolyConv(_Layer):
         self.use_bn = use_bn
         self.conv_method = conv_method
         self.layout = layout
+        self.shard_cfg = shard_cfg
         self.register_parameter("kernel", None)
         self.register_parameter("bias", None)
         self.bn = None
@@ -304,10 +348,22 @@ class _GraphPolyConv(_Layer):
         self.kernel = nn.Parameter(w.to(device))
         if self.use_bias:
             self.bias = nn.Parameter(torch.zeros((1, 1, Fout), device=device))
+        cfg = self.shard_cfg
         if self.use_bn:
             self.bn = (_CfaceBatchNorm(st.n_steps, Fout) if self.layout == "cface"
                        else _batch_norm(Fout)).to(device)
-        if st is not None:
+            if cfg is not None:
+                # cface: this rank's faces of its rows; nest: its rows of
+                # the whole map
+                self.bn.shard_cfg = cfg
+                self.bn.shard_axes = ((cfg.data_axis, cfg.pixel_axis)
+                                      if self.layout == "cface"
+                                      else (cfg.data_axis,))
+        if cfg is not None and self.layout == "cface":
+            tables = face_shard_tables(st, cfg.pixel_rank, cfg.n_pixel_shards)
+        elif cfg is not None:
+            tables = self._sharded_ellpack().shard_tables(cfg.pixel_rank)
+        elif st is not None:
             tables = stencil_tables(st)
         else:
             idx, val = self.graph.ellpack(self._scale)
@@ -315,6 +371,10 @@ class _GraphPolyConv(_Layer):
         for k, v in as_tensors(tables, device).items():
             self.register_buffer(f"tab_{k}", v, persistent=False)
         self._table_keys = tuple(tables)
+
+    def _sharded_ellpack(self):
+        return shard_ellpack_cached(self.graph, self.shard_cfg.n_pixel_shards,
+                                    self._scale)
 
     def forward(self, x):
         if self.layout == "cface":
@@ -326,10 +386,15 @@ class _GraphPolyConv(_Layer):
             )
         Fout = Fin if self.Fout is None else self.Fout
         n_terms = self.n_terms
-        st = self._stencil()
+        # under a mesh the halo-sharded ELLPACK, as the JAX package
+        st = self._stencil() if self.shard_cfg is None else None
         self._materialize(Fin, Fout, st, x.device)
         tables = self._tables()
-        if st is not None:
+        if self.shard_cfg is not None:
+            y = sharded_poly_conv(self.basis_kind, self._sharded_ellpack(), x,
+                                  self.kernel, n_terms, self.shard_cfg,
+                                  tables=tables)
+        elif st is not None:
             y = stencil_graph_conv(st, x, self.kernel, n_terms,
                                    self.basis_kind, tables=tables,
                                    layout=self.layout)
@@ -350,8 +415,13 @@ class _GraphPolyConv(_Layer):
         Fout = Fin if self.Fout is None else self.Fout
         st = self._stencil()
         self._materialize(Fin, Fout, st, x.device)
-        y = stencil_graph_conv_cface(st, x, self.kernel, self.n_terms,
-                                     self.basis_kind, tables=self._tables())
+        if self.shard_cfg is not None:
+            y = cface_model_conv(st, self._tables(), x, self.kernel,
+                                 self.n_terms, self.basis_kind, self.shard_cfg)
+        else:
+            y = stencil_graph_conv_cface(st, x, self.kernel, self.n_terms,
+                                         self.basis_kind,
+                                         tables=self._tables())
         if self.use_bn:
             y = self.bn(y)
         if self.use_bias:
@@ -412,10 +482,10 @@ class HealpyPool(_Layer):
         if self.layout == "cface":
             from ..ops.fused_stencil import cfp_geometry
 
-            B, F, _, n, _ = x.shape
+            B, F, faces, n, _ = x.shape  # faces: 12, or a face shard's
             xi = x[:, :, :, :, self.cface_off : self.cface_off + n]
-            blocks = xi.reshape(B, F, 12, n // sp, sp, n // sp, sp)
-            y = self._reduce(blocks, (4, 6))  # (B, F, 12, n/sp, n/sp)
+            blocks = xi.reshape(B, F, faces, n // sp, sp, n // sp, sp)
+            y = self._reduce(blocks, (4, 6))  # (B, F, faces, n/sp, n/sp)
             _, P_out = cfp_geometry(n // sp, self.cface_off_out)
             return _pad_lanes(y, self.cface_off_out, P_out)
         B, M, F = x.shape

@@ -1,12 +1,12 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 The sources under ``deepsphere_tpu_torch/csrc/`` (``strips.cu``,
-``stencil_conv.cu``, and ``stencil_dxdw.cu`` and ``stencil_grad.cu`` over
-the shared ``stencil_tile.cuh``) have a plain C interface.  At first use each
-``.cu`` is compiled by its own ``nvcc`` for Hopper (``sm_90a``), all of
-them at once, and the objects are linked into one shared library in the
-package's ``_build/`` directory, named by a hash of the sources and flags,
-and loaded with ``ctypes``.  Nothing here runs at import: the CPU tests
+``stencil_conv.cu``, ``stencil_dxdw.cu`` and ``stencil_grad.cu`` over the
+shared ``stencil_tile.cuh``, and ``bands.cu``) have a plain C interface.
+At first use each ``.cu`` is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all of them at once, and the objects are linked into one
+shared library in the package's ``_build/`` directory, named by a hash of
+the sources and flags, and loaded with ``ctypes``.  Nothing here runs at import: the CPU tests
 import every module of the port on a machine without ``nvcc``.
 
 Every kernel wrapper adds one to its entry of :data:`launch_counts` where
@@ -32,7 +32,8 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: kernel name -> launches since the last :func:`reset_launch_counts`
-launch_counts = {"strips": 0, "stencil_conv": 0, "dxdw": 0, "grad": 0}
+launch_counts = {"strips": 0, "stencil_conv": 0, "dxdw": 0, "grad": 0,
+                 "bands": 0}
 
 _lib = None
 
@@ -110,12 +111,14 @@ def lib():
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         L.ds_strips.argtypes = [vp, vp, vp, vp, vp, ll, ll, ll, ll, vp]
         L.ds_strips.restype = ci
-        L.ds_stencil_conv.argtypes = [vp] * 8 + [ci] * 12 + [vp]
+        L.ds_stencil_conv.argtypes = [vp] * 8 + [ci] * 13 + [vp]
         L.ds_stencil_conv.restype = ci
-        L.ds_stencil_dxdw.argtypes = [vp] * 12 + [ci] * 12 + [vp]
+        L.ds_stencil_dxdw.argtypes = [vp] * 12 + [ci] * 13 + [vp]
         L.ds_stencil_dxdw.restype = ci
-        L.ds_stencil_grad.argtypes = [vp] * 9 + [ci] * 12 + [vp]
+        L.ds_stencil_grad.argtypes = [vp] * 9 + [ci] * 13 + [vp]
         L.ds_stencil_grad.restype = ci
+        L.ds_bands.argtypes = [vp, vp] + [ci] * 6 + [vp]
+        L.ds_bands.restype = ci
         L.ds_error_string.argtypes = [ci]
         L.ds_error_string.restype = ctypes.c_char_p
         _lib = L

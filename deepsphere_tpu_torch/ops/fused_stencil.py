@@ -21,7 +21,9 @@ made, so the activation is read about once per conv.
 Layout ("cface"): activations are ``(C, 12, n, P_l)`` channels-first face
 images, C = B*F batch-major, face column y at lane ``y + h`` (h the halo
 depth, ``P_l = roundup(n + 2h, 128)``); input and output share it.  Cross-
-face halos come from three strip arrays (:mod:`.strips`).
+face halos come from three strip arrays (:mod:`.strips`).  The raw kernels
+take any number of faces in the face axis (the arrays of a face shard,
+``parallel/cface_sharded.py``), with the weight planes of those faces.
 
 The rectangular face extension is incomplete at the 8 polar 3-way corners,
 so under multi-step fusion a set of rows near them (``st.corr_out_face``)
@@ -178,12 +180,13 @@ def run_stencil_plain(st, kind, n_terms, xc, wext, strips, wk3, B):
     n, h = st.nside, st.n_steps
     _, P_l = cfp_geometry(n, h)
     K, Fin, Fout = wk3.shape
-    y = xc.new_zeros((B, Fout, 12, n, P_l))
+    F = xc.shape[1]
+    y = xc.new_zeros((B, Fout, F, n, P_l))
     for k, ctr in enumerate(_plain_terms(st, kind, n_terms, xc, wext,
                                          strips)):
         y = y + torch.einsum("bfgxp,fo->bogxp",
-                             ctr.reshape(B, Fin, 12, n, P_l), wk3[k])
-    return _zero_pad_lanes(y, h, n).reshape(B * Fout, 12, n, P_l)
+                             ctr.reshape(B, Fin, F, n, P_l), wk3[k])
+    return _zero_pad_lanes(y, h, n).reshape(B * Fout, F, n, P_l)
 
 
 def run_grad_plain(st, kind, n_terms, xc, wext, strips, dy, B):
@@ -192,10 +195,11 @@ def run_grad_plain(st, kind, n_terms, xc, wext, strips, dy, B):
     n, h = st.nside, st.n_steps
     Fin = xc.shape[0] // B
     Fout = dy.shape[0] // B
-    dyi = dy[..., h : h + n].reshape(B, Fout, 12, n, n)
+    F = xc.shape[1]
+    dyi = dy[..., h : h + n].reshape(B, Fout, F, n, n)
     dw = [
         torch.einsum("bfgxy,bogxy->fo",
-                     ctr[..., h : h + n].reshape(B, Fin, 12, n, n), dyi)
+                     ctr[..., h : h + n].reshape(B, Fin, F, n, n), dyi)
         for ctr in _plain_terms(st, kind, n_terms, xc, wext, strips)
     ]
     return torch.stack(dw).reshape(n_terms * Fin, Fout)
@@ -207,18 +211,19 @@ def run_dxdw_plain(st, kind, n_terms, dy, wext, strips, wk3t, xr, mask, B):
     n, h = st.nside, st.n_steps
     _, P_l = cfp_geometry(n, h)
     K, Fc, Fx = wk3t.shape  # recursion channels Fout, x channels Fin
+    F = dy.shape[1]
     xm = xr[..., h : h + n]
     if mask is not None:
         xm = xm * mask[..., h : h + n].to(xm.dtype)
-    xm = xm.reshape(B, Fx, 12, n, n)
-    dx = dy.new_zeros((B, Fx, 12, n, P_l))
+    xm = xm.reshape(B, Fx, F, n, n)
+    dx = dy.new_zeros((B, Fx, F, n, P_l))
     dws = []
     for k, ctr in enumerate(_plain_terms(st, kind, n_terms, dy, wext,
                                          strips)):
-        c5 = ctr.reshape(B, Fc, 12, n, P_l)
+        c5 = ctr.reshape(B, Fc, F, n, P_l)
         dx = dx + torch.einsum("bfgxp,fo->bogxp", c5, wk3t[k])
         dws.append(torch.einsum("bogxy,bfgxy->of", xm, c5[..., h : h + n]))
-    dx = _zero_pad_lanes(dx, h, n).reshape(B * Fx, 12, n, P_l)
+    dx = _zero_pad_lanes(dx, h, n).reshape(B * Fx, F, n, P_l)
     return dx, torch.stack(dws).reshape(K * Fx, Fc)
 
 
@@ -235,14 +240,15 @@ def _check_tensors(what, dev, want):
                              f"{shape} tensor on {dev}")
 
 
-def _launch_plan(what, st, kind, K, strips, wext, B, Crec, Cch, offsets, dev,
-                 n_red):
+def _launch_plan(what, st, kind, K, strips, wext, B, F, Crec, Cch, offsets,
+                 dev, n_red):
     """Checks shared by the three tile kernels (recursion over B*Crec
-    channels through ``strips``, blocks over chunks of Cch channels).
+    channels of F faces through ``strips``, blocks over chunks of Cch
+    channels).
 
     :return: (T, offsets, geometry): the tile side, the device tap offsets
         and the trailing ints of the C entry points (kind, K, radius,
-        nplanes, then after B and the channel counts n, h, R, P, T)
+        nplanes, then after B, F and the channel counts n, h, R, P, T)
     """
     n, h = st.nside, st.n_steps
     R, P_l = cfp_geometry(n, h)
@@ -250,11 +256,13 @@ def _launch_plan(what, st, kind, K, strips, wext, B, Crec, Cch, offsets, dev,
     nplanes = len(st.offsets)
     top, bot, ls = strips
     C = B * Crec
+    if not 1 <= F <= 12:
+        raise ValueError(f"{what}: {F} faces (1..12)")
     _check_tensors(what, dev, {
-        "top": (top, (C, 12, R, P_l)),
-        "bot": (bot, (C, 12, R, P_l)),
-        "ls": (ls, (C, 12, n, 128)),
-        "wext": (wext, (nplanes, 12, n + 2 * R, P_l)),
+        "top": (top, (C, F, R, P_l)),
+        "bot": (bot, (C, F, R, P_l)),
+        "ls": (ls, (C, F, n, 128)),
+        "wext": (wext, (nplanes, F, n + 2 * R, P_l)),
     })
     if kind not in ("cheby", "mono"):
         raise ValueError(f"unknown basis kind: {kind}")
@@ -278,11 +286,11 @@ def _stream(dev):
         return torch.cuda.current_stream().cuda_stream
 
 
-def _partials(K, Crec, Cch, B, n, T, dev):
-    """Scratch of per-block dW sums, (K*Crec*Cch, B*12*tiles^2): each block
+def _partials(K, Crec, Cch, B, F, n, T, dev):
+    """Scratch of per-block dW sums, (K*Crec*Cch, B*F*tiles^2): each block
     writes its own column, a second launch reduces the rows in a fixed
     order (no float atomics, so two calls give bitwise-equal dW)."""
-    G = B * 12 * (n // T) ** 2
+    G = B * F * (n // T) ** 2
     return torch.empty((K * Crec * Cch, G), dtype=torch.float32, device=dev)
 
 
@@ -291,18 +299,19 @@ def _stencil_cuda(st, kind, xc, wext, strips, wk3, B, offsets):
     n = st.nside
     _, P_l = cfp_geometry(n, st.n_steps)
     K, Fin, Fout = wk3.shape
+    F = xc.shape[1]
     dev = xc.device
     _check_tensors("stencil kernel", dev, {
-        "xc": (xc, (B * Fin, 12, n, P_l)), "wk3": (wk3, (K, Fin, Fout))})
+        "xc": (xc, (B * Fin, F, n, P_l)), "wk3": (wk3, (K, Fin, Fout))})
     T, offsets, (head, tail) = _launch_plan(
-        "stencil kernel", st, kind, K, strips, wext, B, Fin, Fout, offsets,
+        "stencil kernel", st, kind, K, strips, wext, B, F, Fin, Fout, offsets,
         dev, 0)
-    out = torch.empty((B * Fout, 12, n, P_l), dtype=xc.dtype, device=dev)
+    out = torch.empty((B * Fout, F, n, P_l), dtype=xc.dtype, device=dev)
     top, bot, ls = strips
     rc = _cuda.lib().ds_stencil_conv(
         xc.data_ptr(), top.data_ptr(), bot.data_ptr(), ls.data_ptr(),
         wext.data_ptr(), wk3.data_ptr(), offsets.data_ptr(), out.data_ptr(),
-        *head, B, Fin, Fout, *tail, _stream(dev),
+        *head, B, F, Fin, Fout, *tail, _stream(dev),
     )
     _cuda.check(rc, "ds_stencil_conv")
     _cuda.launch_counts["stencil_conv"] += 1
@@ -314,18 +323,20 @@ def _grad_cuda(st, kind, K, xc, wext, strips, dy, B, offsets):
     n = st.nside
     _, P_l = cfp_geometry(n, st.n_steps)
     Fin, Fout = xc.shape[0] // B, dy.shape[0] // B
+    F = xc.shape[1]
     dev = xc.device
     _check_tensors("grad kernel", dev, {
-        "xc": (xc, (B * Fin, 12, n, P_l)), "dy": (dy, (B * Fout, 12, n, P_l))})
+        "xc": (xc, (B * Fin, F, n, P_l)), "dy": (dy, (B * Fout, F, n, P_l))})
     T, offsets, (head, tail) = _launch_plan(
-        "grad kernel", st, kind, K, strips, wext, B, Fin, Fout, offsets, dev, K)
-    partial = _partials(K, Fin, Fout, B, n, T, dev)
+        "grad kernel", st, kind, K, strips, wext, B, F, Fin, Fout, offsets,
+        dev, K)
+    partial = _partials(K, Fin, Fout, B, F, n, T, dev)
     dw = torch.empty((K * Fin, Fout), dtype=torch.float32, device=dev)
     top, bot, ls = strips
     rc = _cuda.lib().ds_stencil_grad(
         xc.data_ptr(), top.data_ptr(), bot.data_ptr(), ls.data_ptr(),
         wext.data_ptr(), offsets.data_ptr(), dy.data_ptr(), partial.data_ptr(),
-        dw.data_ptr(), *head, B, Fin, Fout, *tail, _stream(dev),
+        dw.data_ptr(), *head, B, F, Fin, Fout, *tail, _stream(dev),
     )
     _cuda.check(rc, "ds_stencil_grad")
     _cuda.launch_counts["grad"] += 1
@@ -337,23 +348,25 @@ def _dxdw_cuda(st, kind, dy, wext, strips, wk3t, xr, mask, B, offsets):
     n = st.nside
     _, P_l = cfp_geometry(n, st.n_steps)
     K, Fc, Fx = wk3t.shape
+    F = dy.shape[1]
     dev = dy.device
-    want = {"dy": (dy, (B * Fc, 12, n, P_l)), "wk3t": (wk3t, (K, Fc, Fx)),
-            "xr": (xr, (B * Fx, 12, n, P_l))}
+    want = {"dy": (dy, (B * Fc, F, n, P_l)), "wk3t": (wk3t, (K, Fc, Fx)),
+            "xr": (xr, (B * Fx, F, n, P_l))}
     if mask is not None:
-        want["mask"] = (mask, (12, n, P_l))
+        want["mask"] = (mask, (F, n, P_l))
     _check_tensors("dxdw kernel", dev, want)
     T, offsets, (head, tail) = _launch_plan(
-        "dxdw kernel", st, kind, K, strips, wext, B, Fc, Fx, offsets, dev, K)
-    dx = torch.empty((B * Fx, 12, n, P_l), dtype=torch.float32, device=dev)
-    partial = _partials(K, Fc, Fx, B, n, T, dev)
+        "dxdw kernel", st, kind, K, strips, wext, B, F, Fc, Fx, offsets, dev,
+        K)
+    dx = torch.empty((B * Fx, F, n, P_l), dtype=torch.float32, device=dev)
+    partial = _partials(K, Fc, Fx, B, F, n, T, dev)
     dw = torch.empty((K * Fx, Fc), dtype=torch.float32, device=dev)
     top, bot, ls = strips
     rc = _cuda.lib().ds_stencil_dxdw(
         dy.data_ptr(), top.data_ptr(), bot.data_ptr(), ls.data_ptr(),
         wext.data_ptr(), wk3t.data_ptr(), offsets.data_ptr(), xr.data_ptr(),
         0 if mask is None else mask.data_ptr(), dx.data_ptr(),
-        partial.data_ptr(), dw.data_ptr(), *head, B, Fc, Fx, *tail,
+        partial.data_ptr(), dw.data_ptr(), *head, B, F, Fc, Fx, *tail,
         _stream(dev),
     )
     _cuda.check(rc, "ds_stencil_dxdw")
@@ -365,14 +378,15 @@ def run_stencil_kernel(st, kind, n_terms, xc, wext, strips, wk3, B,
                        offsets=None):
     """The raw fused conv (before the corner correction).
 
-    :param xc: (B*Fin, 12, n, P_l) activations (interior lanes read)
-    :param wext: (T2, 12, n+2R, P_l) wrapped-extended weight planes
-        (``FaceStencil.weights``)
+    :param xc: (B*Fin, F, n, P_l) activations (interior lanes read), F the
+        faces of the arrays (12, or a face shard's)
+    :param wext: (T2, F, n+2R, P_l) wrapped-extended weight planes
+        (``FaceStencil.weights``, of the same faces)
     :param strips: (top, bot, ls) halo strips of ``xc``
     :param wk3: (K, Fin, Fout) channel kernel per term
     :param offsets: (T2, 2) int32 tap offsets on the device
         (``tables["offsets"]``), else built here
-    :return: (B*Fout, 12, n, P_l), 0 outside the interior lanes; exact at
+    :return: (B*Fout, F, n, P_l), 0 outside the interior lanes; exact at
         every interior row whose K-1-step neighbourhood lies in the
         rectangular face extension
     """
@@ -393,9 +407,9 @@ def run_grad_kernel(st, kind, n_terms, xc, wext, strips, dy, B,
     interior lanes, the recursion run on ``xc`` through its strips.  The
     caller has zeroed dy's corrupt rows; dy's halo lanes are never read.
 
-    :param xc: (B*Fin, 12, n, P_l) forward input
+    :param xc: (B*Fin, F, n, P_l) forward input (F faces, as K1's)
     :param strips: (top, bot, ls) halo strips of ``xc``
-    :param dy: (B*Fout, 12, n, P_l) cotangent of the conv output
+    :param dy: (B*Fout, F, n, P_l) cotangent of the conv output
     :return: (K*Fin, Fout) float, Fin-major per term (k-major rows)
     """
     if xc.is_cuda:
@@ -414,13 +428,14 @@ def run_dxdw_kernel(st, kind, n_terms, dy, wext, strips, wk3t, xr, mask, B,
     so dW[k] = <T_k(L~) x, dy> = <x, T_k(L~) dy>, over the terms the dx pass
     already makes.
 
-    :param dy: (B*Fout, 12, n, P_l) cotangent (interior lanes read)
+    :param dy: (B*Fout, F, n, P_l) cotangent (interior lanes read), F
+        faces as K1's
     :param strips: (top, bot, ls) halo strips of ``dy``
     :param wk3t: (K, Fout, Fin) transposed channel kernel per term
-    :param xr: (B*Fin, 12, n, P_l) forward input (interior lanes read)
-    :param mask: (12, n, P_l) plane multiplied into x at the interior lanes
+    :param xr: (B*Fin, F, n, P_l) forward input (interior lanes read)
+    :param mask: (F, n, P_l) plane multiplied into x at the interior lanes
         (``tables["corr_mask"]``: 0 at the corrupt rows), or None
-    :return: ``(dx, dW)``: dx (B*Fin, 12, n, P_l) = sum_k T_k(L~) dy W_k^T,
+    :return: ``(dx, dW)``: dx (B*Fin, F, n, P_l) = sum_k T_k(L~) dy W_k^T,
         0 outside the interior lanes and wrong at the corrupt rows, as the
         forward's y; dW (K*Fin, Fout) in the forward's orientation
     """
@@ -449,12 +464,17 @@ def _ball_spmv(idx, val, t):
     return y
 
 
-def _ball_terms(tables, xc, n_terms, kind):
-    """Exact per-term basis values over the correction ball, (Bn, C) each;
-    the ball's source rows are read with one flat gather."""
+def _ball_src(tables, a):
+    """The correction ball's source rows of ``a`` (C, 12, n, P_l), (Bn, C),
+    with one flat gather."""
+    return _gather_rows(a, tables["corr_src_cfp"])
+
+
+def _ball_terms(tables, t, n_terms, kind):
+    """Exact per-term basis values over the correction ball, (Bn, C) each,
+    from its source rows ``t`` (Bn, C)."""
     idx = tables["corr_idx"]
-    val = tables["corr_val"].to(xc.dtype)
-    t = _gather_rows(xc, tables["corr_src_cfp"])
+    val = tables["corr_val"].to(t.dtype)
     yield t
     prev2, prev1 = None, t
     for k in range(1, n_terms):
@@ -465,23 +485,25 @@ def _ball_terms(tables, xc, n_terms, kind):
         prev2, prev1 = prev1, tk
 
 
-def _corrected_rows(tables, xc, wk3, n_terms, kind, B):
-    """Exact conv outputs at the corrupt rows: (Rc, B*Fout)."""
+def _corrected_rows(tables, t, wk3, n_terms, kind, B):
+    """Exact conv outputs at the corrupt rows, (Rc, B*Fout), from the
+    ball's source rows ``t``."""
     out_rows = tables["corr_out_ball"]
     K, Fin, Fout = wk3.shape
     acc = None
-    for k, tk in enumerate(_ball_terms(tables, xc, n_terms, kind)):
+    for k, tk in enumerate(_ball_terms(tables, t, n_terms, kind)):
         d = torch.einsum("rbf,fo->rbo", tk[out_rows].reshape(-1, B, Fin),
                          wk3[k]).reshape(-1, B * Fout)
         acc = d if acc is None else acc + d
     return acc
 
 
-def _basis_at_rows(tables, xc, n_terms, kind):
-    """Exact per-term basis values at the corrupt rows: (K, Rc, C)."""
+def _basis_at_rows(tables, t, n_terms, kind):
+    """Exact per-term basis values at the corrupt rows, (K, Rc, C), from
+    the ball's source rows ``t``."""
     out_rows = tables["corr_out_ball"]
     return torch.stack([tk[out_rows] for tk in
-                        _ball_terms(tables, xc, n_terms, kind)])
+                        _ball_terms(tables, t, n_terms, kind)])
 
 
 def _gather_rows(a, rows):
@@ -500,7 +522,8 @@ def _patch_rows(y, rows, y_fix):
 def _forward_cfp(st, tables, xc, wk3, n_terms, kind, B, strips, conv_fn):
     y = conv_fn(st, kind, n_terms, xc, tables["weights"], strips, wk3, B)
     if "corr_rows_cfp" in tables:
-        y_fix = _corrected_rows(tables, xc, wk3, n_terms, kind, B)
+        y_fix = _corrected_rows(tables, _ball_src(tables, xc), wk3, n_terms,
+                                kind, B)
         y = _patch_rows(y, tables["corr_rows_cfp"], y_fix)
     return y
 
@@ -560,9 +583,9 @@ class _FusedConv(torch.autograd.Function):
             dwk = dw.reshape(K, Fin, Fout)
             if has_corr:
                 if need_dx:
-                    dx = _patch_rows(
-                        dx, rows, _corrected_rows(tables, dy, wk3t, K, kind, B))
-                tdy = _basis_at_rows(tables, dy, K, kind)
+                    dx = _patch_rows(dx, rows, _corrected_rows(
+                        tables, _ball_src(tables, dy), wk3t, K, kind, B))
+                tdy = _basis_at_rows(tables, _ball_src(tables, dy), K, kind)
                 x_rc = _gather_rows(xc, rows)
                 dwk = dwk + torch.einsum(
                     "rbf,krbo->kfo", x_rc.reshape(-1, B, Fin),
@@ -582,7 +605,8 @@ class _FusedConv(torch.autograd.Function):
                                   dy_clean, B,
                                   offsets=offsets).reshape(K, Fin, Fout)
             if has_corr:
-                basis = _basis_at_rows(tables, xc, K, kind)
+                basis = _basis_at_rows(tables, _ball_src(tables, xc), K,
+                                       kind)
                 dy_rc = _gather_rows(dy, rows)
                 dwk = dwk + torch.einsum(
                     "krbf,rbo->kfo", basis.reshape(K, -1, B, Fin),

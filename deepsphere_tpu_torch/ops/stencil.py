@@ -18,6 +18,12 @@ Two conv forms live here:
   always calls :func:`.fused_stencil.fused_stencil_conv_cfp`: the device of
   the tensor decides between the CUDA kernels and their plain versions.
 
+The face-sharded conv (``parallel/cface_sharded.py``) exchanges only the
+four h-deep edge bands of each face: :func:`pack_edge_bands` cuts them (the
+CUDA kernel ``csrc/bands.cu``, K5), packed face-major for one all-gather,
+and :func:`edge_strips` builds any faces' halo strips from the gathered
+bands.
+
 The static graph arrays travel as a ``tables`` dict (:func:`stencil_tables`
 on the host, :func:`as_tensors` for a device); the model layers keep them
 as non-persistent buffers.
@@ -30,12 +36,17 @@ import torch
 import torch.nn.functional as F
 
 from ..graph.stencil import FaceStencil
+from . import _cuda
 
 __all__ = [
     "stencil_tables",
     "as_tensors",
     "pad_faces",
     "edge_strips",
+    "extract_edge_bands",
+    "pack_edge_bands",
+    "pack_edge_bands_plain",
+    "unpack_edge_bands",
     "stencil_matvec",
     "stencil_graph_conv",
     "stencil_graph_conv_cface",
@@ -108,17 +119,26 @@ def _extract_bands(x3, n, h, lane_off=0):
     )
 
 
-def edge_strips(n, h, x3, embedded=False):
+def edge_strips(n, h, x3, embedded=False, faces=None, bands=None):
     """The four halo strips of every face, as structured edge copies.
 
     x3: (C, 12, n, n) channels-first faces — or, with ``embedded=True``,
     (C, 12, n, P_l) in the cface layout (face col y at lane y + h).
-    Returns ``(west, east, south, north)`` with west/east (C, 12, h, n+2h)
+    Returns ``(west, east, south, north)`` with west/east (C, F, h, n+2h)
     spanning the full padded width (corners included) and south/north
-    (C, 12, n, h) covering interior rows — the coverage of the gather
+    (C, F, n, h) covering interior rows — the coverage of the gather
     tables built in :mod:`..graph.stencil`.
+
+    For the face-sharded conv, pass ``faces`` (the local face ids, F of
+    them) and ``bands`` (the all-gathered full-sphere edge bands, as
+    :func:`extract_edge_bands` returns them): strips are built for those
+    faces only, with neighbour data read from the bands (``x3`` is not
+    read).
     """
-    bands = _extract_bands(x3, n, h, lane_off=h if embedded else 0)
+    if bands is None:
+        bands = _extract_bands(x3, n, h, lane_off=h if embedded else 0)
+    if faces is None:
+        faces = range(12)
 
     def row_strip(xs):
         return torch.stack(
@@ -131,17 +151,76 @@ def edge_strips(n, h, x3, embedded=False):
                     ],
                     dim=2,
                 )
-                for f in range(12)
+                for f in faces
             ],
             dim=1,
         )
 
     def col_strip(ys):
         return torch.stack(
-            [_edge_block(bands, n, h, f, 0, ys) for f in range(12)], dim=1
+            [_edge_block(bands, n, h, f, 0, ys) for f in faces], dim=1
         )
 
     return row_strip(-1), row_strip(1), col_strip(-1), col_strip(1)
+
+
+def extract_edge_bands(x3, n, h, embedded=False):
+    """The four face-edge bands of ``x3`` (C, F, n, W), cut to depth h:
+    first/last h rows (C, F, h, n) and first/last h columns (C, F, n, h),
+    face col y at lane ``y + h`` with ``embedded=True`` (else lane y)."""
+    return _extract_bands(x3, n, h, lane_off=h if embedded else 0)
+
+
+def pack_edge_bands_plain(xc, n, h):
+    """Plain version of :func:`pack_edge_bands`: the four bands of
+    :func:`extract_edge_bands` (embedded) packed face-major, (F, C, 4*h*n)."""
+    C, F = xc.shape[0], xc.shape[1]
+    return torch.cat([b.transpose(0, 1).reshape(F, C, -1)
+                      for b in extract_edge_bands(xc, n, h, embedded=True)],
+                     dim=2)
+
+
+def unpack_edge_bands(packed, n, h):
+    """(F, C, 4*h*n) packed bands -> the four bands of
+    :func:`extract_edge_bands`: (C, F, h, n) twice, (C, F, n, h) twice."""
+    F, C = packed.shape[0], packed.shape[1]
+    parts = packed.split(h * n, dim=2)
+    shapes = ((h, n), (h, n), (n, h), (n, h))
+    return tuple(p.reshape((F, C) + s).transpose(0, 1)
+                 for p, s in zip(parts, shapes))
+
+
+def _bands_cuda(xc, n, h):
+    """Launch the band kernel (``csrc/bands.cu``)."""
+    if xc.dtype != torch.float32 or not xc.is_contiguous() or xc.ndim != 4:
+        raise ValueError("band kernel needs a contiguous float32 (C, F, n, P) xc")
+    C, F, rows, P = xc.shape
+    if rows != n or not 1 <= h <= n or 2 * h + n > P:
+        raise ValueError(f"band kernel: xc {tuple(xc.shape)} does not hold "
+                         f"n={n} rows and h={h} halo lanes")
+    if C > 65535:
+        raise ValueError(f"band kernel takes 1..65535 channels, got {C}")
+    out = torch.empty((F, C, 4 * h * n), dtype=xc.dtype, device=xc.device)
+    with torch.cuda.device(xc.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _cuda.lib().ds_bands(xc.data_ptr(), out.data_ptr(), C, F, n, h,
+                                  P, h, stream)
+    _cuda.check(rc, "ds_bands")
+    _cuda.launch_counts["bands"] += 1
+    return out
+
+
+def pack_edge_bands(xc, n, h):
+    """The four h-deep edge bands of every face of ``xc`` (C, F, n, P_l),
+    cface layout (face col y at lane y + h), packed face-major into one
+    (F, C, 4*h*n) buffer: per (face, channel) the first rows, last rows,
+    first columns and last columns, each raster-ordered.  The CUDA kernel
+    (K5) for a CUDA tensor, :func:`pack_edge_bands_plain` for a CPU one."""
+    if xc.is_cuda:
+        return _bands_cuda(xc, n, h)
+    if xc.device.type != "cpu":
+        raise ValueError(f"no band implementation for device {xc.device}")
+    return pack_edge_bands_plain(xc, n, h)
 
 
 def stencil_tables(st: FaceStencil):
@@ -359,17 +438,19 @@ def stencil_graph_conv_cface(st: FaceStencil, x5, kernel, n_terms, kind,
 
 
 def cface_embed(x, n, h):
-    """(B, M, F) face-flat -> (B, F, 12, n, P_l) channels-first padded."""
+    """(B, M, F) face-flat -> (B, F, 12, n, P_l) channels-first padded (or
+    the faces that M holds: a face shard's M = F_loc*n^2)."""
     from .fused_stencil import cfp_geometry
 
     B, M, Fc = x.shape
     _, P_l = cfp_geometry(n, h)
-    xi = x.permute(0, 2, 1).reshape(B, Fc, 12, n, n)
+    xi = x.permute(0, 2, 1).reshape(B, Fc, M // (n * n), n, n)
     return F.pad(xi, (h, P_l - n - h))
 
 
 def cface_extract(x5, h):
-    """(B, F, 12, n, P_l) channels-first padded -> (B, M, F) face-flat."""
-    B, Fc, _, n, _ = x5.shape
-    xi = x5[:, :, :, :, h : h + n].reshape(B, Fc, 12 * n * n)
+    """(B, F, 12, n, P_l) channels-first padded (or a face shard's faces)
+    -> (B, M, F) face-flat."""
+    B, Fc, faces, n, _ = x5.shape
+    xi = x5[:, :, :, :, h : h + n].reshape(B, Fc, faces * n * n)
     return xi.permute(0, 2, 1)

@@ -18,6 +18,11 @@ R = roundup(h, 8), P_l = roundup(n + 2h, 128):
 On the TPU the builder was a DMA/flip program; on a GPU the whole
 assembly is one gather through a host-built int32 source map
 (:func:`strip_index_map`), which runs at memory bandwidth.
+
+The face-sharded conv builds the strips of its local faces from the
+all-gathered edge bands (:func:`.stencil.pack_edge_bands`) with the same
+gather kernel and another map (:func:`band_strip_index_map`), as the JAX
+package does with ``_strip_arrays(st, xc, faces, bands)``.
 """
 
 from __future__ import annotations
@@ -26,9 +31,10 @@ import numpy as np
 import torch
 
 from . import _cuda
-from .stencil import edge_strips
+from .stencil import edge_strips, unpack_edge_bands
 
-__all__ = ["strip_arrays", "strip_index_map", "build_strips"]
+__all__ = ["strip_arrays", "strip_index_map", "build_strips",
+           "band_strip_index_map", "build_band_strips"]
 
 
 def _geometry(st):
@@ -37,16 +43,24 @@ def _geometry(st):
     return cfp_geometry(st.nside, st.n_steps)
 
 
-def strip_arrays(st, xc):
+def strip_arrays(st, xc, faces=None, bands=None):
     """Plain version: (top, bot, ls) from slices and flips of the interior
-    of ``xc`` (C, 12, n, P_l) (lanes [h, h+n); the rest is not read)."""
+    of ``xc`` (C, 12, n, P_l) (lanes [h, h+n); the rest is not read).
+
+    ``faces``/``bands``: the strips of ``faces`` only (F of them, in that
+    order, (C, F, ...) each), with the neighbour data read from the four
+    full-sphere edge bands ``bands`` (:func:`.stencil.extract_edge_bands`
+    or :func:`.stencil.unpack_edge_bands`); ``xc`` may then be None."""
     n, h = st.nside, st.n_steps
     R, P_l = _geometry(st)
-    C = xc.shape[0]
-    west, east, south, north = edge_strips(n, h, xc, embedded=True)
+    ref = xc if bands is None else bands[0]
+    C = ref.shape[0]
+    west, east, south, north = edge_strips(n, h, xc, embedded=True,
+                                           faces=faces, bands=bands)
+    F = west.shape[1]
 
     def zer(*s):
-        return xc.new_zeros((C, 12) + s)
+        return ref.new_zeros((C, F) + s)
 
     P0 = n + 2 * h
     wp = torch.cat([west, zer(h, P_l - P0)], dim=3)
@@ -76,36 +90,72 @@ def strip_index_map(st):
     return cached
 
 
-def _strips_cuda(st, xc, index):
-    """Launch the strip gather kernel (``csrc/strips.cu``)."""
+def band_strip_index_map(st, faces):
+    """Host int32 source map of the strips of ``faces`` read from the
+    packed all-gathered band buffer of one channel, (12, 1, 4*h*n): for
+    every element of one channel's ``top``, ``bot`` and ``ls`` of those
+    faces (concatenated, flattened in that order), its flat index into that
+    buffer, or -1 for a zero.  Derived, as :func:`strip_index_map`, by
+    running :func:`strip_arrays` on an image of flat indices.  For C
+    channels, the element of face f and band offset j lies at
+    ``f*C*4hn + j`` (:func:`build_band_strips` rescales).  Cached on ``st``
+    per face tuple."""
+    faces = tuple(int(f) for f in faces)
+    cache = st.__dict__.setdefault("_band_strip_idx_cache", {})
+    if faces not in cache:
+        n, h = st.nside, st.n_steps
+        L = 4 * h * n
+        ids = torch.arange(1, 12 * L + 1, dtype=torch.int64).reshape(12, 1, L)
+        parts = strip_arrays(st, None, faces, unpack_edge_bands(ids, n, h))
+        m = torch.cat([p.reshape(-1) for p in parts]) - 1
+        cache[faces] = m.numpy().astype(np.int32)
+    return cache[faces]
+
+
+def _check_source(src):
+    if src.dtype != torch.float32 or not src.is_contiguous():
+        raise ValueError("strips kernel needs a contiguous float32 source")
+
+
+def _gather_strips(st, src, index, C, F, slab):
+    """Launch the strip gather kernel (``csrc/strips.cu``): strips of F
+    faces and C channels, ``out[c, e] = src[c*slab + index[e]]`` (0 where
+    the index is -1); the caller has checked ``src``
+    (:func:`_check_source`)."""
     n = st.nside
     R, P_l = _geometry(st)
-    C = xc.shape[0]
-    if xc.dtype != torch.float32 or not xc.is_contiguous():
-        raise ValueError("strips kernel needs a contiguous float32 xc")
-    if tuple(xc.shape) != (C, 12, n, P_l):
-        raise ValueError(f"xc shape {tuple(xc.shape)} != {(C, 12, n, P_l)}")
     if not 1 <= C <= 65535:
         raise ValueError(f"strips kernel takes 1..65535 channels, got {C}")
-    e_tb, e_ls = 12 * R * P_l, 12 * n * 128
-    if index is None:
-        index = torch.from_numpy(strip_index_map(st)).to(xc.device)
-    if (index.dtype != torch.int32 or index.device != xc.device
+    e_tb, e_ls = F * R * P_l, F * n * 128
+    if (index.dtype != torch.int32 or index.device != src.device
             or index.numel() != 2 * e_tb + e_ls or not index.is_contiguous()):
         raise ValueError("strip index map does not match this conv")
-    top = torch.empty((C, 12, R, P_l), dtype=xc.dtype, device=xc.device)
+    top = torch.empty((C, F, R, P_l), dtype=src.dtype, device=src.device)
     bot = torch.empty_like(top)
-    ls = torch.empty((C, 12, n, 128), dtype=xc.dtype, device=xc.device)
+    ls = torch.empty((C, F, n, 128), dtype=src.dtype, device=src.device)
     lib = _cuda.lib()
-    with torch.cuda.device(xc.device):
+    with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.ds_strips(
-            xc.data_ptr(), index.data_ptr(), top.data_ptr(), bot.data_ptr(),
-            ls.data_ptr(), C, 12 * n * P_l, e_tb, e_ls, stream,
+            src.data_ptr(), index.data_ptr(), top.data_ptr(), bot.data_ptr(),
+            ls.data_ptr(), C, slab, e_tb, e_ls, stream,
         )
     _cuda.check(rc, "ds_strips")
     _cuda.launch_counts["strips"] += 1
     return top, bot, ls
+
+
+def _strips_cuda(st, xc, index):
+    """The strips of all 12 faces of ``xc`` through the gather kernel."""
+    n = st.nside
+    _, P_l = _geometry(st)
+    C = xc.shape[0]
+    _check_source(xc)
+    if tuple(xc.shape) != (C, 12, n, P_l):
+        raise ValueError(f"xc shape {tuple(xc.shape)} != {(C, 12, n, P_l)}")
+    if index is None:
+        index = torch.from_numpy(strip_index_map(st)).to(xc.device)
+    return _gather_strips(st, xc, index, C, 12, 12 * n * P_l)
 
 
 def build_strips(st, xc, index=None):
@@ -117,3 +167,26 @@ def build_strips(st, xc, index=None):
     if xc.device.type != "cpu":
         raise ValueError(f"no strips implementation for device {xc.device}")
     return strip_arrays(st, xc)
+
+
+def build_band_strips(st, bands, faces, index=None):
+    """(top, bot, ls) of ``faces`` (C, F, ...) from the packed all-gathered
+    edge bands ``bands`` (12, C, 4*h*n): the gather kernel (K4's) for a CUDA
+    tensor, the plain version for a CPU tensor.  ``index``: the device copy
+    of :func:`band_strip_index_map` for these faces (any integer type),
+    else built here."""
+    n, h = st.nside, st.n_steps
+    C, L = bands.shape[1], bands.shape[2]
+    if tuple(bands.shape) != (12, C, 4 * h * n):
+        raise ValueError(f"bands {tuple(bands.shape)} != (12, C, {4 * h * n})")
+    if bands.is_cuda:
+        _check_source(bands)
+        if index is None:
+            index = torch.from_numpy(band_strip_index_map(st, faces))
+        m = index.to(device=bands.device, dtype=torch.int64)
+        # one channel's map -> C channels': face f's bands start at f*C*L
+        m = torch.where(m >= 0, (m // L) * (C * L) + m % L, m)
+        return _gather_strips(st, bands, m.to(torch.int32), C, len(faces), L)
+    if bands.device.type != "cpu":
+        raise ValueError(f"no strips implementation for device {bands.device}")
+    return strip_arrays(st, None, faces, unpack_edge_bands(bands, n, h))

@@ -7,6 +7,15 @@ parameters and batch-norm statistics live in its modules, on the model's
 device; a float optimizer is ``torch.optim.Adam(lr)``, whose defaults
 (beta 0.9 / 0.999, eps 1e-8) are ``optax.adam``'s.  Batch-norm statistics
 update in ``model.train()`` mode, as flax's mutable ``batch_stats`` do.
+
+Data-parallel training (``data_sharding=parallel.batch_sharding(mesh)``):
+every rank runs this trainer on its rows of each global batch.  Its loss is
+its rows' mean over the number of data ranks (its local sum over the global
+batch size), and after the backward every gradient is summed over the data
+group, so every rank takes the global batch's step; the sharded convs have
+already summed their kernel gradients over the pixel group.  The optimizer
+state and the batch-norm statistics (global-batch moments) stay identical
+on every rank.  The logged loss and metrics are the global batch's.
 """
 
 from __future__ import annotations
@@ -17,8 +26,11 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .._logger import logger
+from ..parallel.data import data_iterator
+from ..parallel.mesh import BatchSharding
 from .losses import resolve_loss, resolve_metric
 
 __all__ = ["Trainer", "TrainState"]
@@ -53,16 +65,22 @@ class Trainer:
         it is created at the first step, once the parameters exist
     :param loss: loss name or callable ``loss(y_true, y_pred)``
     :param metrics: list of metric names / callables
-    :param data_sharding: not ported yet; anything but None raises
+    :param data_sharding: optional
+        :func:`~deepsphere_tpu_torch.parallel.batch_sharding` of the model's
+        mesh: ``train_on_batch`` and ``test_on_batch`` then take this rank's
+        rows, and ``fit``/``evaluate`` draw them through
+        :func:`~deepsphere_tpu_torch.parallel.data_iterator`
     """
 
     def __init__(self, model, optimizer=1e-3,
                  loss="sparse_categorical_crossentropy", metrics=(),
                  data_sharding=None):
-        if data_sharding is not None:
-            raise NotImplementedError(
-                "data_sharding: data-parallel training is not ported yet "
-                "(ROADMAP.md, queue 1, step 17)")
+        if data_sharding is not None and not isinstance(data_sharding,
+                                                        BatchSharding):
+            raise TypeError(
+                "data_sharding: expected parallel.batch_sharding(mesh), got "
+                f"{type(data_sharding).__name__}")
+        self.data_sharding = data_sharding
         self.model = model
         self._optimizer_spec = optimizer
         self.optimizer = None
@@ -106,11 +124,33 @@ class Trainer:
         return next(self.model.parameters()).device
 
     def _logs(self, yb, y_pred, loss):
+        """Loss and metrics as floats: under data sharding the means over
+        the global batch, from each rank's means over its rows (a rank with
+        no rows contributes nothing)."""
         logs = {"loss": loss.detach()}
         with torch.no_grad():
             for name, fn in self.metric_fns.items():
                 logs[name] = fn(yb, y_pred.detach())
+        n = float(yb.shape[0])
+        if n == 0:
+            logs = {k: 0.0 for k in logs}
+        if self.data_sharding is not None:
+            f64 = dict(dtype=torch.float64, device=yb.device)
+            t = torch.stack([torch.as_tensor(v, **f64) * n
+                             for v in logs.values()]
+                            + [torch.tensor(n, **f64)])
+            dist.all_reduce(t, group=self.data_sharding.group)
+            logs = dict(zip(logs, (t[:-1] / t[-1]).tolist()))
         return {k: float(v) for k, v in logs.items()}
+
+    def _sum_grads(self):
+        """Sum every parameter gradient over the data group (one
+        all-reduce of the concatenated gradients)."""
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=self.data_sharding.group)
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
 
     def train_on_batch(self, x, y):
         if self.optimizer is None:
@@ -121,12 +161,21 @@ class Trainer:
         self.optimizer.zero_grad(set_to_none=True)
         y_pred = self.model(xb)
         loss = self.loss_fn(yb, y_pred)
-        loss.backward()
+        if self.data_sharding is None:
+            loss.backward()
+        else:
+            # this rank's rows' sum over the global batch size; the ranks'
+            # gradients then sum to the global batch's
+            (loss / self.data_sharding.n_shards).backward()
+            self._sum_grads()
         self.optimizer.step()
         self.step += 1
         return self._logs(yb, y_pred, loss)
 
-    def test_on_batch(self, x, y):
+    def test_on_batch(self, x, y, mask=None):
+        """Eval-mode loss and metrics of a batch; ``mask`` (bool per row,
+        as :func:`~deepsphere_tpu_torch.parallel.data_iterator` yields for a
+        padded batch) keeps only its True rows."""
         if self.optimizer is None:
             self.init_state()
         dev = self._device()
@@ -136,6 +185,10 @@ class Trainer:
         try:
             with torch.no_grad():
                 y_pred = self.model(xb)
+                if mask is not None:
+                    keep = torch.as_tensor(np.asarray(mask, dtype=bool),
+                                           device=dev)
+                    yb, y_pred = yb[keep], y_pred[keep]
                 loss = self.loss_fn(yb, y_pred)
         finally:
             self.model.train(was_training)
@@ -152,16 +205,40 @@ class Trainer:
         """Mini-batch epoch loop; returns a Keras-like history dict.
 
         The trailing partial batch is trained on; epoch means weight each
-        batch by its size; the order is a seeded numpy permutation.
+        batch by its size; the order is a seeded numpy permutation.  Under
+        data sharding every rank passes the same ``x``/``y`` and trains on
+        its rows of each global batch of ``batch_size``, drawn by
+        :func:`~deepsphere_tpu_torch.parallel.data_iterator` (the same
+        permutations); a trailing partial batch is dropped there.
 
         :param callbacks: list of :mod:`~.callbacks` objects (epoch hooks)
         """
         x = np.asarray(x)
         y = np.asarray(y)
         n = x.shape[0]
-        if n == 0:
-            raise ValueError(f"no trainable batches: {n} samples")
-        rng = np.random.RandomState(seed)
+        ds = self.data_sharding
+        if n == 0 or (ds is not None and n < batch_size):
+            raise ValueError(f"no trainable batches: {n} samples with "
+                             f"batch_size {batch_size}")
+        if ds is None:
+            rng = np.random.RandomState(seed)
+
+            def epoch_batches():
+                order = rng.permutation(n) if shuffle else np.arange(n)
+                for start in range(0, n, batch_size):
+                    sel = order[start:start + batch_size]
+                    yield x[sel], y[sel]
+        else:
+            if n % batch_size:
+                logger.info(f"WARNING: dropping the trailing partial batch "
+                            f"of {n % batch_size} samples under data sharding")
+            it = data_iterator(ds.mesh, x, y, batch_size, shuffle=shuffle,
+                               seed=seed, data_axis=ds.data_axis,
+                               epochs=epochs)
+
+            def epoch_batches():
+                for _ in range(n // batch_size):
+                    yield next(it)
         history = {}
         if self.optimizer is None:
             self.init_state()
@@ -172,14 +249,12 @@ class Trainer:
             cb.on_train_begin()
 
         for epoch in range(epochs):
-            order = rng.permutation(n) if shuffle else np.arange(n)
             t0 = time.time()
             epoch_logs = []
             sizes = []
-            for start in range(0, n, batch_size):
-                sel = order[start:start + batch_size]
-                epoch_logs.append(self.train_on_batch(x[sel], y[sel]))
-                sizes.append(len(sel))
+            for xb, yb in epoch_batches():
+                epoch_logs.append(self.train_on_batch(xb, yb))
+                sizes.append(len(xb))
             w = np.asarray(sizes, dtype=np.float64)
             means = {
                 k: float(np.average([l[k] for l in epoch_logs], weights=w))
@@ -209,13 +284,20 @@ class Trainer:
         n = x.shape[0]
         if n == 0:
             raise ValueError("evaluate() needs at least one sample, got 0")
+        # batches in order: the same slices on every rank, or under data
+        # sharding each rank's rows of them (a padded trailing batch masked)
+        if self.data_sharding is None:
+            batches = ((x[s:s + batch_size], y[s:s + batch_size])
+                       for s in range(0, n, batch_size))
+        else:
+            batches = data_iterator(self.data_sharding.mesh, x, y, batch_size,
+                                    shuffle=False, drop_remainder=False,
+                                    data_axis=self.data_sharding.data_axis)
         logs = []
         sizes = []
-        for start in range(0, n, batch_size):
-            xb = x[start:start + batch_size]
-            yb = y[start:start + batch_size]
-            logs.append(self.test_on_batch(xb, yb))
-            sizes.append(len(xb))
+        for start, batch in zip(range(0, n, batch_size), batches):
+            logs.append(self.test_on_batch(*batch))
+            sizes.append(min(batch_size, n - start))
         # per-sample averaging (Keras semantics): a trailing partial batch
         # contributes proportionally to its size, not as a full batch
         w = np.asarray(sizes, dtype=np.float64)

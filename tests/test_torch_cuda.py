@@ -9,7 +9,8 @@ fixtures):
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Tolerance: 2e-5 of the plain version's max (both float32 without TF32;
+The edge-band cut (K5) and the strips built from gathered bands must be
+exact too.  Tolerance: 2e-5 of the plain version's max (both float32 without TF32;
 only the order of the sums differs), 1e-4 for a dW, which sums a whole map
 of products per entry; the strip gather must be exact, and a dW must be
 bitwise-equal across two calls (no atomics).
@@ -29,7 +30,12 @@ from deepsphere_tpu_torch.nn import healpy_layers as hp_nn
 from deepsphere_tpu_torch.ops import _cuda
 from deepsphere_tpu_torch.ops import fused_stencil as fs
 from deepsphere_tpu_torch.ops import strips as tstrips
-from deepsphere_tpu_torch.ops.stencil import as_tensors, stencil_tables
+from deepsphere_tpu_torch.ops.stencil import (
+    as_tensors,
+    pack_edge_bands,
+    pack_edge_bands_plain,
+    stencil_tables,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -82,6 +88,45 @@ def test_strips_kernel_matches_plain(rng, dev, n, h, C):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("n,h,C,F", [(16, 9, 3, 12), (64, 9, 2, 3),
+                                     (32, 4, 5, 4), (8, 2, 1, 1)])
+def test_bands_kernel_matches_plain(rng, dev, n, h, C, F):
+    """K5: the four edge bands of F faces, packed face-major, are a copy:
+    exactly the plain version's."""
+    _, P_l = fs.cfp_geometry(n, h)
+    x = torch.from_numpy(
+        rng.normal(size=(C, F, n, P_l)).astype(np.float32)).to(dev)
+    got = pack_edge_bands(x, n, h)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts["bands"] == 1
+    assert got.shape == (F, C, 4 * h * n)
+    assert torch.equal(got, pack_edge_bands_plain(x, n, h))
+
+
+@pytest.mark.parametrize("n,h,S", [(16, 9, 4), (32, 4, 3), (64, 9, 12)])
+def test_band_strips_match_the_unsharded_strips(rng, dev, n, h, S):
+    """The shard data flow: K5 on each of S face slices, the buffers
+    concatenated (what the all-gather returns), every shard's strips built
+    from it by the gather kernel: exactly the unsharded K4 strips' slices
+    and the plain band strips."""
+    st = _stencil(n, 0.75, h)
+    x = _xc(rng, dev, n, h, 3)
+    F = 12 // S
+    bands = torch.cat([pack_edge_bands(x[:, s * F:(s + 1) * F].contiguous(),
+                                       n, h) for s in range(S)])
+    full = tstrips.build_strips(st, x)
+    for s in range(S):
+        faces = range(s * F, (s + 1) * F)
+        got = tstrips.build_band_strips(st, bands, faces)
+        plain = tstrips.build_band_strips(st, bands.cpu(), faces)
+        for g, f, p in zip(got, full, plain):
+            assert torch.equal(g, f[:, s * F:(s + 1) * F])
+            assert torch.equal(g.cpu(), p)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts["bands"] == S
+    assert _cuda.launch_counts["strips"] == 1 + S
+
+
 @pytest.mark.parametrize(
     "n,k,kind,scale,K,B,Fin,Fout",
     [(16, 8, "cheby", 0.75, 10, 2, 3, 9), (32, 8, "cheby", 0.75, 5, 1, 2, 4),
@@ -111,7 +156,7 @@ def test_conv_kernel_matches_plain(rng, dev, n, k, kind, scale, K, B, Fin,
     torch.cuda.synchronize()
     _close(y[..., h:h + n], y_p[..., h:h + n])
     assert _cuda.launch_counts == {"strips": 1, "stencil_conv": 2, "dxdw": 0,
-                                   "grad": 0}
+                                   "grad": 0, "bands": 0}
 
 
 _BWD = [(16, 8, "cheby", 0.75, 10, 2, 3, 9), (32, 8, "cheby", 0.75, 5, 1, 2, 4),
@@ -187,8 +232,9 @@ def test_conv_backward_matches_plain_autograd(rng, dev, fused_dw):
     _close(dx[..., h:h + n], dx_p[..., h:h + n])
     _close(dk, dk_p, DW_TOL)
     assert dx[..., :h].abs().max() == 0
-    want = ({"strips": 2, "stencil_conv": 1, "dxdw": 1, "grad": 0} if fused_dw
-            else {"strips": 2, "stencil_conv": 2, "dxdw": 0, "grad": 1})
+    want = ({"strips": 2, "stencil_conv": 1, "dxdw": 1, "grad": 0, "bands": 0}
+            if fused_dw else
+            {"strips": 2, "stencil_conv": 2, "dxdw": 0, "grad": 1, "bands": 0})
     assert _cuda.launch_counts == want
 
 
@@ -229,7 +275,7 @@ def test_model_forward_matches_cpu(rng, dev):
     _cuda.reset_launch_counts()
     got = model.to(dev).predict(x, batch_size=2)
     assert _cuda.launch_counts == {"strips": 2, "stencil_conv": 2, "dxdw": 0,
-                                   "grad": 0}
+                                   "grad": 0, "bands": 0}
     err = np.abs(got - want).max() / np.abs(want).max()
     assert err <= 1e-4, err
 

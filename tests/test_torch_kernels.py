@@ -117,7 +117,7 @@ def test_build_strips_on_cpu_is_the_plain_version(rng):
     for g, w in zip(tstrips.build_strips(st, x), tstrips.strip_arrays(st, x)):
         assert torch.equal(g, w)
     assert _cuda.launch_counts == {"strips": 0, "stencil_conv": 0, "dxdw": 0,
-                                   "grad": 0}
+                                   "grad": 0, "bands": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -222,7 +222,7 @@ def test_fused_conv_matches_jax(rng, K, n_corr):
         st, tables, torch.from_numpy(x), torch.from_numpy(kern), K, "cheby", B)
     assert torch.equal(got, plain)
     assert _cuda.launch_counts == {"strips": 0, "stencil_conv": 0, "dxdw": 0,
-                                   "grad": 0}
+                                   "grad": 0, "bands": 0}
 
 
 def test_fused_conv_backward_runs_on_cpu(rng):

@@ -385,7 +385,7 @@ def test_trainer_errors():
     m, npix = _tiny_model()
     with pytest.raises(ValueError, match="compile"):
         m.evaluate(np.zeros((1, npix, 1)), np.zeros(1))
-    with pytest.raises(NotImplementedError, match="queue 1, step 17"):
+    with pytest.raises(TypeError, match="batch_sharding"):
         Trainer(m, data_sharding=object())
     with pytest.raises(ValueError, match="Unknown loss"):
         m.compile(loss="hinge")
