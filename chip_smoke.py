@@ -17,8 +17,11 @@ Phases, one result line each (with the elapsed seconds):
    (K1) and the corrected conv to 2e-5 of the plain max; the raw backward
    kernels K2 (dx to 2e-5, dW to 1e-4) and K3 (dW to 1e-4: each entry sums
    a whole map of products, in another order), each dW bitwise-equal across
-   two calls; CUDA-event times beside the plain times, the bound and, for
-   K4, the one PyTorch call that computes the same gather;
+   two calls; times beside the plain times, the bound and, for K4, the one
+   PyTorch call that computes the same gather (``index_select``).  K1, K4
+   and ``index_select`` are timed by CUDA-graph replay (device time: an
+   eager call of K4 costs the host more than the card), K2 and K3 with
+   CUDA events around eager calls;
 4. serving: the quick_start classifier at nside 64, full width, random
    weights from a seed, answers 4 requests of 16 maps through
    ``model.predict`` on the card; each of the three cface convs must launch
@@ -60,6 +63,16 @@ and bound, and finally
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
 non-zero and prints no result line.  It needs one card, never falls back to
 the CPU, and imports no JAX.
+
+Two other modes measure kernels only:
+
+    python3 chip_smoke.py --kernel-times ROOT
+    python3 chip_smoke.py --compare PARENT [OUT.json]
+
+``--kernel-times`` times K1-K4 at the four phase-3 shapes with the package
+of the checkout ROOT; ``--compare`` runs it for the checkout PARENT
+(another commit, e.g. unpacked with ``git archive``) and this one in turns,
+parent, this, this, parent, and also writes the pairs to OUT.json.
 """
 
 import copy
@@ -126,9 +139,10 @@ def graph_ms(fn, iters=20):
     return a.elapsed_time(b) / iters
 
 
-def device_profile(fn, steps):
-    """(device ops, device-busy ms) per call of ``fn`` over ``steps`` calls,
-    from ``torch.profiler``."""
+def device_profile(fn, steps, top=0):
+    """Per call of ``fn(i)`` over ``steps`` calls, from ``torch.profiler``:
+    (device ops, device-busy ms, [(name, ops, ms)] of the ``top`` device
+    kernels by time)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -136,10 +150,16 @@ def device_profile(fn, steps):
         for i in range(steps):
             fn(i)
         torch.cuda.synchronize()
-    ev = [e for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
-    return (len(ev) / steps,
-            sum(e.time_range.elapsed_us() for e in ev) / 1e3 / steps)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            d = by_name.setdefault(e.name, [0, 0.0])
+            d[0] += 1
+            d[1] += e.time_range.elapsed_us() / 1e3
+    ops = sum(v[0] for v in by_name.values()) / steps
+    busy = sum(v[1] for v in by_name.values()) / steps
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return ops, busy, [(nm, c / steps, t / steps) for nm, (c, t) in ranked]
 
 
 def rel_err(got, want):
@@ -175,6 +195,113 @@ def tile_work(st, K, C):
     laps = C * 12 * sum(s * s for s in side) * nplanes * 2
     cheby = C * 12 * sum(s * s for s in side[1:]) * 2
     return halo + planes, laps + cheby
+
+
+# (nside, Fin, Fout, B, K) of the four phase-3 shapes: quick_start convs 1-3
+# and the headline conv
+KERNEL_SHAPES = [(64, 1, 8, 16, 10), (32, 8, 16, 16, 10), (16, 16, 32, 16, 10),
+                 (1024, 4, 4, 4, 5)]
+
+
+def kernel_times(root):
+    """``--kernel-times ROOT``: device times (graph replay) of K1, K4 and
+    ``index_select``, and eager times of K2 and K3, at the four phase-3
+    shapes, with the package imported from the checkout ``ROOT`` (this one
+    or another commit's).  Prints one JSON line."""
+    import inspect
+
+    sys.path.insert(0, os.path.abspath(root))
+    import deepsphere_tpu_torch as dt
+    from deepsphere_tpu_torch.graph import build_sphere_graph
+    from deepsphere_tpu_torch.ops import _cuda
+    from deepsphere_tpu_torch.ops import fused_stencil as fs
+    from deepsphere_tpu_torch.ops.stencil import as_tensors, stencil_tables
+    from deepsphere_tpu_torch.ops.strips import build_strips, strip_arrays
+
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    _cuda.lib()
+    cache = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         ".bench_cache")
+    rng = np.random.RandomState(1234)
+    out = {"root": root, "package": os.path.dirname(dt.__file__),
+           "card": card_line(), "shapes": []}
+    # a checkout whose K1 still reads device tap offsets takes them
+    k1_offs = "offsets" in inspect.signature(fs.run_stencil_kernel).parameters
+    for n, Fin, Fout, B, K in KERNEL_SHAPES:
+        st = build_sphere_graph(n, k=8, method="grid",
+                                cache_dir=cache).deep_stencil(0.75, K)
+        h = st.n_steps
+        _, P_l = fs.cfp_geometry(n, h)
+        tables = as_tensors(stencil_tables(st), dev)
+        offs, w, idx = tables["offsets"], tables["weights"], tables["strip_idx"]
+        mask = tables.get("corr_mask")
+        xc = torch.from_numpy(
+            rng.normal(size=(B * Fin, 12, n, P_l)).astype(np.float32)).to(dev)
+        dy = torch.from_numpy(
+            rng.normal(size=(B * Fout, 12, n, P_l)).astype(np.float32)).to(dev)
+        kernel = torch.from_numpy((rng.normal(size=(Fin * K, Fout))
+                                   / np.sqrt(Fin * K)).astype(np.float32)).to(dev)
+        wk3 = kernel.reshape(Fin, K, Fout).permute(1, 0, 2).contiguous()
+        wk3t = kernel.reshape(Fin, K, Fout).permute(1, 2, 0).contiguous()
+        strips = strip_arrays(st, xc)
+        slab = 12 * n * P_l
+        xz = torch.cat([xc.reshape(B * Fin, slab),
+                        xc.new_zeros((B * Fin, 1))], dim=1)
+        sel = torch.where(idx >= 0, idx, slab).long()
+        args = (st, "cheby", K, xc, w, strips, wk3, B)
+        k1_kw = {"offsets": offs} if k1_offs else {}
+        a2 = (st, "cheby", K, dy, w, strip_arrays(st, dy), wk3t, xc, mask, B)
+        a3 = (st, "cheby", K, xc, w, strips, dy, B)
+        rec = {"shape": f"nside={n} B={B} Fin={Fin} Fout={Fout} K={K}",
+               "k4_ms": graph_ms(lambda: build_strips(st, xc, idx)),
+               "index_select_ms": graph_ms(
+                   lambda: torch.index_select(xz, 1, sel)),
+               "k1_ms": graph_ms(
+                   lambda: fs.run_stencil_kernel(*args, **k1_kw)),
+               "k2_ms": cuda_ms(lambda: fs.run_dxdw_kernel(*a2, offsets=offs)),
+               "k3_ms": cuda_ms(lambda: fs.run_grad_kernel(*a3, offsets=offs))}
+        out["shapes"].append(rec)
+        print(json.dumps(rec), file=sys.stderr, flush=True)
+        del xc, dy, xz, sel, strips, tables, a2, a3, args
+        torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+
+
+def compare(parent, out_path=None):
+    """``--compare PARENT [OUT.json]``: :func:`kernel_times` of the checkout
+    PARENT and of this one in turns (parent, this, this, parent), each in
+    its own process.  Prints the pairs and writes them to ``out_path`` if
+    given."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = []
+    for root in (parent, here, here, parent):
+        cmd = [sys.executable, os.path.abspath(__file__), "--kernel-times",
+               root]
+        t = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=1800)
+        if res.returncode != 0:
+            raise SystemExit(f"{cmd} failed:\n{res.stdout[-4000:]}\n"
+                             f"{res.stderr[-8000:]}")
+        runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
+        say("compare", f"{root}: {time.perf_counter() - t:.1f} s")
+    keys = ("k1_ms", "k4_ms", "index_select_ms", "k2_ms", "k3_ms")
+    pairs = []
+    for j, shape in enumerate(KERNEL_SHAPES):
+        row = {"shape": runs[0]["shapes"][j]["shape"]}
+        for k in keys:
+            row[k] = {"parent": [runs[0]["shapes"][j][k], runs[3]["shapes"][j][k]],
+                      "change": [runs[1]["shapes"][j][k], runs[2]["shapes"][j][k]]}
+        pairs.append(row)
+        say("compare", json.dumps(row))
+    summary = {"card": runs[0]["card"], "order": "parent, change, change, parent",
+               "shapes": pairs}
+    if out_path:
+        os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+        with open(out_path, "w") as fh:
+            json.dump(summary, fh, indent=1)
+    print(json.dumps(summary), flush=True)
 
 
 def main():
@@ -270,7 +397,9 @@ def main():
             if not torch.equal(g, wnt):
                 raise AssertionError(f"{label}: strip {nm} differs from the "
                                      "plain version")
-        ms_k4 = cuda_ms(lambda: build_strips(st, xc, idx))
+        # device times by graph replay: an eager call of K4 or of
+        # index_select costs the host more than the card
+        ms_k4 = graph_ms(lambda: build_strips(st, xc, idx))
         ms_k4p = cuda_ms(lambda: strip_arrays(st, xc), iters=3, warmup=1)
         # the same gather as one PyTorch call: index_select along the flat
         # map with -1 pointing at an appended zero column
@@ -281,7 +410,7 @@ def main():
         lib = torch.index_select(xz, 1, sel)
         if not torch.equal(lib, torch.cat([g.reshape(B * Fin, -1) for g in got], 1)):
             raise AssertionError(f"{label}: index_select strips differ")
-        ms_k4l = cuda_ms(lambda: torch.index_select(xz, 1, sel))
+        ms_k4l = graph_ms(lambda: torch.index_select(xz, 1, sel))
         src = np.unique(strip_index_map(st))
         k4_bytes = (int((src >= 0).sum()) * 4 * B * Fin
                     + B * Fin * (2 * 12 * R * P_l + 12 * n * 128) * 4)
@@ -290,7 +419,7 @@ def main():
 
         # K1: the raw conv, then the corrected conv
         args = (st, "cheby", K, xc, w, want, wk3, B)
-        y_k = fs.run_stencil_kernel(*args, offsets=offs)
+        y_k = fs.run_stencil_kernel(*args)
         y_p = fs.run_stencil_plain(*args)
         torch.cuda.synchronize()
         inner = slice(h, h + n)
@@ -307,7 +436,7 @@ def main():
         corr = rel_err(yc_k[..., inner], yc_p[..., inner])
         if not corr <= TOL:
             raise AssertionError(f"{label}: corrected conv rel err {corr:.3e}")
-        ms_k1 = cuda_ms(lambda: fs.run_stencil_kernel(*args, offsets=offs))
+        ms_k1 = graph_ms(lambda: fs.run_stencil_kernel(*args))
         ms_k1p = cuda_ms(lambda: fs.run_stencil_plain(*args), iters=3,
                          warmup=1)
         abs_k1 = (y_k[..., inner] - y_p[..., inner]).abs().max().item()
@@ -600,29 +729,16 @@ def main():
         step_ms[fused] = float(np.mean(times))
     config.set_fused_dw(True)
     # where a step's time goes: kernels on the card over 3 steps
-    from torch.profiler import ProfilerActivity, profile
-
     tr = routes[True][0]._trainer
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(3):
-            tr.train_on_batch(xt[16 * i:16 * i + 16], yt[16 * i:16 * i + 16])
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            d = by_name.setdefault(e.name, [0, 0.0])
-            d[0] += 1
-            d[1] += e.time_range.elapsed_us() / 1e3
-    busy = sum(v[1] for v in by_name.values()) / 3
-    n_dev = sum(v[0] for v in by_name.values()) / 3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    n_dev, busy, top = device_profile(
+        lambda i: tr.train_on_batch(xt[16 * i:16 * i + 16],
+                                    yt[16 * i:16 * i + 16]), 3, top=6)
     if n_dev == 0:
         raise AssertionError("the profiler saw no device work in 3 steps")
     say("train", f"profile of the K2-route step: {n_dev:.0f} device ops, "
         f"{busy:.3f} ms device-busy per step = {busy / step_ms[True]:.1%} of "
         f"the unprofiled {step_ms[True]:.3f} ms; top by device time per step: "
-        + "; ".join(f"{nm[:60]} x{c / 3:.0f} {t / 3:.3f} ms"
-                    for nm, (c, t) in top))
+        + "; ".join(f"{nm[:60]} x{c:.0f} {t:.3f} ms" for nm, c, t in top))
     say("train", f"fit 2 epochs x 64 maps: loss {hist['loss']}, accuracy "
         f"{hist['accuracy']}, launches {fit_counts}; ms per train step of 16 "
         f"maps (host clock, synchronized, mean of 10 after 3 warm-up): K2 "
@@ -815,6 +931,11 @@ def main():
         with torch.no_grad():
             ms_fs = cuda_ms(lambda: sharded(xc, kernel), iters=5, warmup=1)
             ms_fu = cuda_ms(lambda: unsharded(xc, kernel), iters=5, warmup=1)
+            # the forwards' device time apart from the host's
+            fwd_prof = {w: device_profile(lambda i, f=f: f(xc, kernel), 5,
+                                          top=5)
+                        for w, f in (("sharded", sharded),
+                                     ("unsharded", unsharded))}
         ms_ts = cuda_ms(step_s, iters=5, warmup=1)
         ms_tu = cuda_ms(step_u, iters=5, warmup=1)
         config.set_fused_dw(True)
@@ -823,6 +944,11 @@ def main():
             f"{e_dk:.2e} against the unsharded K1+K3 route; forward "
             f"{ms_fs:.3f} ms sharded vs {ms_fu:.3f} ms unsharded; fwd + bwd "
             f"{ms_ts:.3f} ms vs {ms_tu:.3f} ms on {card}")
+        for w, (ops, busy, top) in fwd_prof.items():
+            say("sharded", f"profile of the {w} headline forward: {ops:.0f} "
+                f"device ops, {busy:.3f} ms device-busy per forward; top: "
+                + "; ".join(f"{nm[:60]} x{c:.0f} {t:.4f} ms"
+                            for nm, c, t in top))
         del xc, cot, xl, kl, y_s, y_u, dx_s, dk_s, dx_u, dk_u, tab_sh
 
         # (d) the full-width quick_start classifier trained under the mesh,
@@ -973,4 +1099,14 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) > 1:
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+        if sys.argv[1] == "--kernel-times":
+            kernel_times(sys.argv[2])
+        elif sys.argv[1] == "--compare":
+            compare(sys.argv[2], sys.argv[3] if len(sys.argv) > 3 else None)
+        else:
+            raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
+    else:
+        main()

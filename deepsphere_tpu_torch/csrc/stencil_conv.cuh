@@ -1,0 +1,433 @@
+// Templates of the fused stencil conv kernel (K1); the design note, the
+// C entry point and the dispatch are in stencil_conv.cu.  Each
+// stencil_conv*.cu compiles the instantiations of some (radius, lap group)
+// pairs, so that one nvcc per source builds them in parallel.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <mutex>
+#include <unordered_map>
+
+namespace ds_k1 {
+
+
+constexpr int NT = 256;  // threads per block
+constexpr int kRun = 4;  // lap points per thread: a vertical run
+
+// plane index of tap (dx, dy) in stencil_offsets(R): radius 1 in the
+// healpix_base neighbour order, larger radii in raster order, centre last
+template <int R>
+__device__ __forceinline__ constexpr int plane_of(int dx, int dy) {
+  if (dx == 0 && dy == 0) return (2 * R + 1) * (2 * R + 1) - 1;
+  if (R == 1) {
+    // (-1,0) (-1,1) (0,1) (1,1) (1,0) (1,-1) (0,-1) (-1,-1)
+    return dx == -1 ? (dy == 0 ? 0 : (dy == 1 ? 1 : 7))
+                    : (dx == 0 ? (dy == 1 ? 2 : 6)
+                               : (dy == 1 ? 3 : (dy == 0 ? 4 : 5)));
+  }
+  const int idx = (dx + R) * (2 * R + 1) + (dy + R);
+  const int centre = R * (2 * R + 1) + R;
+  return idx < centre ? idx : idx - 1;
+}
+
+struct ConvArgs {
+  const float* xc;
+  const float* top;
+  const float* bot;
+  const float* ls;
+  const float* wext;
+  const float* wk3;
+  float* out;
+  int cheby, K, B, F, Fin, Fout, n, h, Rs, P, T, GB, chunks, vec;
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+// 4 bytes from src, or zeros where !valid (src is not read then)
+__device__ __forceinline__ void cp_async4_zfill(float* dst, const float* src,
+                                                bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// 16 bytes; both addresses 16-byte aligned
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// One lap over [lo, W0 - lo)^2: dst = L~ src (or 2 L~ src - dst, Chebyshev
+// in place over T_{k-2}: TWICE) for G channels, buffers BW floats apart,
+// rows WS floats apart.
+// Nothing in the unrolled body depends on a runtime value, so its loads can
+// be issued ahead of the FMAs.
+template <int R, int G, bool TWICE>
+__device__ __forceinline__ void lap(const float* __restrict__ src,
+                                    float* __restrict__ dst,
+                                    const float* __restrict__ s_w, int W0,
+                                    int WS, int Ww, int BW, int k) {
+  constexpr int NP = (2 * R + 1) * (2 * R + 1);
+  const int lo = R * k;
+  const int L = W0 - 2 * lo;
+  const int hi = lo + L;
+  const int nq = (L + kRun - 1) / kRun;
+  // unit u = q * L + jj (run q, column jj), walked with stride NT
+  // without a divide per unit
+  const int dq = NT / L;
+  const int dj = NT - dq * L;
+  int q = threadIdx.x / L;
+  int jj = threadIdx.x - q * L;
+  const int wrow = Ww * NP;
+  while (q < nq) {
+    const int i0 = lo + kRun * q;
+    const int j = lo + jj;
+    float s[G][kRun];
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int o = 0; o < kRun; ++o) s[g][o] = 0.f;
+    // weights of point (i0, j): window position (i0, j) is weight-window
+    // position (i0 - R, j - R)
+    const float* wb = s_w + ((i0 - R) * Ww + (j - R)) * NP;
+    const float* xb = src + (i0 - R) * WS + (j - R);
+#pragma unroll
+    for (int a = 0; a < kRun + 2 * R; ++a) {  // input row i0 - R + a
+#pragma unroll
+      for (int c = 0; c <= 2 * R; ++c) {  // input lane j - R + c
+        float v[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          v[g] = xb[g * BW + a * WS + c];
+#pragma unroll
+        for (int o = 0; o < kRun; ++o) {
+          const int dx = a - R - o;
+          if (dx >= -R && dx <= R) {
+            const float w = wb[o * wrow + plane_of<R>(dx, c - R)];
+#pragma unroll
+            for (int g = 0; g < G; ++g) s[g][o] = fmaf(w, v[g], s[g][o]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 0; o < kRun; ++o) {
+      const int i = i0 + o;
+      if (i < hi) {
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          float* d = dst + g * BW + i * WS + j;
+          *d = TWICE ? fmaf(2.f, s[g][o], -*d) : s[g][o];
+        }
+      }
+    }
+    jj += dj;
+    q += dq;
+    if (jj >= L) {
+      jj -= L;
+      ++q;
+    }
+  }
+}
+
+// Fold one term (G channels in buf, BW floats apart) into the
+// accumulators of this thread's PP pixels (tile pixels threadIdx.x + p * NT
+// of T x T, T = 1 << lgT, at window offset (h + ti) * WS + h + tj, computed
+// here rather than held in registers); wkk: the term's [g][FC] slice.
+template <int G, int PP, int FC>
+__device__ __forceinline__ void fold(float (&acc)[PP][FC],
+                                     const float* __restrict__ buf,
+                                     const float* __restrict__ wkk, int BW,
+                                     int WS, int h, int lgT) {
+  int off[PP];
+  bool val[PP];
+#pragma unroll
+  for (int p = 0; p < PP; ++p) {
+    const int pix = threadIdx.x + p * NT;
+    val[p] = pix < (1 << (2 * lgT));
+    off[p] = val[p] ? (h + (pix >> lgT)) * WS + h + (pix & ((1 << lgT) - 1)) : 0;
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    float t[PP];
+#pragma unroll
+    for (int p = 0; p < PP; ++p) t[p] = val[p] ? buf[g * BW + off[p]] : 0.f;
+    const float4* w4 = reinterpret_cast<const float4*>(wkk + g * FC);
+#pragma unroll
+    for (int c = 0; c < FC / 4; ++c) {
+      const float4 w = w4[c];
+#pragma unroll
+      for (int p = 0; p < PP; ++p) {
+        acc[p][4 * c + 0] = fmaf(w.x, t[p], acc[p][4 * c + 0]);
+        acc[p][4 * c + 1] = fmaf(w.y, t[p], acc[p][4 * c + 1]);
+        acc[p][4 * c + 2] = fmaf(w.z, t[p], acc[p][4 * c + 2]);
+        acc[p][4 * c + 3] = fmaf(w.w, t[p], acc[p][4 * c + 3]);
+      }
+    }
+  }
+}
+
+// Two blocks per SM where the sums a thread holds allow it (at most 128
+// registers): left free, the compiler takes up to 200 and halves the
+// blocks per SM, which costs more than it gains.
+template <int PP, int FC>
+constexpr int min_blocks() {
+  return PP * FC <= 32 ? 2 : 1;
+}
+
+template <int R, int G, int PP, int FC>
+__global__ void __launch_bounds__(NT, (min_blocks<PP, FC>()))
+stencil_conv_kernel(const ConvArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int NP = (2 * R + 1) * (2 * R + 1);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  constexpr int kWarps = NT / 32;
+  const int T = a.T, h = a.h, n = a.n, P = a.P, K = a.K;
+  const int W0 = T + 2 * h;          // halo window side
+  const int WS = (W0 + 3) & ~3;      // its row stride: rows 16-byte aligned
+  const int Ww = W0 - 2 * R;         // weight window side (lap 1's region)
+  const int BW = (W0 + kRun - 1) * WS;  // one channel's buffer (+ run slack)
+  const int wkn = K * G * FC;     // one group's channel-kernel slice
+  float* s_wk = smem;                               // 2 x K x G x FC
+  float* s_w = s_wk + 2 * wkn;                      // (Ww+kRun-1) x Ww x NP
+  // 2 x G x BW, 16-byte aligned
+  float* bufs = s_w + (((Ww + kRun - 1) * Ww * NP + 3) & ~3);
+
+  const int tiles = n / T;
+  const int f = blockIdx.y;
+  const int x0 = (blockIdx.x / tiles) * T;
+  const int y0 = (blockIdx.x % tiles) * T;
+  const int fo0 = (blockIdx.z % a.chunks) * FC;
+  const int b0 = (blockIdx.z / a.chunks) * a.GB;
+  const int nb = min(a.GB, a.B - b0);
+  const int ngroups = a.Fin / G;  // G divides Fin
+  const int nsteps = nb * ngroups;
+  const long long nr = n + 2 * a.Rs;
+
+  // the weight window, once per block: s_w[(i * Ww + j) * NP + d] is plane d
+  // at window position (i + R, j + R), i.e. face row x0 - h + R + i, lane
+  // y0 + R + j
+  for (int row = warp; row < NP * Ww; row += kWarps) {
+    const int d = row / Ww;
+    const int i = row - d * Ww;
+    const int x = x0 - h + R + i;
+    const int wr = x < 0 ? n + a.Rs + x : (x >= n ? a.Rs + x : x);
+    const float* src = a.wext + ((long long)(d * a.F + f) * nr + wr) * P + y0 + R;
+    for (int j = lane; j < Ww; j += 32) cp_async4(s_w + (i * Ww + j) * NP + d, src + j);
+  }
+
+  // face row x, lane y of channel cf: the top/bot strips above and below
+  // the face, the lane strips west and east of it, else the activation
+  auto window_src = [&](long long cf, int x, int y) -> const float* {
+    if (x < 0) return a.top + (cf * a.Rs + a.Rs + x) * P + y;
+    if (x >= n) return a.bot + (cf * a.Rs + x - n) * P + y;
+    if (y < h) return a.ls + (cf * n + x) * 128 + y;
+    if (y >= h + n) return a.ls + (cf * n + x) * 128 + y - n;
+    return a.xc + (cf * n + x) * P + y;
+  };
+  // halo windows of step s's channel group into buffer set `set`: position
+  // (i, j) is face row x0 - h + i, lane y0 + j.  Groups of four lanes from
+  // one source go as one 16-byte copy (the rows' last group may copy up to
+  // 3 lanes past W0 into the row's padding: P > n + 2h + 2 whenever W0 is
+  // not a multiple of 4).
+  auto stage_window = [&](int s, int set) {
+    const int b = b0 + s / ngroups;
+    const int fi0 = (s % ngroups) * G;
+    const int c4 = WS / 4;
+    for (int g = 0; g < G; ++g) {
+      const long long cf = ((long long)b * a.Fin + fi0 + g) * a.F + f;
+      float* dst = bufs + (set * G + g) * BW;
+      for (int e = tid; e < W0 * c4; e += NT) {
+        const int i = e / c4;
+        const int j = 4 * (e - i * c4);
+        const int x = x0 - h + i;
+        const int y = y0 + j;
+        if (a.vec && (x < 0 || x >= n
+                      || ((y < h) == (y + 3 < h)
+                          && (y >= h + n) == (y + 3 >= h + n)))) {
+          cp_async16(dst + i * WS + j, window_src(cf, x, y));
+        } else {
+          for (int t = 0; t < 4; ++t)
+            if (j + t < W0) cp_async4(dst + i * WS + j + t, window_src(cf, x, y + t));
+        }
+      }
+    }
+  };
+  // step s's slice of wk3, zero past Fout: s_wk[slot][k][g][fo], copied
+  // asynchronously like the windows
+  auto stage_wk = [&](int s, int slot) {
+    const int fi0 = (s % ngroups) * G;
+    for (int e = tid; e < wkn; e += NT) {
+      const int k = e / (G * FC);
+      const int rem = e - k * G * FC;
+      const int g = rem / FC;
+      const int fo = fo0 + rem - g * FC;
+      const bool ok = fo < a.Fout;
+      cp_async4_zfill(s_wk + slot * wkn + e,
+                      a.wk3 + (ok ? ((long long)k * a.Fin + fi0 + g) * a.Fout + fo : 0),
+                      ok);
+    }
+  };
+
+  const int lgT = 31 - __clz(T);  // T is 8, 16 or 32
+  float acc[PP][FC];
+#pragma unroll
+  for (int p = 0; p < PP; ++p)
+#pragma unroll
+    for (int o = 0; o < FC; ++o) acc[p][o] = 0.f;
+
+  stage_window(0, 0);
+  stage_wk(0, 0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // the buffer set holding this step's T_0.  The next step's windows go to
+  // the set of T_{K-2} once the last lap is done with it, overlapping the
+  // last fold and the output (a third set, prefetched during all the laps,
+  // measured slower on an H100: it costs a block per SM at the headline)
+  int cur = 0;
+  const int flip = (K - 1) % 2 == 0;  // T_{K-1} in the even set
+  for (int s = 0; s < nsteps; ++s) {
+    const bool more = s + 1 < nsteps;
+    if (more) stage_wk(s + 1, (s + 1) & 1);
+    cp_async_commit();
+    const float* wk = s_wk + (s & 1) * wkn;
+    float* P0 = bufs + cur * G * BW;        // even terms
+    float* P1 = bufs + (cur ^ 1) * G * BW;  // odd terms
+    const int next = cur ^ flip;
+    if (K == 1 && more) stage_window(s + 1, next);
+
+    fold<G, PP, FC>(acc, P0, wk, BW, WS, h, lgT);
+    for (int k = 1; k < K; ++k) {
+      float* src = (k & 1) ? P0 : P1;
+      float* dst = (k & 1) ? P1 : P0;
+      if (a.cheby && k >= 2)
+        lap<R, G, true>(src, dst, s_w, W0, WS, Ww, BW, k);
+      else
+        lap<R, G, false>(src, dst, s_w, W0, WS, Ww, BW, k);
+      __syncthreads();
+      if (k == K - 1 && more) stage_window(s + 1, next);
+      fold<G, PP, FC>(acc, dst, wk + k * G * FC, BW, WS, h, lgT);
+    }
+
+    if ((s + 1) % ngroups == 0) {  // the batch index is complete
+      const int b = b0 + s / ngroups;
+      const int nfo = min(FC, a.Fout - fo0);
+#pragma unroll
+      for (int o = 0; o < FC; ++o) {
+        if (o < nfo) {
+          float* oc = a.out + ((long long)(b * a.Fout + fo0 + o) * a.F + f) * n * P;
+#pragma unroll
+          for (int p = 0; p < PP; ++p) {
+            const int pix = tid + p * NT;
+            if (pix < T * T)
+              oc[(x0 + (pix >> lgT)) * P + h + y0 + (pix & (T - 1))] = acc[p][o];
+            acc[p][o] = 0.f;
+          }
+        }
+      }
+      // lanes outside the interior are zero: [0, h) by the first tile
+      // column, [h + n, P) by the last
+      const int wlo = y0 == 0 ? h : 0;
+      const int whi = y0 + T == n ? P - h - n : 0;
+      const int wpad = wlo + whi;
+      if (wpad > 0) {
+        for (int e = tid; e < nfo * T * wpad; e += NT) {
+          const int o = e / (T * wpad);
+          const int rem = e - o * T * wpad;
+          const int ti = rem / wpad;
+          const int l = rem - ti * wpad;
+          const int y = l < wlo ? l : h + n + (l - wlo);
+          a.out[(((long long)(b * a.Fout + fo0 + o) * a.F + f) * n + x0 + ti) * P + y] = 0.f;
+        }
+      }
+    }
+
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    cur ^= flip;
+  }
+}
+
+template <int R, int G, int PP, int FC>
+int launch(const ConvArgs& a, dim3 grid, size_t smem, cudaStream_t stream) {
+  auto kern = stencil_conv_kernel<R, G, PP, FC>;
+  // The dynamic shared-memory limit is an attribute of the function on the
+  // current device: raised per (instantiation, device) only when a launch
+  // needs more, under a lock so that it only ever grows.  It is not a stream
+  // operation, so a launch captured in a CUDA graph after a first eager call
+  // never sets it.
+  static std::mutex mu;
+  static std::unordered_map<int, size_t> set_bytes;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    size_t& have = set_bytes[dev];
+    if (smem > have) {
+      err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      have = smem;
+    }
+  }
+  kern<<<grid, NT, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int R, int G, int PP>
+int launch_fc(int FC, const ConvArgs& a, dim3 grid, size_t smem,
+              cudaStream_t stream) {
+  switch (FC) {
+    case 4: return launch<R, G, PP, 4>(a, grid, smem, stream);
+    case 8: return launch<R, G, PP, 8>(a, grid, smem, stream);
+    case 16: return launch<R, G, PP, 16>(a, grid, smem, stream);
+    default: return launch<R, G, PP, (PP == 1 ? 32 : 16)>(a, grid, smem, stream);
+  }
+}
+
+// T x T tiles: 4 pixels a thread on a 32-tile (radius <= 2 only: larger
+// radii fit no 32-tile), 1 on smaller tiles
+template <int R, int G>
+int launch_t(int T, int FC, const ConvArgs& a, dim3 grid, size_t smem,
+             cudaStream_t stream) {
+  if constexpr (R <= 2) {
+    if (T == 32) return launch_fc<R, G, 4>(FC, a, grid, smem, stream);
+  }
+  return launch_fc<R, G, 1>(FC, a, grid, smem, stream);
+}
+
+// one per (radius, lap group G): the instantiations of stencil_conv*.cu
+#define DS_K1_LAUNCH(NAME)                                                 \
+  int NAME(int T, int FC, const ConvArgs& a, dim3 grid, size_t smem,       \
+           cudaStream_t stream)
+DS_K1_LAUNCH(launch_r1_g1);
+DS_K1_LAUNCH(launch_r1_g2);
+DS_K1_LAUNCH(launch_r1_g4);
+DS_K1_LAUNCH(launch_r2_g1);
+DS_K1_LAUNCH(launch_r2_g2);
+DS_K1_LAUNCH(launch_r3_g1);
+DS_K1_LAUNCH(launch_r4_g1);
+
+}  // namespace ds_k1

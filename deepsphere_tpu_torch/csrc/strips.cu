@@ -1,45 +1,93 @@
-// Halo-strip builder of the fused stencil conv, as one gather.
+// Halo-strip builder of the fused stencil conv (K4), as one gather.
 //
 // Replaces the TPU kernel deepsphere_tpu/ops/pallas_strips.py::_builder_kernel
 // (launched by build_strips_pallas).  It builds, for every channel c of the
 // cface activation xc (C, 12, n, P_l), the three strip arrays the conv reads:
-// top/bot (C, 12, R, P_l) and ls (C, 12, n, 128).  Every strip element is a
-// copy of one activation element (a neighbour face's edge, flipped or
-// transposed per sphere/faces.py::edge_descriptor) or 0 (the polar 3-way
-// corners and the padding).
+// top/bot (C, F, R, P_l) and ls (C, F, n, 128), in one allocation in that
+// order.  Every strip element is a copy of one activation element (a
+// neighbour face's edge, flipped or transposed per
+// sphere/faces.py::edge_descriptor) or 0 (the polar 3-way corners and the
+// padding).
 //
-// What bounds it on an H100: memory bandwidth only; it does no arithmetic.
-// The TPU kernel was a program of DMA loads and in-register flips because a
-// TPU gathers slowly; a GPU gathers at bandwidth, so here the whole flip and
-// transpose plan is folded on the host into one int32 source map
-// (ops/strips.py::strip_index_map, built once per stencil) and the kernel is
-// out[c, e] = idx[e] >= 0 ? xc[c, idx[e]] : 0.  Writes are coalesced; the
-// reads of the transposed edges are strided, but they are a few percent of
-// the bytes (the ls array is mostly padding).  The output is bit-identical
-// to the plain version, since each element is a copy.
+// What bounds it on an H100: memory bandwidth only; it does no arithmetic,
+// and most of what it writes is zero padding (in ls only 2h of 128 lanes
+// hold data).  The TPU kernel was a program of DMA loads and in-register
+// flips because a TPU gathers slowly; here the flip and transpose plan is
+// folded on the host into one int32 source map over one channel's strips
+// (ops/strips.py::strip_index_map, built once per stencil; -1 for a zero)
+// and the kernel is out[c, e] = idx[e] >= 0 ? src[c * slab + idx[e]] : 0.
+// Design: each thread owns one 16-byte group of four outputs of one channel's
+// strips and writes it for a chunk of kCC channels, so
+// * a group in a zero region (top rows [0, R-h), bot rows [h, R), lanes past
+//   roundup(n+2h, 4), ls lanes past roundup(2h, 4)) is written as 16-byte
+//   zeros without reading the map;
+// * a data group reads its four map entries once (one 16-byte load) for all
+//   the chunk's channels, keeps them in registers, and gathers four floats
+//   (one 16-byte load when they are four aligned consecutive sources) into
+//   one 16-byte store per channel.
+// Writes are coalesced 16-byte stores.  The output is bit-identical to the
+// plain version, since each element is a copy.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+// channels per block: on an H100, 2 was the fastest or within 1% of it at
+// every main-path shape among 1, 2, 4, 8 and 16 (PERF.md)
+constexpr int kCC = 2;
 
 __global__ void __launch_bounds__(kThreads)
-strips_kernel(const float* __restrict__ xc, const int* __restrict__ idx,
-              float* __restrict__ top, float* __restrict__ bot,
-              float* __restrict__ ls, long long slab, long long e_tb,
-              long long e_ls) {
-  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const long long c = blockIdx.y;
-  if (e >= 2 * e_tb + e_ls) return;
-  const int s = idx[e];
-  const float v = s >= 0 ? xc[c * slab + s] : 0.f;
-  if (e < e_tb) {
-    top[c * e_tb + e] = v;
-  } else if (e < 2 * e_tb) {
-    bot[c * e_tb + (e - e_tb)] = v;
+strips_kernel(const float* __restrict__ src, const int* __restrict__ idx,
+              float* __restrict__ out, int C, long long slab, int F,
+              int n, int h, int R, int P, int vec) {
+  const int tb4 = F * R * (P / 4);  // 16-byte groups of one channel's top
+  const int ls4 = F * n * 32;       // ... and of its ls
+  const int p4 = blockIdx.x * kThreads + threadIdx.x;
+  if (p4 >= 2 * tb4 + ls4) return;
+  const int D4 = (n + 2 * h + 3) / 4;  // data groups of a halo row
+  const int Dl4 = (2 * h + 3) / 4;     // data groups of an ls row
+  long long base, stride;  // in 16-byte groups: this group of channel 0, and
+                           // the step from one channel to the next
+  bool data;
+  if (p4 < 2 * tb4) {
+    const bool is_bot = p4 >= tb4;
+    const int rem = is_bot ? p4 - tb4 : p4;
+    const int c4 = rem % (P / 4);
+    const int row = (rem / (P / 4)) % R;
+    data = c4 < D4 && (is_bot ? row < h : row >= R - h);
+    base = is_bot ? (long long)C * tb4 + rem : rem;
+    stride = tb4;
   } else {
-    ls[c * e_ls + (e - 2 * e_tb)] = v;
+    const int rem = p4 - 2 * tb4;
+    data = (rem & 31) < Dl4;
+    base = 2LL * C * tb4 + rem;
+    stride = ls4;
+  }
+  float4* o = reinterpret_cast<float4*>(out) + base;
+  const int c0 = blockIdx.y * kCC;
+  const int c1 = min(C, c0 + kCC);
+  if (!data) {
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c = c0; c < c1; ++c) o[c * stride] = z;
+    return;
+  }
+  // the map covers one channel's [top | bot | ls] in the same order
+  const int4 m = reinterpret_cast<const int4*>(idx)[p4];
+  const bool run = vec && m.x >= 0 && (m.x & 3) == 0 && m.y == m.x + 1
+                   && m.z == m.x + 2 && m.w == m.x + 3;
+  for (int c = c0; c < c1; ++c) {
+    const float* s = src + c * slab;
+    float4 v;
+    if (run) {
+      v = *reinterpret_cast<const float4*>(s + m.x);
+    } else {
+      v.x = m.x >= 0 ? s[m.x] : 0.f;
+      v.y = m.y >= 0 ? s[m.y] : 0.f;
+      v.z = m.z >= 0 ? s[m.z] : 0.f;
+      v.w = m.w >= 0 ? s[m.w] : 0.f;
+    }
+    o[c * stride] = v;
   }
 }
 
@@ -47,16 +95,24 @@ strips_kernel(const float* __restrict__ xc, const int* __restrict__ idx,
 
 extern "C" {
 
-// xc: (C, slab) activations; idx: (2*e_tb + e_ls) int32 source map;
-// top/bot: (C, e_tb); ls: (C, e_ls).  Returns cudaGetLastError().
-int ds_strips(const float* xc, const int* idx, float* top, float* bot,
-              float* ls, long long C, long long slab, long long e_tb,
-              long long e_ls, void* stream) {
-  const long long total = 2 * e_tb + e_ls;
-  if (C < 1 || C > 65535 || total < 1) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)((total + kThreads - 1) / kThreads), (unsigned)C);
+// src: (C, slab) sources; idx: one channel's int32 source map over
+// [top (F, R, P) | bot (F, R, P) | ls (F, n, 128)], -1 for a zero; out: the
+// three strips of C channels in one allocation, [top | bot | ls]; vec: src
+// and slab allow 16-byte loads.  idx must be 16-byte aligned.  Returns
+// cudaGetLastError().
+int ds_strips(const float* src, const int* idx, float* out, int C,
+              long long slab, int F, int n, int h, int R, int P, int vec,
+              void* stream) {
+  if (reinterpret_cast<size_t>(idx) & 15) return (int)cudaErrorMisalignedAddress;
+  if (C < 1 || F < 1 || F > 12 || n < 1 || h < 1 || h > R
+      || 2 * h > 128 || P % 128 || n + 2 * h > P)
+    return (int)cudaErrorInvalidValue;
+  const long long groups = 2LL * F * R * (P / 4) + (long long)F * n * 32;
+  const long long gy = (C + kCC - 1) / kCC;
+  if (gy > 65535 || groups > (1LL << 30)) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)((groups + kThreads - 1) / kThreads), (unsigned)gy);
   strips_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      xc, idx, top, bot, ls, slab, e_tb, e_ls);
+      src, idx, out, C, slab, F, n, h, R, P, vec);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,10 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 The sources under ``deepsphere_tpu_torch/csrc/`` (``strips.cu``,
-``stencil_conv.cu``, ``stencil_dxdw.cu`` and ``stencil_grad.cu`` over the
-shared ``stencil_tile.cuh``, and ``bands.cu``) have a plain C interface.
+``stencil_conv.cu`` with the instantiations of ``stencil_conv.cuh`` spread
+over ``stencil_conv*.cu``, ``stencil_dxdw.cu`` and ``stencil_grad.cu`` over
+the shared ``stencil_tile.cuh``, and ``bands.cu``) have a plain C
+interface.
 At first use each ``.cu`` is compiled by its own ``nvcc`` for Hopper
 (``sm_90a``), all of them at once, and the objects are linked into one
 shared library in the package's ``_build/`` directory, named by a hash of
@@ -109,9 +111,9 @@ def lib():
         path, _, _ = build()
         L = ctypes.CDLL(path)
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        L.ds_strips.argtypes = [vp, vp, vp, vp, vp, ll, ll, ll, ll, vp]
+        L.ds_strips.argtypes = [vp, vp, vp, ci, ll] + [ci] * 6 + [vp]
         L.ds_strips.restype = ci
-        L.ds_stencil_conv.argtypes = [vp] * 8 + [ci] * 13 + [vp]
+        L.ds_stencil_conv.argtypes = [vp] * 7 + [ci] * 16 + [vp]
         L.ds_stencil_conv.restype = ci
         L.ds_stencil_dxdw.argtypes = [vp] * 12 + [ci] * 13 + [vp]
         L.ds_stencil_dxdw.restype = ci

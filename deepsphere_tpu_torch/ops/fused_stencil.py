@@ -2,8 +2,9 @@
 kernels and their plain versions.
 
 Counterpart of the JAX package's ``deepsphere_tpu.ops.pallas_stencil``.
-Three kernels share one tile design (K1 in its own source, K2 and K3 as
-two modes of ``csrc/stencil_tile.cuh``):
+Three kernels over (face, tile) blocks (K1 in its own source with its own
+launch plan, :func:`_k1_plan`; K2 and K3 as two modes of
+``csrc/stencil_tile.cuh``, planned by :func:`_conv_tile`):
 
 * K1, the forward (TPU kernel ``_stencil_kernel``, ``csrc/stencil_conv.cu``,
   :func:`run_stencil_kernel`);
@@ -39,10 +40,12 @@ its backward takes the route that ``config.fused_dw`` names.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from .. import config
-from ..graph.stencil import FaceStencil
+from ..graph.stencil import FaceStencil, stencil_offsets
 from . import _cuda
 from .strips import build_strips, strip_arrays
 
@@ -59,7 +62,7 @@ __all__ = [
     "fused_stencil_conv_cfp_plain",
 ]
 
-# the kernels' largest tile side, their chunk of channels per block and
+# K2's and K3's largest tile side, their chunk of channels per block and
 # warps per block, and the dynamic shared-memory ceiling (an H100 block
 # gets 227 KB; the kernels' static arrays take the rest)
 _TILE = 32
@@ -69,9 +72,9 @@ _SMEM_MAX = 232448 - 1024
 
 
 def _conv_smem(T, h, r, nplanes, n_red=0):
-    """Bytes of dynamic shared memory of one block of the tile kernels:
-    the weight window, three term buffers and, for the backward kernels
-    (``n_red`` = K), the per-warp dW sums of one channel's K terms."""
+    """Bytes of dynamic shared memory of one block of K2 or K3: the weight
+    window, three term buffers and (``n_red`` = K) the per-warp dW sums of
+    one channel's K terms."""
     W0 = T + 2 * h
     return 4 * (nplanes * (W0 - 2 * r) ** 2 + 3 * W0 * W0
                 + n_red * _WARPS * _CHUNK)
@@ -83,6 +86,72 @@ def _conv_tile(n, h, r, nplanes, n_red=0):
     for T in (_TILE, 16, 8):
         if n % T == 0 and _conv_smem(T, h, r, nplanes, n_red) <= _SMEM_MAX:
             return T
+    return None
+
+
+# K1's own launch plan (``csrc/stencil_conv.cu``): its lap points per
+# thread (kRun) and the input channels whose laps run together at each
+# radius (the kernel's GMAX)
+_K1_RUN = 4
+_K1_GMAX = {1: 4, 2: 2, 3: 1, 4: 1}
+
+
+class K1Plan(NamedTuple):
+    """One launch of K1: tile side ``T``, input channels per lap group
+    ``G``, batch indices per block ``GB``, output channels per block
+    ``FC``, dynamic shared bytes and the grid (256 threads a block)."""
+
+    T: int
+    G: int
+    GB: int
+    FC: int
+    smem: int
+    grid: tuple
+
+
+def _k1_smem(T, h, r, nplanes, K, G, FC):
+    """Dynamic shared bytes of one K1 block: two slots of the group's
+    channel kernel, the interleaved weight window (padded to 16 bytes) and
+    2 x G halo-window buffers (rows padded to 16 bytes, and kRun - 1 rows
+    of slack for the last run)."""
+    W0 = T + 2 * h
+    Ww = W0 - 2 * r
+    return 4 * (2 * K * G * FC + _round_up((Ww + _K1_RUN - 1) * Ww * nplanes, 4)
+                + 2 * G * (W0 + _K1_RUN - 1) * _round_up(W0, 4))
+
+
+def _k1_plan(n, h, r, nplanes, K, B, F, Fin, Fout, sms):
+    """K1's launch plan on a card of ``sms`` SMs, or None where the kernel
+    does not take the shape.
+
+    The largest tile side (32, 16 or 8, dividing n) whose window fits
+    shared memory; on it the largest lap group G (a power of two up to
+    ``_K1_GMAX[r]`` dividing Fin) that fits; FC the smallest of 4, 8, 16,
+    32 that holds Fout (at most 16 on a 32-tile, whose threads hold 4
+    pixels x FC sums); GB the most batch indices per block that keep two
+    blocks per SM in the grid.  Each rule was the fastest, or within 10% of
+    it, at the four phase-3 shapes of ``chip_smoke.py`` on an H100
+    (PERF.md)."""
+    if (r not in _K1_GMAX or nplanes != (2 * r + 1) ** 2 or K < 1
+            or r * (K - 1) > h or not 1 <= F <= 12 or min(B, Fin, Fout) < 1):
+        return None
+    for t in (32, 16, 8):
+        if n % t or (t == 32 and r > 2):
+            continue
+        cap = 16 if t == 32 else 32
+        fc = next(c for c in (4, 8, 16, 32) if c >= min(Fout, cap))
+        for g in (g for g in (4, 2, 1) if g <= _K1_GMAX[r] and Fin % g == 0):
+            smem = _k1_smem(t, h, r, nplanes, K, g, fc)
+            if smem > _SMEM_MAX:
+                continue
+            chunks = -(-Fout // fc)
+            base = F * (n // t) ** 2 * chunks
+            gb = max([b for b in range(1, B + 1)
+                      if base * -(-B // b) >= 2 * sms] or [1])
+            gz = -(-B // gb) * chunks
+            if gz > 65535:
+                return None
+            return K1Plan(t, g, gb, fc, smem, ((n // t) ** 2, F, gz))
     return None
 
 
@@ -242,7 +311,7 @@ def _check_tensors(what, dev, want):
 
 def _launch_plan(what, st, kind, K, strips, wext, B, F, Crec, Cch, offsets,
                  dev, n_red):
-    """Checks shared by the three tile kernels (recursion over B*Crec
+    """Checks shared by K2 and K3 (recursion over B*Crec
     channels of F faces through ``strips``, blocks over chunks of Cch
     channels).
 
@@ -281,9 +350,10 @@ def _launch_plan(what, st, kind, K, strips, wext, B, F, Crec, Cch, offsets,
     return T, offsets, (head, (n, h, R, P_l, T))
 
 
-def _stream(dev):
-    with torch.cuda.device(dev):
-        return torch.cuda.current_stream().cuda_stream
+def _stream():
+    """The current stream of the current device (the launches run inside
+    ``torch.cuda.device`` of their tensors)."""
+    return torch.cuda.current_stream().cuda_stream
 
 
 def _partials(K, Crec, Cch, B, F, n, T, dev):
@@ -294,25 +364,44 @@ def _partials(K, Crec, Cch, B, F, n, T, dev):
     return torch.empty((K * Crec * Cch, G), dtype=torch.float32, device=dev)
 
 
-def _stencil_cuda(st, kind, xc, wext, strips, wk3, B, offsets):
-    """Launch the fused conv kernel (``csrc/stencil_conv.cu``)."""
-    n = st.nside
-    _, P_l = cfp_geometry(n, st.n_steps)
+def _stencil_cuda(st, kind, xc, wext, strips, wk3, B):
+    """Launch the fused conv kernel (``csrc/stencil_conv.cu``) on
+    :func:`_k1_plan`'s plan for this card."""
+    n, h, r = st.nside, st.n_steps, st.radius
+    R, P_l = cfp_geometry(n, h)
     K, Fin, Fout = wk3.shape
     F = xc.shape[1]
     dev = xc.device
-    _check_tensors("stencil kernel", dev, {
-        "xc": (xc, (B * Fin, F, n, P_l)), "wk3": (wk3, (K, Fin, Fout))})
-    T, offsets, (head, tail) = _launch_plan(
-        "stencil kernel", st, kind, K, strips, wext, B, F, Fin, Fout, offsets,
-        dev, 0)
-    out = torch.empty((B * Fout, F, n, P_l), dtype=xc.dtype, device=dev)
+    nplanes = len(st.offsets)
+    if list(st.offsets) != stencil_offsets(r):
+        raise ValueError("stencil kernel: its taps are compiled in the order "
+                         f"of stencil_offsets({r}), not {st.offsets}")
+    if not 1 <= F <= 12:
+        raise ValueError(f"stencil kernel: {F} faces (1..12)")
+    if kind not in ("cheby", "mono"):
+        raise ValueError(f"unknown basis kind: {kind}")
     top, bot, ls = strips
-    rc = _cuda.lib().ds_stencil_conv(
-        xc.data_ptr(), top.data_ptr(), bot.data_ptr(), ls.data_ptr(),
-        wext.data_ptr(), wk3.data_ptr(), offsets.data_ptr(), out.data_ptr(),
-        *head, B, F, Fin, Fout, *tail, _stream(dev),
-    )
+    C = B * Fin
+    _check_tensors("stencil kernel", dev, {
+        "xc": (xc, (C, F, n, P_l)), "wk3": (wk3, (K, Fin, Fout)),
+        "top": (top, (C, F, R, P_l)), "bot": (bot, (C, F, R, P_l)),
+        "ls": (ls, (C, F, n, 128)),
+        "wext": (wext, (nplanes, F, n + 2 * R, P_l)),
+    })
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = _k1_plan(n, h, r, nplanes, K, B, F, Fin, Fout, sms)
+    if plan is None:
+        raise ValueError(f"stencil kernel does not take n={n} h={h} r={r} "
+                         f"K={K} B={B} Fout={Fout}: no tile fits shared "
+                         "memory or the grid")
+    out = torch.empty((B * Fout, F, n, P_l), dtype=xc.dtype, device=dev)
+    with torch.cuda.device(dev):
+        rc = _cuda.lib().ds_stencil_conv(
+            xc.data_ptr(), top.data_ptr(), bot.data_ptr(), ls.data_ptr(),
+            wext.data_ptr(), wk3.data_ptr(), out.data_ptr(),
+            0 if kind == "cheby" else 1, K, r, nplanes, B, F, Fin, Fout, n, h,
+            R, P_l, plan.T, plan.G, plan.GB, plan.FC, _stream(),
+        )
     _cuda.check(rc, "ds_stencil_conv")
     _cuda.launch_counts["stencil_conv"] += 1
     return out
@@ -333,11 +422,13 @@ def _grad_cuda(st, kind, K, xc, wext, strips, dy, B, offsets):
     partial = _partials(K, Fin, Fout, B, F, n, T, dev)
     dw = torch.empty((K * Fin, Fout), dtype=torch.float32, device=dev)
     top, bot, ls = strips
-    rc = _cuda.lib().ds_stencil_grad(
-        xc.data_ptr(), top.data_ptr(), bot.data_ptr(), ls.data_ptr(),
-        wext.data_ptr(), offsets.data_ptr(), dy.data_ptr(), partial.data_ptr(),
-        dw.data_ptr(), *head, B, F, Fin, Fout, *tail, _stream(dev),
-    )
+    with torch.cuda.device(dev):
+        rc = _cuda.lib().ds_stencil_grad(
+            xc.data_ptr(), top.data_ptr(), bot.data_ptr(), ls.data_ptr(),
+            wext.data_ptr(), offsets.data_ptr(), dy.data_ptr(),
+            partial.data_ptr(), dw.data_ptr(), *head, B, F, Fin, Fout, *tail,
+            _stream(),
+        )
     _cuda.check(rc, "ds_stencil_grad")
     _cuda.launch_counts["grad"] += 1
     return dw
@@ -362,20 +453,20 @@ def _dxdw_cuda(st, kind, dy, wext, strips, wk3t, xr, mask, B, offsets):
     partial = _partials(K, Fc, Fx, B, F, n, T, dev)
     dw = torch.empty((K * Fx, Fc), dtype=torch.float32, device=dev)
     top, bot, ls = strips
-    rc = _cuda.lib().ds_stencil_dxdw(
-        dy.data_ptr(), top.data_ptr(), bot.data_ptr(), ls.data_ptr(),
-        wext.data_ptr(), wk3t.data_ptr(), offsets.data_ptr(), xr.data_ptr(),
-        0 if mask is None else mask.data_ptr(), dx.data_ptr(),
-        partial.data_ptr(), dw.data_ptr(), *head, B, F, Fc, Fx, *tail,
-        _stream(dev),
-    )
+    with torch.cuda.device(dev):
+        rc = _cuda.lib().ds_stencil_dxdw(
+            dy.data_ptr(), top.data_ptr(), bot.data_ptr(), ls.data_ptr(),
+            wext.data_ptr(), wk3t.data_ptr(), offsets.data_ptr(),
+            xr.data_ptr(), 0 if mask is None else mask.data_ptr(),
+            dx.data_ptr(), partial.data_ptr(), dw.data_ptr(), *head, B, F, Fc,
+            Fx, *tail, _stream(),
+        )
     _cuda.check(rc, "ds_stencil_dxdw")
     _cuda.launch_counts["dxdw"] += 1
     return dx, dw
 
 
-def run_stencil_kernel(st, kind, n_terms, xc, wext, strips, wk3, B,
-                       offsets=None):
+def run_stencil_kernel(st, kind, n_terms, xc, wext, strips, wk3, B):
     """The raw fused conv (before the corner correction).
 
     :param xc: (B*Fin, F, n, P_l) activations (interior lanes read), F the
@@ -383,9 +474,9 @@ def run_stencil_kernel(st, kind, n_terms, xc, wext, strips, wk3, B,
     :param wext: (T2, F, n+2R, P_l) wrapped-extended weight planes
         (``FaceStencil.weights``, of the same faces)
     :param strips: (top, bot, ls) halo strips of ``xc``
-    :param wk3: (K, Fin, Fout) channel kernel per term
-    :param offsets: (T2, 2) int32 tap offsets on the device
-        (``tables["offsets"]``), else built here
+    :param wk3: (K, Fin, Fout) channel kernel per term; the kernel's taps
+        are compile-time, so ``st.offsets`` must be
+        :func:`..graph.stencil.stencil_offsets` of its radius
     :return: (B*Fout, F, n, P_l), 0 outside the interior lanes; exact at
         every interior row whose K-1-step neighbourhood lies in the
         rectangular face extension
@@ -393,7 +484,7 @@ def run_stencil_kernel(st, kind, n_terms, xc, wext, strips, wk3, B,
     if wk3.shape[0] != n_terms:
         raise ValueError(f"wk3 has {wk3.shape[0]} terms, expected {n_terms}")
     if xc.is_cuda:
-        return _stencil_cuda(st, kind, xc, wext, strips, wk3, B, offsets)
+        return _stencil_cuda(st, kind, xc, wext, strips, wk3, B)
     if xc.device.type != "cpu":
         raise ValueError(f"no stencil conv implementation for device {xc.device}")
     return run_stencil_plain(st, kind, n_terms, xc, wext, strips, wk3, B)
@@ -548,9 +639,8 @@ class _FusedConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xc, kernel, st, tables, n_terms, kind, B):
         strips = build_strips(st, xc, tables.get("strip_idx"))
-        conv = lambda *a: run_stencil_kernel(*a, offsets=tables.get("offsets"))
         y = _forward_cfp(st, tables, xc, _wk3(kernel, n_terms), n_terms, kind,
-                         B, strips, conv)
+                         B, strips, run_stencil_kernel)
         # the fused backward rebuilds its strips from dy: keep x's only for
         # the two-kernel backward
         ctx.save_for_backward(xc, kernel,
@@ -594,10 +684,9 @@ class _FusedConv(torch.autograd.Function):
             # dx: the patched conv is the exact symmetric operator, so its
             # adjoint is the same conv with the transposed channel kernel
             if need_dx:
-                conv = lambda *a: run_stencil_kernel(*a, offsets=offsets)
                 dx = _forward_cfp(st, tables, dy, wk3t, K, kind, B,
                                   build_strips(st, dy, tables.get("strip_idx")),
-                                  conv)
+                                  run_stencil_kernel)
             if not strips:  # fused_dw was switched on between fwd and bwd
                 strips = build_strips(st, xc, tables.get("strip_idx"))
             dy_clean = dy * tables["corr_mask"].to(dy.dtype) if has_corr else dy

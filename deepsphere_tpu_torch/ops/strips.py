@@ -17,7 +17,10 @@ R = roundup(h, 8), P_l = roundup(n + 2h, 128):
 
 On the TPU the builder was a DMA/flip program; on a GPU the whole
 assembly is one gather through a host-built int32 source map
-(:func:`strip_index_map`), which runs at memory bandwidth.
+(:func:`strip_index_map`), which runs at memory bandwidth: each thread
+writes one 16-byte group of every channel of a chunk, reading its map
+entries once, and the zero padding (most of ``ls``) without the map.  The
+three arrays are views of one allocation.
 
 The face-sharded conv builds the strips of its local faces from the
 all-gathered edge bands (:func:`.stencil.pack_edge_bands`) with the same
@@ -34,7 +37,7 @@ from . import _cuda
 from .stencil import edge_strips, unpack_edge_bands
 
 __all__ = ["strip_arrays", "strip_index_map", "build_strips",
-           "band_strip_index_map", "build_band_strips"]
+           "band_strip_index_map", "band_source_map", "build_band_strips"]
 
 
 def _geometry(st):
@@ -117,29 +120,36 @@ def _check_source(src):
         raise ValueError("strips kernel needs a contiguous float32 source")
 
 
+# channels per block of the strip kernel (``kCC`` in ``csrc/strips.cu``)
+_STRIPS_CC = 2
+
+
 def _gather_strips(st, src, index, C, F, slab):
     """Launch the strip gather kernel (``csrc/strips.cu``): strips of F
     faces and C channels, ``out[c, e] = src[c*slab + index[e]]`` (0 where
-    the index is -1); the caller has checked ``src``
-    (:func:`_check_source`)."""
-    n = st.nside
+    the index is -1), in one allocation; the caller has checked ``src``
+    (:func:`_check_source`).  The kernel reads ``index`` in 16-byte
+    groups, so it must start 16-byte aligned."""
+    n, h = st.nside, st.n_steps
     R, P_l = _geometry(st)
-    if not 1 <= C <= 65535:
-        raise ValueError(f"strips kernel takes 1..65535 channels, got {C}")
     e_tb, e_ls = F * R * P_l, F * n * 128
     if (index.dtype != torch.int32 or index.device != src.device
             or index.numel() != 2 * e_tb + e_ls or not index.is_contiguous()):
         raise ValueError("strip index map does not match this conv")
-    top = torch.empty((C, F, R, P_l), dtype=src.dtype, device=src.device)
-    bot = torch.empty_like(top)
-    ls = torch.empty((C, F, n, 128), dtype=src.dtype, device=src.device)
+    if index.data_ptr() % 16:
+        raise ValueError("strip index map must start 16-byte aligned")
+    if -(-C // _STRIPS_CC) > 65535:
+        raise ValueError(f"strips kernel: {C} channels are too many for the grid")
+    out = torch.empty(C * (2 * e_tb + e_ls), dtype=src.dtype, device=src.device)
+    top = out[:C * e_tb].view(C, F, R, P_l)
+    bot = out[C * e_tb:2 * C * e_tb].view(C, F, R, P_l)
+    ls = out[2 * C * e_tb:].view(C, F, n, 128)
+    vec = int(src.data_ptr() % 16 == 0 and slab % 4 == 0)
     lib = _cuda.lib()
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.ds_strips(
-            src.data_ptr(), index.data_ptr(), top.data_ptr(), bot.data_ptr(),
-            ls.data_ptr(), C, slab, e_tb, e_ls, stream,
-        )
+        rc = lib.ds_strips(src.data_ptr(), index.data_ptr(), out.data_ptr(),
+                           C, slab, F, n, h, R, P_l, vec, stream)
     _cuda.check(rc, "ds_strips")
     _cuda.launch_counts["strips"] += 1
     return top, bot, ls
@@ -169,6 +179,30 @@ def build_strips(st, xc, index=None):
     return strip_arrays(st, xc)
 
 
+def band_source_map(m, C, L):
+    """One channel's band strip map ``m`` (:func:`band_strip_index_map`,
+    any integer type) -> the int32 map into C channels' packed bands
+    (12, C, L), where face f's bands start at f*C*L."""
+    m = m.to(torch.int64)
+    return torch.where(m >= 0, (m // L) * (C * L) + m % L, m).to(torch.int32)
+
+
+def _band_source_map(st, faces, C, device, index=None):
+    """:func:`band_source_map` of ``faces`` for C channels on ``device``,
+    cached on ``st`` per (faces, C, device): the sharded forward would
+    otherwise rescale the map on every call.  ``index``: the device copy of
+    :func:`band_strip_index_map` for these faces, else built here."""
+    faces = tuple(int(f) for f in faces)
+    cache = st.__dict__.setdefault("_band_source_map_cache", {})
+    key = (faces, C, str(device))
+    if key not in cache:
+        if index is None:
+            index = torch.from_numpy(band_strip_index_map(st, faces))
+        cache[key] = band_source_map(index.to(device), C,
+                                     4 * st.n_steps * st.nside)
+    return cache[key]
+
+
 def build_band_strips(st, bands, faces, index=None):
     """(top, bot, ls) of ``faces`` (C, F, ...) from the packed all-gathered
     edge bands ``bands`` (12, C, 4*h*n): the gather kernel (K4's) for a CUDA
@@ -181,12 +215,8 @@ def build_band_strips(st, bands, faces, index=None):
         raise ValueError(f"bands {tuple(bands.shape)} != (12, C, {4 * h * n})")
     if bands.is_cuda:
         _check_source(bands)
-        if index is None:
-            index = torch.from_numpy(band_strip_index_map(st, faces))
-        m = index.to(device=bands.device, dtype=torch.int64)
-        # one channel's map -> C channels': face f's bands start at f*C*L
-        m = torch.where(m >= 0, (m // L) * (C * L) + m % L, m)
-        return _gather_strips(st, bands, m.to(torch.int32), C, len(faces), L)
+        m = _band_source_map(st, faces, C, bands.device, index)
+        return _gather_strips(st, bands, m, C, len(faces), L)
     if bands.device.type != "cpu":
         raise ValueError(f"no strips implementation for device {bands.device}")
     return strip_arrays(st, None, faces, unpack_edge_bands(bands, n, h))

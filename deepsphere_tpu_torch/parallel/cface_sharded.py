@@ -146,7 +146,7 @@ def _forward_sharded(st, tables, xc, wk3, n_terms, kind, B, group):
     strips = build_band_strips(st, bands, range(f0, f0 + F),
                                index=tables["band_strip_idx"])
     y = run_stencil_kernel(st, kind, n_terms, xc, tables["weights"], strips,
-                           wk3, B, offsets=tables["offsets"])
+                           wk3, B)
     ball = None
     if "ball_send" in tables:
         ball = _gather_shard_rows(xc, tables["ball_send"], tables["ball_pos"],

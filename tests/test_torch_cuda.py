@@ -77,7 +77,8 @@ def _close(got, want, tol=TOL):
     assert err <= tol, err
 
 
-@pytest.mark.parametrize("n,h,C", [(16, 9, 3), (32, 4, 2), (64, 9, 1)])
+@pytest.mark.parametrize("n,h,C", [(16, 9, 3), (32, 4, 2), (64, 9, 1),
+                                   (32, 9, 64)])
 def test_strips_kernel_matches_plain(rng, dev, n, h, C):
     st = _stencil(n, 0.75, h)
     x = _xc(rng, dev, n, h, C)
@@ -128,27 +129,54 @@ def test_band_strips_match_the_unsharded_strips(rng, dev, n, h, S):
 
 
 @pytest.mark.parametrize(
-    "n,k,kind,scale,K,B,Fin,Fout",
-    [(16, 8, "cheby", 0.75, 10, 2, 3, 9), (32, 8, "cheby", 0.75, 5, 1, 2, 4),
-     (64, 8, "mono", 1.0, 3, 2, 1, 8), (8, 8, "cheby", 0.75, 3, 3, 2, 2),
-     (16, 20, "cheby", 0.75, 3, 2, 2, 3), (32, 20, "mono", 1.0, 10, 1, 2, 2)],
+    "n,k,kind,scale,K,B,Fin,Fout,F,role",
+    [(16, 8, "cheby", 0.75, 10, 2, 3, 9, 12, "fwd"),
+     (32, 8, "cheby", 0.75, 5, 1, 2, 4, 12, "fwd"),
+     (64, 8, "mono", 1.0, 3, 2, 1, 8, 12, "fwd"),
+     (8, 8, "cheby", 0.75, 3, 3, 2, 2, 12, "fwd"),
+     (16, 20, "cheby", 0.75, 3, 2, 2, 3, 12, "fwd"),
+     (32, 20, "mono", 1.0, 10, 1, 2, 2, 12, "fwd"),
+     # Fout 32 at B=4: past the first version's 8-channel chunk, and on a
+     # 32-tile past the 16 output channels a block holds
+     (32, 8, "cheby", 0.75, 5, 4, 3, 32, 12, "fwd"),
+     # the arrays of a face shard of 3
+     (32, 8, "cheby", 0.75, 5, 2, 4, 4, 3, "fwd"),
+     # the headline's channel widths
+     (64, 8, "cheby", 0.75, 5, 4, 4, 4, 12, "fwd"),
+     # the dx role: W^T, recursion over Fout = 16 channels into Fin = 8
+     (32, 8, "cheby", 0.75, 10, 2, 8, 16, 12, "dx"),
+     (16, 20, "mono", 1.0, 4, 2, 2, 3, 12, "fwd")],
 )
 def test_conv_kernel_matches_plain(rng, dev, n, k, kind, scale, K, B, Fin,
-                                   Fout):
+                                   Fout, F, role):
     """Raw conv on every interior lane (corner rows included), zero halo
     lanes, then the corrected conv; radius 1 (k=8) and radius 2 (k=20, at
-    h=18 on 8x8 tiles so the 25 weight planes fit shared memory)."""
+    h=18 on 8x8 tiles so the 25 weight planes fit shared memory).  The dx
+    role runs the conv with the transposed channel kernel, as the K1+K3
+    backward does; a face shard's arrays (F < 12) hold the first F faces."""
     st = _stencil(n, scale, (K - 1) * (2 if k == 20 else 1), k)
     h = st.n_steps
     tables = as_tensors(stencil_tables(st), dev)
-    x = _xc(rng, dev, n, h, B * Fin)
     kern = torch.from_numpy(
         rng.normal(size=(Fin * K, Fout)).astype(np.float32)).to(dev)
-    wk3 = kern.reshape(Fin, K, Fout).permute(1, 0, 2).contiguous()
+    if role == "dx":  # the conv of the backward: Fout -> Fin through W^T
+        wk3 = fs._wk3t(kern, K)
+        kern = wk3.permute(1, 0, 2).reshape(Fout * K, Fin).contiguous()
+        Fin, Fout = Fout, Fin
+    else:
+        wk3 = fs._wk3(kern, K)
+    x = _xc(rng, dev, n, h, B * Fin)
     s = tstrips.strip_arrays(st, x)
-    args = (st, kind, K, x, tables["weights"], s, wk3, B)
+    if F < 12:
+        xs = x[:, :F].contiguous()
+        ss = tuple(a[:, :F].contiguous() for a in s)
+        ws = tables["weights"][:, :F].contiguous()
+    else:
+        xs, ss, ws = x, s, tables["weights"]
+    args = (st, kind, K, xs, ws, ss, wk3, B)
     raw = fs.run_stencil_kernel(*args)
     raw_p = fs.run_stencil_plain(*args)
+    assert raw.shape == (B * Fout, F, n, xs.shape[-1])
     _close(raw[..., h:h + n], raw_p[..., h:h + n])
     assert raw[..., :h].abs().max() == 0 and raw[..., h + n:].abs().max() == 0
     y = fs.fused_stencil_conv_cfp(st, tables, x, kern, K, kind, B)
@@ -157,6 +185,54 @@ def test_conv_kernel_matches_plain(rng, dev, n, k, kind, scale, K, B, Fin,
     _close(y[..., h:h + n], y_p[..., h:h + n])
     assert _cuda.launch_counts == {"strips": 1, "stencil_conv": 2, "dxdw": 0,
                                    "grad": 0, "bands": 0}
+
+
+def test_conv_kernel_takes_unaligned_inputs(rng, dev):
+    """K1 copies its halo windows 16 bytes at a time where the sources are
+    16-byte aligned; a contiguous input that starts one float into its
+    storage takes the 4-byte copies and gives the same result."""
+    n, K, B, Fin, Fout = 32, 5, 2, 4, 4
+    st = _stencil(n, 0.75, K - 1)
+    h = st.n_steps
+    tables = as_tensors(stencil_tables(st), dev)
+    x = _xc(rng, dev, n, h, B * Fin)
+    xu = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape).copy_(x)
+    assert xu.is_contiguous() and xu.data_ptr() % 16 != 0
+    wk3 = torch.from_numpy(
+        rng.normal(size=(K, Fin, Fout)).astype(np.float32)).to(dev)
+    s = tstrips.strip_arrays(st, x)
+    y = fs.run_stencil_kernel(st, "cheby", K, x, tables["weights"], s, wk3, B)
+    yu = fs.run_stencil_kernel(st, "cheby", K, xu, tables["weights"], s, wk3,
+                               B)
+    torch.cuda.synchronize()
+    assert torch.equal(y, yu)
+
+
+def test_conv_kernel_on_two_cards(rng, dev):
+    """K1 raises its dynamic shared-memory limit per device: the same
+    instantiation, at more than the default 48 KB, launched on cuda:0 and
+    then on cuda:1 (the current device left at cuda:0) gives the same
+    result on both."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    n, K, B, Fin, Fout = 32, 5, 2, 4, 4
+    st = _stencil(n, 0.75, K - 1)
+    h = st.n_steps
+    plan = fs._k1_plan(n, h, st.radius, len(st.offsets), K, B, 12, Fin, Fout,
+                       torch.cuda.get_device_properties(0).multi_processor_count)
+    assert plan.smem > 48 * 1024
+    x = _xc(rng, dev, n, h, B * Fin)
+    wk3 = torch.from_numpy(
+        rng.normal(size=(K, Fin, Fout)).astype(np.float32)).to(dev)
+    ys = []
+    for d in (torch.device("cuda:0"), torch.device("cuda:1")):
+        xd = x.to(d)
+        w = torch.from_numpy(st.weights).to(d)
+        ys.append(fs.run_stencil_kernel(st, "cheby", K, xd, w,
+                                        tstrips.build_strips(st, xd),
+                                        wk3.to(d), B))
+        torch.cuda.synchronize(d)
+    assert torch.equal(ys[0], ys[1].to(ys[0].device))
 
 
 _BWD = [(16, 8, "cheby", 0.75, 10, 2, 3, 9), (32, 8, "cheby", 0.75, 5, 1, 2, 4),

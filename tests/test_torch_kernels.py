@@ -25,6 +25,7 @@ import deepsphere_tpu.graph as jgraph
 import deepsphere_tpu.ops.pallas_stencil as jps
 import deepsphere_tpu.ops.stencil as jstencil
 import deepsphere_tpu_torch.graph as tgraph
+from deepsphere_tpu_torch.graph.stencil import stencil_offsets
 from deepsphere_tpu_torch.ops import _cuda
 from deepsphere_tpu_torch.ops import fused_stencil as tfs
 from deepsphere_tpu_torch.ops import strips as tstrips
@@ -120,6 +121,73 @@ def test_build_strips_on_cpu_is_the_plain_version(rng):
                                    "grad": 0, "bands": 0}
 
 
+def _strip_parts(m, F, n, h):
+    """One channel's strip map split as the kernel reads it."""
+    R, P_l = tfs.cfp_geometry(n, h)
+    e_tb = F * R * P_l
+    return (m[:e_tb].reshape(F, R, P_l), m[e_tb:2 * e_tb].reshape(F, R, P_l),
+            m[2 * e_tb:].reshape(F, n, 128))
+
+
+@pytest.mark.parametrize("n,h", [(8, 4), (16, 9), (32, 2)])
+def test_strip_maps_are_zero_outside_the_kernels_data_groups(n, h):
+    """K4 writes 16-byte zeros without reading the map at top rows
+    [0, R-h), bot rows [h, R), lanes past roundup(n+2h, 4) and ls lanes past
+    roundup(2h, 4): both maps (all faces, and a shard's faces from the
+    bands) hold -1 there."""
+    _, st = _stencils(n, 0.75, h)
+    R, P_l = tfs.cfp_geometry(n, h)
+    D, Dl = -(-(n + 2 * h) // 4) * 4, -(-(2 * h) // 4) * 4
+    for m, F in ((tstrips.strip_index_map(st), 12),
+                 (tstrips.band_strip_index_map(st, range(3, 6)), 3)):
+        top, bot, ls = _strip_parts(m, F, n, h)
+        assert (top[:, :R - h] == -1).all() and (top[:, :, D:] == -1).all()
+        assert (bot[:, h:] == -1).all() and (bot[:, :, D:] == -1).all()
+        assert (ls[:, :, Dl:] == -1).all()
+        assert (top[:, R - h:, :D] >= 0).any() and (ls[:, :, :Dl] >= 0).any()
+
+
+def test_band_source_map_cached_equals_per_call(rng):
+    """The rescaled band map that ``build_band_strips`` caches on the
+    stencil per (faces, C, device) is the per-call rescale, and it gathers
+    the plain band strips from the packed bands."""
+    n, h, C = 16, 4, 5
+    _, st = _stencils(n, 0.75, h)
+    faces = range(3, 6)
+    L = 4 * h * n
+    m = torch.from_numpy(tstrips.band_strip_index_map(st, faces))
+    want = tstrips.band_source_map(m, C, L)
+    cpu = torch.device("cpu")
+    got = tstrips._band_source_map(st, faces, C, cpu)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert tstrips._band_source_map(st, faces, C, cpu, m) is got
+    assert not torch.equal(tstrips._band_source_map(st, faces, C + 1, cpu),
+                           got)
+    bands = torch.from_numpy(rng.normal(size=(12, C, L)).astype(np.float32))
+    plain = tstrips.build_band_strips(st, bands, faces)
+    flat, idx = bands.reshape(-1), got.long()
+    for c in range(C):
+        g = torch.where(idx >= 0, flat[c * L + idx.clamp_min(0)],
+                        torch.zeros(()))
+        for part, p in zip(_strip_parts(g, 3, n, h), plain):
+            assert torch.equal(part, p[c])
+
+
+def test_strip_gather_rejects_an_unaligned_map():
+    """The gather kernel reads its source map 16 bytes at a time: a map
+    that does not start 16-byte aligned is refused before any launch."""
+    n, h = 16, 4
+    _, st = _stencils(n, 0.75, h)
+    m = torch.from_numpy(tstrips.strip_index_map(st))
+    shifted = torch.empty(m.numel() + 1, dtype=torch.int32)[1:].copy_(m)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    _, P_l = tfs.cfp_geometry(n, h)
+    x = torch.zeros(1, 12, n, P_l)
+    with pytest.raises(ValueError, match="aligned"):
+        tstrips._gather_strips(st, x, shifted, 1, 12, 12 * n * P_l)
+    assert _cuda.launch_counts["strips"] == 0
+
+
 # ---------------------------------------------------------------------------
 # K1: the raw fused conv
 # ---------------------------------------------------------------------------
@@ -158,11 +226,100 @@ def test_raw_conv_matches_jax_kernel(rng, n, k, kind, scale, K):
                                              (8, 2, 1, 9, 8), (32, 18, 2, 25, 8),
                                              (64, 16, 4, 81, None)])
 def test_conv_kernel_tile_fits_shared_memory(n, h, r, nplanes, T):
-    """The CUDA conv picks the largest tile whose window fits a block's
-    227 KB of shared memory (radius 4 at h=16 fits none)."""
-    assert tfs._conv_tile(n, h, r, nplanes) == T
+    """K1's plan picks the largest tile whose window fits a block's 227 KB
+    of shared memory (radius 4 at h=16 fits none)."""
+    K = h // r + 1
+    plan = tfs._k1_plan(n, h, r, nplanes, K, 2, 12, 4, 4, _H100_SMS)
+    assert (None if plan is None else plan.T) == T
     if T is not None:
-        assert tfs._conv_smem(T, h, r, nplanes) <= tfs._SMEM_MAX
+        assert plan.smem == tfs._k1_smem(T, h, r, nplanes, K, plan.G,
+                                         plan.FC) <= tfs._SMEM_MAX
+        if T < 32 and n % (2 * T) == 0:  # the next larger tile does not
+            # fit, even at its least
+            assert tfs._k1_smem(2 * T, h, r, nplanes, K, 1, 4) > tfs._SMEM_MAX
+
+
+_H100_SMS = 132  # an H100 SXM's SMs
+
+# (label, n, h, r, nplanes, K, B, F, Fin, Fout): every shape the paths give K1
+_K1_SHAPES = [
+    ("quick_start conv 1", 64, 9, 1, 9, 10, 16, 12, 1, 8),
+    ("quick_start conv 2", 32, 9, 1, 9, 10, 16, 12, 8, 16),
+    ("quick_start conv 3", 16, 9, 1, 9, 10, 16, 12, 16, 32),
+    ("headline", 1024, 4, 1, 9, 5, 4, 12, 4, 4),
+    ("k=20 radius 2, h=18", 32, 18, 2, 25, 10, 2, 12, 2, 3),
+    ("face shard of 3, headline", 1024, 4, 1, 9, 5, 4, 3, 4, 4),
+    ("dx role of conv 3 (Fin > Fout)", 16, 9, 1, 9, 10, 16, 12, 32, 16),
+    ("dx role of conv 2 (Fin > Fout)", 32, 9, 1, 9, 10, 16, 12, 16, 8),
+]
+
+
+@pytest.mark.parametrize("label,n,h,r,nplanes,K,B,F,Fin,Fout", _K1_SHAPES,
+                         ids=[c[0] for c in _K1_SHAPES])
+def test_k1_plan_at_the_paths_shapes(label, n, h, r, nplanes, K, B, F, Fin,
+                                     Fout):
+    """K1's launch plan at every shape the paths use: a tile, a batch group
+    >= 1, at most 227 KB of shared memory, a grid within CUDA's limits that
+    covers every (tile, face, batch index, output channel) once."""
+    p = tfs._k1_plan(n, h, r, nplanes, K, B, F, Fin, Fout, _H100_SMS)
+    assert p is not None, label
+    assert p.T in (32, 16, 8) and n % p.T == 0
+    assert 1 <= p.GB <= B and 1 <= p.G <= tfs._K1_GMAX[r] and Fin % p.G == 0
+    assert p.FC in (4, 8, 16, 32)
+    assert p.FC <= (16 if p.T == 32 else 32)
+    assert p.smem == tfs._k1_smem(p.T, h, r, nplanes, K, p.G, p.FC)
+    assert p.smem <= 227 * 1024
+    chunks = -(-Fout // p.FC)
+    assert p.grid == ((n // p.T) ** 2, F, -(-B // p.GB) * chunks)
+    assert p.grid[0] < 2 ** 31 and p.grid[1] <= 65535 and p.grid[2] <= 65535
+    # the batch leaves the grid only while the grid still fills the SMs twice
+    if p.GB > 1:
+        assert p.grid[0] * p.grid[1] * p.grid[2] >= 2 * _H100_SMS
+
+
+def test_k1_plan_batch_group_follows_the_grid():
+    """At the headline (face, tile) alone makes 12,288 blocks, so a block
+    takes the whole batch; at quick_start conv 3 it makes 12, so the batch
+    stays in the grid."""
+    plan = lambda *shape, sms=_H100_SMS: tfs._k1_plan(*shape, sms)
+    assert plan(1024, 4, 1, 9, 5, 4, 12, 4, 4).GB == 4
+    assert plan(16, 9, 1, 9, 10, 16, 12, 16, 32).GB == 1
+    # a card of fewer SMs is filled with more batch indices a block
+    assert plan(16, 9, 1, 9, 10, 16, 12, 16, 32, sms=6).GB == 16
+    # the lap group divides Fin, up to the radius's largest
+    assert plan(32, 9, 1, 9, 10, 2, 12, 3, 3).G == 1
+    assert plan(32, 9, 1, 9, 10, 2, 12, 4, 3).G == 4
+    assert plan(32, 18, 2, 25, 10, 2, 12, 4, 3).G == 2
+
+
+@pytest.mark.parametrize("k,r", [(8, 1), (20, 2)])
+def test_stencil_offsets_are_the_kernels_taps(k, r):
+    """K1 compiles its taps in the order of ``stencil_offsets``: radius 1 in
+    the healpix_base neighbour order, larger radii in raster order, the
+    centre last (``plane_of`` in ``csrc/stencil_conv.cu``)."""
+    _, st = _stencils(16, 0.75, 2 * r, k)
+    assert st.radius == r
+    assert list(st.offsets) == stencil_offsets(st.radius)
+    assert stencil_offsets(1) == [(-1, 0), (-1, 1), (0, 1), (1, 1),
+                                         (1, 0), (1, -1), (0, -1), (-1, -1),
+                                         (0, 0)]
+    for rr in (2, 3, 4):
+        raster = [(dx, dy) for dx in range(-rr, rr + 1)
+                  for dy in range(-rr, rr + 1) if (dx, dy) != (0, 0)]
+        assert stencil_offsets(rr) == raster + [(0, 0)]
+
+
+def test_k1_wrapper_rejects_other_tap_orders():
+    """A stencil whose taps are not ``stencil_offsets(radius)`` is refused
+    before any launch."""
+    from types import SimpleNamespace
+
+    offs = stencil_offsets(1)
+    st = SimpleNamespace(nside=8, n_steps=2, radius=1,
+                         offsets=offs[1:] + offs[:1])
+    x = torch.zeros(1, 12, 8, 128)
+    with pytest.raises(ValueError, match="stencil_offsets"):
+        tfs._stencil_cuda(st, "cheby", x, None, None, torch.zeros(3, 1, 1), 1)
 
 
 def test_raw_conv_reads_only_the_interior(rng):
