@@ -18,10 +18,10 @@ Phases, one result line each (with the elapsed seconds):
    kernels K2 (dx to 2e-5, dW to 1e-4) and K3 (dW to 1e-4: each entry sums
    a whole map of products, in another order), each dW bitwise-equal across
    two calls; times beside the plain times, the bound and, for K4, the one
-   PyTorch call that computes the same gather (``index_select``).  K1, K4
-   and ``index_select`` are timed by CUDA-graph replay (device time: an
-   eager call of K4 costs the host more than the card), K2 and K3 with
-   CUDA events around eager calls;
+   PyTorch call that computes the same gather (``index_select``).  The
+   kernels and ``index_select`` are timed by CUDA-graph replay (device
+   time: an eager call of a small kernel costs the host more than the
+   card), the plain versions with CUDA events around eager calls;
 4. serving: the quick_start classifier at nside 64, full width, random
    weights from a seed, answers 4 requests of 16 maps through
    ``model.predict`` on the card; each of the three cface convs must launch
@@ -35,9 +35,10 @@ Phases, one result line each (with the elapsed seconds):
    gradients a cancellation that a float32 CPU step resolves only to
    ~2e-3, so the card is not held to it; its error is printed beside the
    card's); ``fit`` for 2 epochs
-   over 64 maps (every loss finite); ms per synchronized step after
-   warm-up on both routes; a ``torch.profiler`` window over 3 steps (device
-   ops, device-busy share, the kernels that take the most time);
+   over 64 maps (every loss finite); ms per synchronized step on both
+   routes (median of 10, the routes alternating, after warm-up); a
+   ``torch.profiler`` window over 3 steps (device ops, device-busy share,
+   the kernels that take the most time);
 6. the headline conv (nside 1024, K=5 Chebyshev, Fin=Fout=4, batch 4) on
    the kernels against the plain per-step path, both on the card: forward,
    then forward + backward with a fixed random cotangent on both routes
@@ -64,15 +65,17 @@ and bound, and finally
 non-zero and prints no result line.  It needs one card, never falls back to
 the CPU, and imports no JAX.
 
-Two other modes measure kernels only:
+Two other modes measure only:
 
     python3 chip_smoke.py --kernel-times ROOT
     python3 chip_smoke.py --compare PARENT [OUT.json]
 
-``--kernel-times`` times K1-K4 at the four phase-3 shapes with the package
-of the checkout ROOT; ``--compare`` runs it for the checkout PARENT
-(another commit, e.g. unpacked with ``git archive``) and this one in turns,
-parent, this, this, parent, and also writes the pairs to OUT.json.
+``--kernel-times`` times K1-K5 and the ``index_select`` of K4's and K5's
+maps at the four phase-3 shapes, and the quick_start train step on both
+backward routes (as phase 5 does), with the package of the checkout ROOT;
+``--compare`` runs it for the checkout PARENT (another commit, e.g.
+unpacked with ``git archive``) and this one in turns, parent, this, this,
+parent, and also writes the pairs to OUT.json.
 """
 
 import copy
@@ -114,11 +117,12 @@ def cuda_ms(fn, iters=10, warmup=2):
     return a.elapsed_time(b) / iters
 
 
-def graph_ms(fn, iters=20):
-    """Mean device milliseconds of ``fn()`` with no host in between: ``iters``
-    calls captured in one CUDA graph, one replay timed with CUDA events.  For
-    a kernel whose eager call costs the host more than the card (a few MB
-    moved), where ``cuda_ms`` would time the host."""
+def graph_ms(fn, iters=20, reps=5):
+    """Device milliseconds of ``fn()`` with no host in between: ``iters``
+    calls captured in one CUDA graph, each of ``reps`` replays timed with
+    CUDA events, the median replay over ``iters``.  For a kernel whose eager
+    call costs the host more than the card (a few MB moved), where
+    ``cuda_ms`` would time the host."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm-up outside the capture
@@ -132,17 +136,21 @@ def graph_ms(fn, iters=20):
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    g.replay()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / iters
+    times = []
+    for _ in range(reps):
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / iters)
+    return float(np.median(times))
 
 
-def device_profile(fn, steps, top=0):
+def device_profile(fn, steps, top=0, host=0):
     """Per call of ``fn(i)`` over ``steps`` calls, from ``torch.profiler``:
     (device ops, device-busy ms, [(name, ops, ms)] of the ``top`` device
-    kernels by time)."""
+    kernels by time, [(name, calls, ms)] of the ``host`` host ops by self
+    CPU time)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -159,7 +167,14 @@ def device_profile(fn, steps, top=0):
     ops = sum(v[0] for v in by_name.values()) / steps
     busy = sum(v[1] for v in by_name.values()) / steps
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
-    return ops, busy, [(nm, c / steps, t / steps) for nm, (c, t) in ranked]
+    on_host = []
+    if host:
+        on_host = sorted(((a.key, a.count / steps,
+                           a.self_cpu_time_total / 1e3 / steps)
+                          for a in prof.key_averages()),
+                         key=lambda r: -r[2])[:host]
+    return (ops, busy, [(nm, c / steps, t / steps) for nm, (c, t) in ranked],
+            on_host)
 
 
 def rel_err(got, want):
@@ -197,25 +212,132 @@ def tile_work(st, K, C):
     return halo + planes, laps + cheby
 
 
+def quick_start_layers(hp_nn):
+    """``examples/quick_start.py``'s classifier at full width."""
+    return [
+        hp_nn.HealpyChebyshev(K=10, Fout=8, activation="relu", use_bn=True),
+        hp_nn.HealpyPool(p=1),
+        hp_nn.HealpyChebyshev(K=10, Fout=16, activation="relu", use_bn=True),
+        hp_nn.HealpyPool(p=1),
+        hp_nn.HealpyChebyshev(K=10, Fout=32, activation="relu", use_bn=True),
+        hp_nn.HealpyPool(p=1),
+        hp_nn.HealpyChebyshev(K=10, Fout=32, activation="relu"),
+        hp_nn.Flatten(),
+        hp_nn.Dense(4),
+    ]
+
+
+def time_routes(config, trainers, x, y, steps=10, warmup=3):
+    """Host-clock ms per synchronized ``train_on_batch`` of 16 maps on each
+    backward route (``config.fused_dw`` True: ``trainers[True]``, the K2
+    route; False: the K1+K3 route): ``warmup`` steps of each, then ``steps``
+    rounds of one step of each, the first route swapped every round.
+    Returns ({route: median ms}, {route: [ms, ...]})."""
+    def step(fused, i):
+        config.set_fused_dw(fused)
+        j = 16 * (i % (len(x) // 16))
+        trainers[fused].train_on_batch(x[j:j + 16], y[j:j + 16])
+
+    try:
+        for i in range(warmup):
+            for fused in (True, False):
+                step(fused, i)
+        times = {True: [], False: []}
+        for i in range(steps):
+            for fused in ((True, False) if i % 2 == 0 else (False, True)):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                step(fused, i)
+                torch.cuda.synchronize()
+                times[fused].append((time.perf_counter() - t) * 1e3)
+    finally:
+        config.set_fused_dw(True)
+    return {f: float(np.median(v)) for f, v in times.items()}, times
+
+
+# (config.fused_dw, name) of the two backward routes
+ROUTES = ((True, "k2_route"), (False, "k1k3_route"))
+
+
+def route_steps(dt, config, hp_nn):
+    """The quick_start train step (nside 64, batch 16, phase 5's seeds) on
+    both backward routes: host-clock ms (:func:`time_routes`, 20 rounds),
+    and per step over 3 profiled steps of each route, twice, its device
+    ops, device-busy ms and the 8 host ops with the most self CPU time."""
+    nside = 64
+    npix = 12 * nside * nside
+    model = dt.HealpyGCNN(nside=nside, indices=np.arange(npix),
+                          layers=quick_start_layers(hp_nn))
+    model.build((16, npix, 1), seed=11)
+    data = np.random.RandomState(12)
+    xt = data.normal(size=(64, npix, 1)).astype(np.float32)
+    yt = data.randint(0, 4, size=64)
+    trainers = {}
+    for fused in (True, False):
+        m = copy.deepcopy(model)
+        m.compile(optimizer=1e-3,
+                  loss="sparse_categorical_crossentropy_from_logits")
+        trainers[fused] = m._trainer
+    med, times = time_routes(config, trainers, xt, yt, steps=20)
+    rec = {name: {"ms": med[fused], "steps_ms": times[fused],
+                  "device_ops": [], "busy_ms": [], "host_top": []}
+           for fused, name in ROUTES}
+    # each route profiled twice, in the order K2, K1+K3, K1+K3, K2
+    for fused, name in ROUTES + ROUTES[::-1]:
+        config.set_fused_dw(fused)
+        tr = trainers[fused]
+        try:
+            ops, busy, _, host = device_profile(
+                lambda i: tr.train_on_batch(xt[16 * i:16 * i + 16],
+                                            yt[16 * i:16 * i + 16]), 3,
+                host=8)
+        finally:
+            config.set_fused_dw(True)
+        rec[name]["device_ops"].append(ops)
+        rec[name]["busy_ms"].append(busy)
+        rec[name]["host_top"].append(host)
+    return rec
+
+
 # (nside, Fin, Fout, B, K) of the four phase-3 shapes: quick_start convs 1-3
 # and the headline conv
 KERNEL_SHAPES = [(64, 1, 8, 16, 10), (32, 8, 16, 16, 10), (16, 16, 32, 16, 10),
                  (1024, 4, 4, 4, 5)]
 
 
+def band_map(C, F, n, h, P, dev):
+    """Flat index into xc (C, F, n, P) of every element of K5's packed bands
+    (F, C, 4hn), face col y at lane y + h (the yardstick's map)."""
+    hn = torch.arange(h * n, device=dev)
+    rows = torch.cat([hn // n, n - h + hn // n, hn // h, hn // h])
+    cols = torch.cat([hn % n, hn % n, hn % h, n - h + hn % h]) + h
+    f = torch.arange(F, device=dev)[:, None, None]
+    c = torch.arange(C, device=dev)[None, :, None]
+    return (((c * F + f) * n + rows) * P + cols).reshape(-1)
+
+
 def kernel_times(root):
-    """``--kernel-times ROOT``: device times (graph replay) of K1, K4 and
-    ``index_select``, and eager times of K2 and K3, at the four phase-3
-    shapes, with the package imported from the checkout ``ROOT`` (this one
-    or another commit's).  Prints one JSON line."""
+    """``--kernel-times ROOT``: device times (graph replay) of K1-K5 and of
+    the ``index_select`` of K4's and K5's maps at the four phase-3 shapes
+    (K5 on the B*Fin channels of the conv's input, 12 faces), and of K1 as
+    the dx conv of the K1+K3 route (on dy, through W^T), and the quick_start
+    train step on both routes (:func:`route_steps`), with the package
+    imported from the checkout ``ROOT`` (this one or another commit's).
+    Prints one JSON line."""
     import inspect
 
     sys.path.insert(0, os.path.abspath(root))
     import deepsphere_tpu_torch as dt
+    from deepsphere_tpu_torch import config
     from deepsphere_tpu_torch.graph import build_sphere_graph
+    from deepsphere_tpu_torch.nn import healpy_layers as hp_nn
     from deepsphere_tpu_torch.ops import _cuda
     from deepsphere_tpu_torch.ops import fused_stencil as fs
-    from deepsphere_tpu_torch.ops.stencil import as_tensors, stencil_tables
+    from deepsphere_tpu_torch.ops.stencil import (
+        as_tensors,
+        pack_edge_bands,
+        stencil_tables,
+    )
     from deepsphere_tpu_torch.ops.strips import build_strips, strip_arrays
 
     dev = torch.device("cuda:0")
@@ -226,8 +348,8 @@ def kernel_times(root):
     rng = np.random.RandomState(1234)
     out = {"root": root, "package": os.path.dirname(dt.__file__),
            "card": card_line(), "shapes": []}
-    # a checkout whose K1 still reads device tap offsets takes them
-    k1_offs = "offsets" in inspect.signature(fs.run_stencil_kernel).parameters
+    # a checkout whose kernels still read device tap offsets takes them
+    takes = lambda fn: "offsets" in inspect.signature(fn).parameters
     for n, Fin, Fout, B, K in KERNEL_SHAPES:
         st = build_sphere_graph(n, k=8, method="grid",
                                 cache_dir=cache).deep_stencil(0.75, K)
@@ -250,21 +372,34 @@ def kernel_times(root):
                         xc.new_zeros((B * Fin, 1))], dim=1)
         sel = torch.where(idx >= 0, idx, slab).long()
         args = (st, "cheby", K, xc, w, strips, wk3, B)
-        k1_kw = {"offsets": offs} if k1_offs else {}
+        kw = lambda fn: {"offsets": offs} if takes(fn) else {}
         a2 = (st, "cheby", K, dy, w, strip_arrays(st, dy), wk3t, xc, mask, B)
         a3 = (st, "cheby", K, xc, w, strips, dy, B)
+        # the dx conv of the K1+K3 route: K1 on dy through W^T
+        a1t = (st, "cheby", K, dy, w, strip_arrays(st, dy), wk3t, B)
+        bflat = xc.reshape(-1)
+        bidx = band_map(B * Fin, 12, n, h, P_l, dev)
         rec = {"shape": f"nside={n} B={B} Fin={Fin} Fout={Fout} K={K}",
                "k4_ms": graph_ms(lambda: build_strips(st, xc, idx)),
                "index_select_ms": graph_ms(
                    lambda: torch.index_select(xz, 1, sel)),
-               "k1_ms": graph_ms(
-                   lambda: fs.run_stencil_kernel(*args, **k1_kw)),
-               "k2_ms": cuda_ms(lambda: fs.run_dxdw_kernel(*a2, offsets=offs)),
-               "k3_ms": cuda_ms(lambda: fs.run_grad_kernel(*a3, offsets=offs))}
+               "k1_ms": graph_ms(lambda: fs.run_stencil_kernel(
+                   *args, **kw(fs.run_stencil_kernel))),
+               "k1_dx_ms": graph_ms(lambda: fs.run_stencil_kernel(
+                   *a1t, **kw(fs.run_stencil_kernel))),
+               "k2_ms": graph_ms(lambda: fs.run_dxdw_kernel(
+                   *a2, **kw(fs.run_dxdw_kernel))),
+               "k3_ms": graph_ms(lambda: fs.run_grad_kernel(
+                   *a3, **kw(fs.run_grad_kernel))),
+               "k5_ms": graph_ms(lambda: pack_edge_bands(xc, n, h)),
+               "k5_index_select_ms": graph_ms(
+                   lambda: torch.index_select(bflat, 0, bidx))}
         out["shapes"].append(rec)
         print(json.dumps(rec), file=sys.stderr, flush=True)
-        del xc, dy, xz, sel, strips, tables, a2, a3, args
+        del xc, dy, xz, sel, strips, tables, a1t, a2, a3, args, bflat, bidx
         torch.cuda.empty_cache()
+    out["train_step"] = route_steps(dt, config, hp_nn)
+    print(json.dumps(out["train_step"]), file=sys.stderr, flush=True)
     print(json.dumps(out), flush=True)
 
 
@@ -286,7 +421,8 @@ def compare(parent, out_path=None):
                              f"{res.stderr[-8000:]}")
         runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
         say("compare", f"{root}: {time.perf_counter() - t:.1f} s")
-    keys = ("k1_ms", "k4_ms", "index_select_ms", "k2_ms", "k3_ms")
+    keys = ("k1_ms", "k4_ms", "index_select_ms", "k1_dx_ms", "k2_ms", "k3_ms",
+            "k5_ms", "k5_index_select_ms")
     pairs = []
     for j, shape in enumerate(KERNEL_SHAPES):
         row = {"shape": runs[0]["shapes"][j]["shape"]}
@@ -295,8 +431,18 @@ def compare(parent, out_path=None):
                       "change": [runs[1]["shapes"][j][k], runs[2]["shapes"][j][k]]}
         pairs.append(row)
         say("compare", json.dumps(row))
+    steps = {}
+    for _, route in ROUTES:
+        steps[route] = {
+            k: {"parent": [runs[0]["train_step"][route][k],
+                           runs[3]["train_step"][route][k]],
+                "change": [runs[1]["train_step"][route][k],
+                           runs[2]["train_step"][route][k]]}
+            for k in ("ms", "busy_ms", "device_ops", "steps_ms", "host_top")}
+    say("compare", "quick_start train step, ms: " + json.dumps(
+        {r: v["ms"] for r, v in steps.items()}))
     summary = {"card": runs[0]["card"], "order": "parent, change, change, parent",
-               "shapes": pairs}
+               "shapes": pairs, "train_step": steps}
     if out_path:
         os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
         with open(out_path, "w") as fh:
@@ -371,7 +517,6 @@ def main():
         n, h = st.nside, st.n_steps
         R, P_l = fs.cfp_geometry(n, h)
         tables = as_tensors(stencil_tables(st), dev)
-        offs = tables["offsets"]
         mask = tables.get("corr_mask")
         # garbage in the halo lanes too: no path may read them
         xc = torch.from_numpy(
@@ -449,8 +594,8 @@ def main():
         # K2: dx and dW in one pass over dy
         dy_s = strip_arrays(st, dy)
         a2 = (st, "cheby", K, dy, w, dy_s, wk3t, xc, mask, B)
-        dx_k, dw_k = fs.run_dxdw_kernel(*a2, offsets=offs)
-        _, dw_k2 = fs.run_dxdw_kernel(*a2, offsets=offs)
+        dx_k, dw_k = fs.run_dxdw_kernel(*a2)
+        _, dw_k2 = fs.run_dxdw_kernel(*a2)
         dx_p, dw_p = fs.run_dxdw_plain(*a2)
         torch.cuda.synchronize()
         e_dx = rel_err(dx_k[..., inner], dx_p[..., inner])
@@ -462,7 +607,7 @@ def main():
             raise AssertionError(
                 f"{label}: K2 dx rel {e_dx:.3e} dW rel {e_dw2:.3e} pad zero "
                 f"{pad_zero} dW repeatable {torch.equal(dw_k, dw_k2)}")
-        ms_k2 = cuda_ms(lambda: fs.run_dxdw_kernel(*a2, offsets=offs))
+        ms_k2 = graph_ms(lambda: fs.run_dxdw_kernel(*a2))
         ms_k2p = cuda_ms(lambda: fs.run_dxdw_plain(*a2), iters=3, warmup=1)
         abs_k2 = max((dx_k[..., inner] - dx_p[..., inner]).abs().max().item(),
                      (dw_k - dw_p).abs().max().item())
@@ -475,15 +620,15 @@ def main():
 
         # K3: dW from the recursion on x
         a3 = (st, "cheby", K, xc, w, want, dy, B)
-        g_k = fs.run_grad_kernel(*a3, offsets=offs)
-        g_k2 = fs.run_grad_kernel(*a3, offsets=offs)
+        g_k = fs.run_grad_kernel(*a3)
+        g_k2 = fs.run_grad_kernel(*a3)
         g_p = fs.run_grad_plain(*a3)
         torch.cuda.synchronize()
         e_dw3 = rel_err(g_k, g_p)
         if not (e_dw3 <= DW_TOL and torch.equal(g_k, g_k2)):
             raise AssertionError(f"{label}: K3 dW rel {e_dw3:.3e} repeatable "
                                  f"{torch.equal(g_k, g_k2)}")
-        ms_k3 = cuda_ms(lambda: fs.run_grad_kernel(*a3, offsets=offs))
+        ms_k3 = graph_ms(lambda: fs.run_grad_kernel(*a3))
         ms_k3p = cuda_ms(lambda: fs.run_grad_plain(*a3), iters=3, warmup=1)
         tb, tf = tile_work(st, K, B * Fin)
         k3 = bound(interior(B * Fin) + tb + interior(B * Fout)
@@ -524,22 +669,9 @@ def main():
     nside = 64
     npix = 12 * nside * nside
 
-    def quick_start():
-        return [
-            hp_nn.HealpyChebyshev(K=10, Fout=8, activation="relu", use_bn=True),
-            hp_nn.HealpyPool(p=1),
-            hp_nn.HealpyChebyshev(K=10, Fout=16, activation="relu", use_bn=True),
-            hp_nn.HealpyPool(p=1),
-            hp_nn.HealpyChebyshev(K=10, Fout=32, activation="relu", use_bn=True),
-            hp_nn.HealpyPool(p=1),
-            hp_nn.HealpyChebyshev(K=10, Fout=32, activation="relu"),
-            hp_nn.Flatten(),
-            hp_nn.Dense(4),
-        ]
-
     t = time.perf_counter()
     model = dt.HealpyGCNN(nside=nside, indices=np.arange(npix),
-                          layers=quick_start())
+                          layers=quick_start_layers(hp_nn))
     model.build((16, npix, 1), seed=7)  # on the card
     bn_rng = np.random.RandomState(8)
     cface_convs = []
@@ -597,7 +729,7 @@ def main():
     loss_name = "sparse_categorical_crossentropy_from_logits"
     t = time.perf_counter()
     model = dt.HealpyGCNN(nside=nside, indices=np.arange(npix),
-                          layers=quick_start())
+                          layers=quick_start_layers(hp_nn))
     model.build((16, npix, 1), seed=11)
     init = copy.deepcopy(model)  # the starting point of every route
     data = np.random.RandomState(12)
@@ -712,25 +844,11 @@ def main():
     if missing:
         raise AssertionError(f"the training path never launched {missing}")
 
-    step_ms = {}
-    for fused in (True, False):
-        config.set_fused_dw(fused)
-        tr = routes[fused][0]._trainer
-        for _ in range(3):
-            tr.train_on_batch(xt[:16], yt[:16])
-        torch.cuda.synchronize()
-        times = []
-        for i in range(10):
-            t = time.perf_counter()
-            tr.train_on_batch(xt[16 * (i % 4):16 * (i % 4) + 16],
-                              yt[16 * (i % 4):16 * (i % 4) + 16])
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
-        step_ms[fused] = float(np.mean(times))
-    config.set_fused_dw(True)
+    step_ms, _ = time_routes(config, {f: routes[f][0]._trainer
+                                      for f in (True, False)}, xt, yt)
     # where a step's time goes: kernels on the card over 3 steps
     tr = routes[True][0]._trainer
-    n_dev, busy, top = device_profile(
+    n_dev, busy, top, _ = device_profile(
         lambda i: tr.train_on_batch(xt[16 * i:16 * i + 16],
                                     yt[16 * i:16 * i + 16]), 3, top=6)
     if n_dev == 0:
@@ -741,7 +859,8 @@ def main():
         + "; ".join(f"{nm[:60]} x{c:.0f} {t:.3f} ms" for nm, c, t in top))
     say("train", f"fit 2 epochs x 64 maps: loss {hist['loss']}, accuracy "
         f"{hist['accuracy']}, launches {fit_counts}; ms per train step of 16 "
-        f"maps (host clock, synchronized, mean of 10 after 3 warm-up): K2 "
+        f"maps (host clock, synchronized, median of 10 with the routes "
+        f"alternating, after 3 warm-up steps each): K2 "
         f"route {step_ms[True]:.3f} ({16e3 / step_ms[True]:.1f} maps/s), "
         f"K1+K3 route {step_ms[False]:.3f} ({16e3 / step_ms[False]:.1f} "
         f"maps/s) on {card}")
@@ -824,16 +943,6 @@ def main():
     results["bands"] = []
     gen = torch.Generator(device=dev).manual_seed(77)
 
-    def band_map(C, F, n, h, P):
-        """Flat index into xc (C, F, n, P) of every element of the packed
-        bands (F, C, 4hn), face col y at lane y + h (the yardstick's map)."""
-        hn = torch.arange(h * n, device=dev)
-        rows = torch.cat([hn // n, n - h + hn // n, hn // h, hn // h])
-        cols = torch.cat([hn % n, hn % n, hn % h, n - h + hn % h]) + h
-        f = torch.arange(F, device=dev)[:, None, None]
-        c = torch.arange(C, device=dev)[None, :, None]
-        return (((c * F + f) * n + rows) * P + cols).reshape(-1)
-
     def bands_case(label, n, h, C, F):
         """(a) K5 against its plain version (exact) and index_select."""
         _, P = fs.cfp_geometry(n, h)
@@ -841,7 +950,7 @@ def main():
         got = pack_edge_bands(xc, n, h)
         if not torch.equal(got, pack_edge_bands_plain(xc, n, h)):
             raise AssertionError(f"{label}: K5 differs from the plain version")
-        flat, idx = xc.reshape(-1), band_map(C, F, n, h, P)
+        flat, idx = xc.reshape(-1), band_map(C, F, n, h, P, dev)
         if not torch.equal(torch.index_select(flat, 0, idx), got.reshape(-1)):
             raise AssertionError(f"{label}: index_select bands differ")
         # device time (graph replay): the eager call is host-bound here
@@ -944,7 +1053,7 @@ def main():
             f"{e_dk:.2e} against the unsharded K1+K3 route; forward "
             f"{ms_fs:.3f} ms sharded vs {ms_fu:.3f} ms unsharded; fwd + bwd "
             f"{ms_ts:.3f} ms vs {ms_tu:.3f} ms on {card}")
-        for w, (ops, busy, top) in fwd_prof.items():
+        for w, (ops, busy, top, _) in fwd_prof.items():
             say("sharded", f"profile of the {w} headline forward: {ops:.0f} "
                 f"device ops, {busy:.3f} ms device-busy per forward; top: "
                 + "; ".join(f"{nm[:60]} x{c:.0f} {t:.4f} ms"
@@ -957,7 +1066,7 @@ def main():
         t = time.perf_counter()
         plain = copy.deepcopy(init)
         model = dt.HealpyGCNN(nside=nside, indices=np.arange(npix),
-                              layers=quick_start(), shard_cfg=cfg)
+                              layers=quick_start_layers(hp_nn), shard_cfg=cfg)
         model.build((16, npix, 1), seed=11)
         model.load_state_dict(init.state_dict())
         plan = [type(m).__name__ + ("*" if getattr(m, "shard_cfg", None)

@@ -1,0 +1,491 @@
+// The backward template of the fused stencil conv: K2 (stencil_dxdw.cu,
+// fused dx + dW) and K3 (stencil_grad.cu, dW of the two-kernel backward)
+// are its two modes.  Its laps are K1's (lap<R, G, TWICE> in
+// stencil_conv.cuh: taps compile-time in stencil_offsets order, runs of
+// kRun points a thread, G channels sharing each weight), and so are its
+// staging of the weight window, the halo windows and the channel-kernel
+// slice and the zeros of K2's dx pad lanes; K1 keeps its own kernel, only
+// these device functions are shared.  Each stencil_dxdw*.cu and
+// stencil_grad*.cu compiles the instantiations of some (mode, radius, lap
+// group), so that one nvcc per source builds them in parallel.
+//
+// One block takes one (face f, T x T tile, group of GB batch indices, chunk
+// of FC "fold" channels).  It stages the tile's weight window once,
+// interleaved per pixel as K1's, and uses it for all its batch indices,
+// recursion channels and laps.  Its steps are (batch index, group of G
+// "recursion" channels), batch-major: each step's halo windows (cp.async,
+// 16-byte copies where four lanes share a source) run through the K-1 laps
+// of the Chebyshev or monomial recursion, and every term k is folded as
+// soon as it exists:
+//
+//   kDxDw (K2):  acc[p][c] += W[k, rc, c0+c] * T_k[rc][p]  (registers, as K1)
+//                dW[k, c0+c, rc] += sum_p o[p][c] * T_k[rc][p]
+//   kGrad (K3):  dW[k, rc, c0+c] += sum_p o[p][c] * T_k[rc][p]
+//
+// with o the fold operand at the thread's tile pixels, loaded into
+// registers once per batch index: the forward input times the corr_mask
+// plane (K2), or the cotangent dy (K3).  Only interior lanes of o are read.
+//
+// dW without float atomics: each term's products are summed over the warp
+// by shuffles (V values in about V shuffles, halving the set per step),
+// over the 8 warps in shared memory, and into the block's dW cells (K x
+// Crec x FC floats of shared memory) by the one thread that owns each
+// cell; at the end the block writes its cells to its own column of the
+// partial matrix, and reduce_partials sums each row in a fixed order.  Two
+// calls on the same inputs give bitwise-equal dW.
+//
+// Layout: src (B*Crec, F, n, P) with face col y at lane y + h, F the faces
+// the arrays hold; its row-halo strips top/bot (B*Crec, F, Rs, P), lane
+// strips ls (B*Crec, F, n, 128); weight planes wext (nplanes, F, n + 2Rs, P)
+// wrapped-extended, as K1's; wk (K, Crec, Cch) [K2]; oth (B*Cch, F, n, P);
+// mask (F, n, P) or null [K2]; out (B*Cch, F, n, P), zero outside the
+// interior lanes [K2]; partial (K*Crec*Cch, ncol), ncol = F * tiles^2 *
+// ceil(B / GB).
+
+#pragma once
+
+#include "stencil_conv.cuh"
+
+namespace ds_bwd {
+
+using ds_k1::NT;
+using ds_k1::kRun;
+using ds_k1::cp_async_commit;
+using ds_k1::cp_async_wait_all;
+
+constexpr int kWarps = NT / 32;
+
+enum Mode { kDxDw = 1, kGrad = 2 };
+
+struct BwdArgs {
+  const float* src;   // recursion input (B*Crec, F, n, P)
+  const float* top;   // its strips
+  const float* bot;
+  const float* ls;
+  const float* wext;  // (nplanes, F, n + 2Rs, P)
+  const float* wk;    // (K, Crec, Cch)              [kDxDw]
+  const float* oth;   // fold operand (B*Cch, F, n, P)
+  const float* mask;  // (F, n, P) or null           [kDxDw]
+  float* out;         // (B*Cch, F, n, P)            [kDxDw]
+  float* partial;     // (K*Crec*Cch, ncol)
+  int cheby, K, B, F, Crec, Cch, n, h, Rs, P, T, GB, chunks, vec, ncol;
+};
+
+__host__ __device__ constexpr int ilog2(int v) {
+  return v <= 1 ? 0 : 1 + ilog2(v / 2);
+}
+
+// One step of warp_sums: each lane keeps HALF of its 2 HALF values and
+// sends the other half to the partner lane across `bit`.  Every index is a
+// constant, so v stays in registers.
+template <int V, int HALF>
+__device__ __forceinline__ void halve(float (&v)[V], int lane) {
+  constexpr int bit = 32 * HALF / V;
+  const bool up = lane & bit;
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float send = up ? v[i] : v[i + HALF];
+    const float keep = up ? v[i + HALF] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, bit);
+  }
+  if constexpr (HALF > 1) halve<V, HALF / 2>(v, lane);
+}
+
+// Sums of v[0..V) over the 32 lanes of the warp, V a power of two <= 32:
+// each step sends half of the remaining values to the partner lane and
+// keeps the other half.  Lane l returns the sum of value l >> (5 - log2 V).
+template <int V>
+__device__ __forceinline__ float warp_sums(float (&v)[V], int lane) {
+  if constexpr (V > 1) halve<V, V / 2>(v, lane);
+  float c = v[0];
+#pragma unroll
+  for (int bit = 16 >> ilog2(V); bit >= 1; bit >>= 1)
+    c += __shfl_xor_sync(0xffffffffu, c, bit);
+  return c;
+}
+
+// Fold one term (G channels in buf, BW floats apart) at this thread's PP
+// tile pixels (threadIdx.x + p * NT of T x T, T = 1 << lgT, at window
+// offset (h + ti) * WS + h + tj): into the dx accumulators through wkk, the
+// term's [g][FC] slice [DX], and its dW sums over the warp into red[g][FC].
+template <bool DX, int G, int PP, int FC>
+__device__ __forceinline__ void fold(float (&acc)[PP][FC],
+                                     const float (&oth)[PP][FC],
+                                     const float* __restrict__ buf,
+                                     const float* __restrict__ wkk,
+                                     float* __restrict__ red, int BW, int WS,
+                                     int h, int lgT, int lane) {
+  float t[G][PP];
+#pragma unroll
+  for (int p = 0; p < PP; ++p) {
+    const int pix = threadIdx.x + p * NT;
+    const bool val = pix < (1 << (2 * lgT));
+    const int off =
+        val ? (h + (pix >> lgT)) * WS + h + (pix & ((1 << lgT) - 1)) : 0;
+#pragma unroll
+    for (int g = 0; g < G; ++g) t[g][p] = val ? buf[g * BW + off] : 0.f;
+  }
+  if constexpr (DX) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float4* w4 = reinterpret_cast<const float4*>(wkk + g * FC);
+#pragma unroll
+      for (int c = 0; c < FC / 4; ++c) {
+        const float4 w = w4[c];
+#pragma unroll
+        for (int p = 0; p < PP; ++p) {
+          acc[p][4 * c + 0] = fmaf(w.x, t[g][p], acc[p][4 * c + 0]);
+          acc[p][4 * c + 1] = fmaf(w.y, t[g][p], acc[p][4 * c + 1]);
+          acc[p][4 * c + 2] = fmaf(w.z, t[g][p], acc[p][4 * c + 2]);
+          acc[p][4 * c + 3] = fmaf(w.w, t[g][p], acc[p][4 * c + 3]);
+        }
+      }
+    }
+  }
+  // dW: chunks of CW fold channels, V = G * CW sums a warp reduction
+  constexpr int CW = FC < 8 ? FC : 8;
+  constexpr int V = G * CW;
+  constexpr int SH = 5 - ilog2(V);
+#pragma unroll
+  for (int cc = 0; cc < FC / CW; ++cc) {
+    float s[V];
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int c = 0; c < CW; ++c) {
+        float v = 0.f;
+#pragma unroll
+        for (int p = 0; p < PP; ++p) v = fmaf(t[g][p], oth[p][cc * CW + c], v);
+        s[g * CW + c] = v;
+      }
+    const float r = warp_sums<V>(s, lane);
+    if ((lane & ((1 << SH) - 1)) == 0) {
+      const int j = lane >> SH;
+      red[(j / CW) * FC + cc * CW + j % CW] = r;
+    }
+  }
+}
+
+// Two blocks per SM where the registers a thread holds across the laps
+// allow it (the dx sums and the fold operand, PP x FC each)
+template <int MODE, int PP, int FC>
+constexpr int min_blocks() {
+  return (MODE == kDxDw ? 2 : 1) * PP * FC <= 32 ? 2 : 1;
+}
+
+template <int MODE, int R, int G, int PP, int FC>
+__global__ void __launch_bounds__(NT, (min_blocks<MODE, PP, FC>()))
+stencil_bwd_kernel(const BwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr bool kDx = MODE == kDxDw;
+  constexpr int NP = (2 * R + 1) * (2 * R + 1);
+  constexpr int NV = G * FC;  // dW cells of one term of one step
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int T = a.T, h = a.h, n = a.n, P = a.P, K = a.K;
+  const int W0 = T + 2 * h;             // halo window side
+  const int WS = (W0 + 3) & ~3;         // its row stride: rows 16-byte aligned
+  const int Ww = W0 - 2 * R;            // weight window side (lap 1's region)
+  const int BW = (W0 + kRun - 1) * WS;  // one channel's buffer (+ run slack)
+  const int wkn = kDx ? K * G * FC : 0;  // one step's channel-kernel slice
+  const int ndw = K * a.Crec * FC;       // the block's dW cells
+  float* s_wk = smem;                             // 2 x K x G x FC [kDx]
+  float* s_w = s_wk + 2 * wkn;                    // (Ww+kRun-1) x Ww x NP
+  float* bufs = s_w + (((Ww + kRun - 1) * Ww * NP + 3) & ~3);  // 2 x G x BW
+  float* s_red = bufs + 2 * G * BW;               // 2 x kWarps x NV
+  float* s_dw = s_red + 2 * kWarps * NV;          // K x Crec x FC
+
+  const int tiles = n / T;
+  const int f = blockIdx.y;
+  const int x0 = (blockIdx.x / tiles) * T;
+  const int y0 = (blockIdx.x % tiles) * T;
+  const int c0 = (blockIdx.z % a.chunks) * FC;
+  const int bg = blockIdx.z / a.chunks;
+  const int b0 = bg * a.GB;
+  const int nb = min(a.GB, a.B - b0);
+  const int ngroups = a.Crec / G;  // G divides Crec
+  const int nsteps = nb * ngroups;
+
+  // the weight window once per block, the halo windows and the
+  // channel-kernel slice as K1 stages them
+  ds_k1::stage_weights<R>(s_w, a.wext, a.F, f, n, a.Rs, P, h, x0, y0, Ww);
+  for (int e = tid; e < ndw; e += NT) s_dw[e] = 0.f;
+  const ds_k1::Halo halo{a.src, a.top, a.bot, a.ls, n, h, a.Rs, P};
+  // halo windows of step s's channel group into buffer set `set`
+  auto stage_step = [&](int s, int set) {
+    const int b = b0 + s / ngroups;
+    const int rc0 = (s % ngroups) * G;
+    ds_k1::stage_window<G>(bufs + set * G * BW, halo,
+                           ((long long)b * a.Crec + rc0) * a.F + f, a.F, x0,
+                           y0, W0, WS, BW, a.vec);
+  };
+  // step s's slice of wk, zero past Cch: s_wk[slot][k][g][c]
+  auto stage_wk = [&](int s, int slot) {
+    ds_k1::stage_slice<G, FC>(s_wk + slot * wkn, a.wk, K, a.Crec, a.Cch,
+                              (s % ngroups) * G, c0);
+  };
+
+  const int lgT = 31 - __clz(T);  // T is 8, 16 or 32
+  // this thread's tile pixels: offset in a face plane, and the mask there
+  long long gof[PP];
+  float msk[PP];
+#pragma unroll
+  for (int p = 0; p < PP; ++p) {
+    const int pix = tid + p * NT;
+    const bool val = pix < T * T;
+    gof[p] = val ? (long long)(x0 + (pix >> lgT)) * P + h + y0 + (pix & (T - 1)) : -1;
+    msk[p] = 1.f;
+    if (kDx && val && a.mask != nullptr) msk[p] = a.mask[(long long)f * n * P + gof[p]];
+  }
+  float acc[PP][FC];
+  float oth[PP][FC];
+#pragma unroll
+  for (int p = 0; p < PP; ++p)
+#pragma unroll
+    for (int c = 0; c < FC; ++c) acc[p][c] = 0.f;
+  // the fold operand of batch index b at this thread's pixels, 0 past Cch
+  auto load_oth = [&](int b) {
+#pragma unroll
+    for (int c = 0; c < FC; ++c) {
+      const bool ok = c0 + c < a.Cch;
+      const float* oc = a.oth + ((long long)(b * a.Cch + c0 + c) * a.F + f) * n * P;
+#pragma unroll
+      for (int p = 0; p < PP; ++p)
+        oth[p][c] = ok && gof[p] >= 0 ? msk[p] * oc[gof[p]] : 0.f;
+    }
+  };
+  // term k of channels rc0.. from the warps' sums in slot `slot` into the
+  // block's dW cells: one thread per cell, in a fixed order
+  auto flush = [&](int k, int rc0, int slot) {
+    const float* red = s_red + slot * kWarps * NV;
+    for (int e = tid; e < NV; e += NT) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) s += red[w * NV + e];
+      s_dw[(k * a.Crec + rc0) * FC + e] += s;
+    }
+  };
+
+  stage_step(0, 0);
+  if (kDx) stage_wk(0, 0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // buffer sets as K1's: the next step's windows go to the set of T_{K-2}
+  // once the last lap is done with it.  Warp sums of term k of step s go to
+  // slot (s * K + k) & 1, flushed after the barrier that follows the next
+  // lap (or the step)
+  int cur = 0;
+  const int flip = (K - 1) % 2 == 0;  // T_{K-1} in the even set
+  int prev_rc0 = 0;
+  for (int s = 0; s < nsteps; ++s) {
+    const bool more = s + 1 < nsteps;
+    const int gi = s % ngroups;
+    const int rc0 = gi * G;
+    if (kDx && more) stage_wk(s + 1, (s + 1) & 1);
+    cp_async_commit();
+    if (s > 0) flush(K - 1, prev_rc0, (s * K - 1) & 1);
+    if (gi == 0) load_oth(b0 + s / ngroups);
+    const float* wk = s_wk + (s & 1) * wkn;
+    float* red = s_red + warp * NV;
+    float* P0 = bufs + cur * G * BW;        // even terms
+    float* P1 = bufs + (cur ^ 1) * G * BW;  // odd terms
+    const int next = cur ^ flip;
+    if (K == 1 && more) stage_step(s + 1, next);
+
+    fold<kDx, G, PP, FC>(acc, oth, P0, wk, red + ((s * K) & 1) * kWarps * NV,
+                         BW, WS, h, lgT, lane);
+    for (int k = 1; k < K; ++k) {
+      float* src = (k & 1) ? P0 : P1;
+      float* dst = (k & 1) ? P1 : P0;
+      if (a.cheby && k >= 2)
+        ds_k1::lap<R, G, true>(src, dst, s_w, W0, WS, Ww, BW, k);
+      else
+        ds_k1::lap<R, G, false>(src, dst, s_w, W0, WS, Ww, BW, k);
+      __syncthreads();
+      flush(k - 1, rc0, (s * K + k - 1) & 1);
+      if (k == K - 1 && more) stage_step(s + 1, next);
+      fold<kDx, G, PP, FC>(acc, oth, dst, wk + k * G * FC,
+                           red + ((s * K + k) & 1) * kWarps * NV, BW, WS, h,
+                           lgT, lane);
+    }
+
+    if (kDx && gi == ngroups - 1) {  // the batch index's dx is complete
+      const int b = b0 + s / ngroups;
+      const int nc = min(FC, a.Cch - c0);
+#pragma unroll
+      for (int c = 0; c < FC; ++c) {
+        if (c < nc) {
+          float* oc = a.out + ((long long)(b * a.Cch + c0 + c) * a.F + f) * n * P;
+#pragma unroll
+          for (int p = 0; p < PP; ++p) {
+            if (gof[p] >= 0) oc[gof[p]] = acc[p][c];
+            acc[p][c] = 0.f;
+          }
+        }
+      }
+      ds_k1::zero_pad_lanes(a.out, (long long)b * a.Cch + c0, nc, a.F, f, n,
+                            P, h, T, x0, y0);
+    }
+
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    cur ^= flip;
+    prev_rc0 = rc0;
+  }
+  flush(K - 1, prev_rc0, (nsteps * K - 1) & 1);
+  __syncthreads();
+
+  // the block's dW cells -> its column of the partial matrix
+  const long long col = ((long long)bg * a.F + f) * tiles * tiles + blockIdx.x;
+  for (int e = tid; e < ndw; e += NT) {
+    const int k = e / (a.Crec * FC);
+    const int rem = e - k * a.Crec * FC;
+    const int rc = rem / FC;
+    const int c = c0 + rem - rc * FC;
+    if (c < a.Cch) {
+      const long long row = kDx ? ((long long)k * a.Cch + c) * a.Crec + rc
+                                : ((long long)k * a.Crec + rc) * a.Cch + c;
+      a.partial[row * a.ncol + col] = s_dw[e];
+    }
+  }
+}
+
+// out[e] = sum_g partial[e, g], one block per row, in a fixed order: thread
+// t sums g = t, t + 256, ..., then a fixed tree over the 256 threads.
+// Static: each source that includes this header has its own copy.
+static __global__ void __launch_bounds__(NT)
+reduce_partials(const float* __restrict__ partial, float* __restrict__ out,
+                int ncol) {
+  __shared__ float s[NT];
+  const float* row = partial + (long long)blockIdx.x * ncol;
+  float acc = 0.f;
+  for (int i = threadIdx.x; i < ncol; i += NT) acc += row[i];
+  s[threadIdx.x] = acc;
+  __syncthreads();
+  for (int w = NT / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) s[threadIdx.x] += s[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[blockIdx.x] = s[0];
+}
+
+template <int MODE, int R, int G, int PP, int FC>
+int launch(const BwdArgs& a, dim3 grid, size_t smem, cudaStream_t stream) {
+  return ds_k1::launch_kernel(stencil_bwd_kernel<MODE, R, G, PP, FC>, a, grid,
+                              smem, stream);
+}
+
+// FC fold channels a block: 4 or 8 with 4 pixels a thread (32-tile), up
+// to 32 with 1
+template <int MODE, int R, int G, int PP>
+int launch_fc(int FC, const BwdArgs& a, dim3 grid, size_t smem,
+              cudaStream_t stream) {
+  switch (FC) {
+    case 4: return launch<MODE, R, G, PP, 4>(a, grid, smem, stream);
+    case 8: return launch<MODE, R, G, PP, 8>(a, grid, smem, stream);
+    case 16: return launch<MODE, R, G, PP, (PP == 1 ? 16 : 8)>(a, grid, smem, stream);
+    default: return launch<MODE, R, G, PP, (PP == 1 ? 32 : 8)>(a, grid, smem, stream);
+  }
+}
+
+// T x T tiles: 4 pixels a thread on a 32-tile (radius <= 2 only), 1 on
+// smaller tiles
+template <int MODE, int R, int G>
+int launch_t(int T, int FC, const BwdArgs& a, dim3 grid, size_t smem,
+             cudaStream_t stream) {
+  if constexpr (R <= 2) {
+    if (T == 32) return launch_fc<MODE, R, G, 4>(FC, a, grid, smem, stream);
+  }
+  return launch_fc<MODE, R, G, 1>(FC, a, grid, smem, stream);
+}
+
+// one per (mode, radius, lap group G): the instantiations of
+// stencil_dxdw*.cu and stencil_grad*.cu
+#define DS_BWD_LAUNCH(NAME)                                                \
+  int NAME(int T, int FC, const BwdArgs& a, dim3 grid, size_t smem,        \
+           cudaStream_t stream)
+DS_BWD_LAUNCH(dxdw_r1_g1);
+DS_BWD_LAUNCH(dxdw_r1_g2);
+DS_BWD_LAUNCH(dxdw_r1_g4);
+DS_BWD_LAUNCH(dxdw_r2_g1);
+DS_BWD_LAUNCH(dxdw_r2_g2);
+DS_BWD_LAUNCH(dxdw_r3_g1);
+DS_BWD_LAUNCH(dxdw_r4_g1);
+DS_BWD_LAUNCH(grad_r1_g1);
+DS_BWD_LAUNCH(grad_r1_g2);
+DS_BWD_LAUNCH(grad_r1_g4);
+DS_BWD_LAUNCH(grad_r2_g1);
+DS_BWD_LAUNCH(grad_r2_g2);
+DS_BWD_LAUNCH(grad_r3_g1);
+DS_BWD_LAUNCH(grad_r4_g1);
+
+// Checks the shape (T, G, GB and FC as ops/fused_stencil.py::_bwd_plan
+// picks them), launches the kernel on its plan, then the reduction of its
+// partial sums into dw (K*Crec*Cch floats).  Returns cudaGetLastError()
+// after the launches (or the first error).
+inline int launch_bwd(int mode, BwdArgs a, int radius, int nplanes, int G,
+                      int FC, float* dw, cudaStream_t stream) {
+  const int T = a.T;
+  const int gm = radius == 1 ? 4 : (radius == 2 ? 2 : 1);
+  const bool fc_ok =
+      FC == 4 || FC == 8 || ((FC == 16 || FC == 32) && T != 32);
+  if (T == 32 && radius > 2) return (int)cudaErrorInvalidValue;
+  if ((mode != kDxDw && mode != kGrad) || (T != 8 && T != 16 && T != 32)
+      || a.n % T || radius < 1 || radius > 4
+      || nplanes != (2 * radius + 1) * (2 * radius + 1) || a.K < 1
+      || radius * (a.K - 1) > a.h || a.B < 1 || a.F < 1 || a.F > 12
+      || a.Crec < 1 || a.Cch < 1 || G < 1 || G > gm || (G & (G - 1))
+      || a.Crec % G || a.GB < 1 || !fc_ok)
+    return (int)cudaErrorInvalidValue;
+  const int tiles = a.n / T;
+  const int nbg = (a.B + a.GB - 1) / a.GB;
+  a.chunks = (a.Cch + FC - 1) / FC;
+  const long long gz = (long long)nbg * a.chunks;
+  if (gz > 65535) return (int)cudaErrorInvalidValue;
+  a.ncol = nbg * a.F * tiles * tiles;
+  const int W0 = T + 2 * a.h;
+  const int WS = (W0 + 3) & ~3;
+  const int Ww = W0 - 2 * radius;
+  // 16-byte window copies: rows 16-byte aligned in the sources
+  a.vec = ((reinterpret_cast<size_t>(a.src) | reinterpret_cast<size_t>(a.top)
+            | reinterpret_cast<size_t>(a.bot) | reinterpret_cast<size_t>(a.ls))
+           & 15) == 0;
+  const size_t smem = sizeof(float)
+      * ((mode == kDxDw ? (size_t)2 * a.K * G * FC : 0)
+         + (((size_t)(Ww + kRun - 1) * Ww * nplanes + 3) & ~(size_t)3)
+         + (size_t)2 * G * (W0 + kRun - 1) * WS
+         + (size_t)2 * kWarps * G * FC + (size_t)a.K * a.Crec * FC);
+  dim3 grid(tiles * tiles, a.F, (unsigned)gz);
+  int rc;
+  if (mode == kDxDw) {
+    switch (radius * 8 + G) {
+      case 9: rc = dxdw_r1_g1(T, FC, a, grid, smem, stream); break;
+      case 10: rc = dxdw_r1_g2(T, FC, a, grid, smem, stream); break;
+      case 12: rc = dxdw_r1_g4(T, FC, a, grid, smem, stream); break;
+      case 17: rc = dxdw_r2_g1(T, FC, a, grid, smem, stream); break;
+      case 18: rc = dxdw_r2_g2(T, FC, a, grid, smem, stream); break;
+      case 25: rc = dxdw_r3_g1(T, FC, a, grid, smem, stream); break;
+      default: rc = dxdw_r4_g1(T, FC, a, grid, smem, stream); break;
+    }
+  } else {
+    switch (radius * 8 + G) {
+      case 9: rc = grad_r1_g1(T, FC, a, grid, smem, stream); break;
+      case 10: rc = grad_r1_g2(T, FC, a, grid, smem, stream); break;
+      case 12: rc = grad_r1_g4(T, FC, a, grid, smem, stream); break;
+      case 17: rc = grad_r2_g1(T, FC, a, grid, smem, stream); break;
+      case 18: rc = grad_r2_g2(T, FC, a, grid, smem, stream); break;
+      case 25: rc = grad_r3_g1(T, FC, a, grid, smem, stream); break;
+      default: rc = grad_r4_g1(T, FC, a, grid, smem, stream); break;
+    }
+  }
+  if (rc != 0) return rc;
+  reduce_partials<<<a.K * a.Crec * a.Cch, NT, 0, stream>>>(a.partial, dw,
+                                                           a.ncol);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace ds_bwd

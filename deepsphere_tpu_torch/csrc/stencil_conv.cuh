@@ -7,8 +7,9 @@
 
 #include <cuda_runtime.h>
 
+#include <map>
 #include <mutex>
-#include <unordered_map>
+#include <utility>
 
 namespace ds_k1 {
 
@@ -183,6 +184,128 @@ __device__ __forceinline__ void fold(float (&acc)[PP][FC],
   }
 }
 
+// The staging of a block and the zeros of its pad lanes, shared with K2
+// and K3 (stencil_bwd.cuh).
+
+// The tile's weight window, once per block: s_w[(i * Ww + j) * NP + d] is
+// plane d of face f at window position (i + R, j + R), i.e. face row
+// x0 - h + R + i, lane y0 + R + j (wext: F faces of n + 2 Rs wrapped rows)
+template <int R>
+__device__ __forceinline__ void stage_weights(float* s_w,
+                                              const float* __restrict__ wext,
+                                              int F, int f, int n, int Rs,
+                                              int P, int h, int x0, int y0,
+                                              int Ww) {
+  constexpr int NP = (2 * R + 1) * (2 * R + 1);
+  const int lane = threadIdx.x & 31;
+  const long long nr = n + 2 * Rs;
+  for (int row = threadIdx.x >> 5; row < NP * Ww; row += NT / 32) {
+    const int d = row / Ww;
+    const int i = row - d * Ww;
+    const int x = x0 - h + R + i;
+    const int wr = x < 0 ? n + Rs + x : (x >= n ? Rs + x : x);
+    const float* src = wext + ((long long)(d * F + f) * nr + wr) * P + y0 + R;
+    for (int j = lane; j < Ww; j += 32) cp_async4(s_w + (i * Ww + j) * NP + d, src + j);
+  }
+}
+
+// A channel array and its halo strips: what a tile's halo window reads
+struct Halo {
+  const float* x;    // (C, F, n, P), face col y at lane y + h
+  const float* top;  // (C, F, Rs, P): the rows above the face
+  const float* bot;  // (C, F, Rs, P): the rows below
+  const float* ls;   // (C, F, n, 128): the lanes west and east
+  int n, h, Rs, P;
+};
+
+// face row x, lane y of channel cf (channel c of face f: c * F + f): the
+// top/bot strips above and below the face, the lane strips west and east
+// of it, else the array
+__device__ __forceinline__ const float* window_src(const Halo& s,
+                                                   long long cf, int x,
+                                                   int y) {
+  if (x < 0) return s.top + (cf * s.Rs + s.Rs + x) * s.P + y;
+  if (x >= s.n) return s.bot + (cf * s.Rs + x - s.n) * s.P + y;
+  if (y < s.h) return s.ls + (cf * s.n + x) * 128 + y;
+  if (y >= s.h + s.n) return s.ls + (cf * s.n + x) * 128 + y - s.n;
+  return s.x + (cf * s.n + x) * s.P + y;
+}
+
+// The halo windows of the G channels cf0 + g * F into dst + g * BW:
+// position (i, j) is face row x0 - h + i, lane y0 + j.  Groups of four
+// lanes from one source go as one 16-byte copy where the sources' rows are
+// 16-byte aligned (vec); the rows' last group may copy up to 3 lanes past
+// W0 into the row's padding: P > n + 2h + 2 whenever W0 is not a multiple
+// of 4.
+template <int G>
+__device__ __forceinline__ void stage_window(float* dst, const Halo& s,
+                                             long long cf0, int F, int x0,
+                                             int y0, int W0, int WS, int BW,
+                                             bool vec) {
+  const int c4 = WS / 4;
+  for (int g = 0; g < G; ++g) {
+    const long long cf = cf0 + (long long)g * F;
+    float* d = dst + g * BW;
+    for (int e = threadIdx.x; e < W0 * c4; e += NT) {
+      const int i = e / c4;
+      const int j = 4 * (e - i * c4);
+      const int x = x0 - s.h + i;
+      const int y = y0 + j;
+      if (vec && (x < 0 || x >= s.n
+                  || ((y < s.h) == (y + 3 < s.h)
+                      && (y >= s.h + s.n) == (y + 3 >= s.h + s.n)))) {
+        cp_async16(d + i * WS + j, window_src(s, cf, x, y));
+      } else {
+        for (int t = 0; t < 4; ++t)
+          if (j + t < W0) cp_async4(d + i * WS + j + t, window_src(s, cf, x, y + t));
+      }
+    }
+  }
+}
+
+// dst[k][g][c] = wk[k][ci0 + g][co0 + c] of a (K, Cin, Cout) channel
+// kernel, K x G x FC floats, zero past Cout
+template <int G, int FC>
+__device__ __forceinline__ void stage_slice(float* dst,
+                                            const float* __restrict__ wk,
+                                            int K, int Cin, int Cout, int ci0,
+                                            int co0) {
+  for (int e = threadIdx.x; e < K * G * FC; e += NT) {
+    const int k = e / (G * FC);
+    const int rem = e - k * G * FC;
+    const int g = rem / FC;
+    const int co = co0 + rem - g * FC;
+    const bool ok = co < Cout;
+    cp_async4_zfill(dst + e,
+                    wk + (ok ? ((long long)k * Cin + ci0 + g) * Cout + co : 0),
+                    ok);
+  }
+}
+
+// Zeros at the lanes outside the interior of channels ch0 + o (o < nc) of
+// out (C, F, n, P) along the tile's T rows: [0, h) by the first tile
+// column, [h + n, P) by the last.  (Each kernel writes the interior from
+// its own registers: K2 through its pixel offsets, which keeps its dx
+// write free of spills.)
+__device__ __forceinline__ void zero_pad_lanes(float* __restrict__ out,
+                                               long long ch0, int nc, int F,
+                                               int f, int n, int P, int h,
+                                               int T, int x0, int y0) {
+  const int wlo = y0 == 0 ? h : 0;
+  const int whi = y0 + T == n ? P - h - n : 0;
+  const int wpad = wlo + whi;
+  if (wpad > 0) {
+    for (int e = threadIdx.x; e < nc * T * wpad; e += NT) {
+      const int o = e / (T * wpad);
+      const int rem = e - o * T * wpad;
+      const int ti = rem / wpad;
+      const int l = rem - ti * wpad;
+      const int y = l < wlo ? l : h + n + (l - wlo);
+      out[(((ch0 + o) * F + f) * n + x0 + ti) * P + y] = 0.f;
+    }
+  }
+}
+
 // Two blocks per SM where the sums a thread holds allow it (at most 128
 // registers): left free, the compiler takes up to 200 and halves the
 // blocks per SM, which costs more than it gains.
@@ -196,10 +319,6 @@ __global__ void __launch_bounds__(NT, (min_blocks<PP, FC>()))
 stencil_conv_kernel(const ConvArgs a) {
   extern __shared__ __align__(16) float smem[];
   constexpr int NP = (2 * R + 1) * (2 * R + 1);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  constexpr int kWarps = NT / 32;
   const int T = a.T, h = a.h, n = a.n, P = a.P, K = a.K;
   const int W0 = T + 2 * h;          // halo window side
   const int WS = (W0 + 3) & ~3;      // its row stride: rows 16-byte aligned
@@ -220,71 +339,22 @@ stencil_conv_kernel(const ConvArgs a) {
   const int nb = min(a.GB, a.B - b0);
   const int ngroups = a.Fin / G;  // G divides Fin
   const int nsteps = nb * ngroups;
-  const long long nr = n + 2 * a.Rs;
 
-  // the weight window, once per block: s_w[(i * Ww + j) * NP + d] is plane d
-  // at window position (i + R, j + R), i.e. face row x0 - h + R + i, lane
-  // y0 + R + j
-  for (int row = warp; row < NP * Ww; row += kWarps) {
-    const int d = row / Ww;
-    const int i = row - d * Ww;
-    const int x = x0 - h + R + i;
-    const int wr = x < 0 ? n + a.Rs + x : (x >= n ? a.Rs + x : x);
-    const float* src = a.wext + ((long long)(d * a.F + f) * nr + wr) * P + y0 + R;
-    for (int j = lane; j < Ww; j += 32) cp_async4(s_w + (i * Ww + j) * NP + d, src + j);
-  }
-
-  // face row x, lane y of channel cf: the top/bot strips above and below
-  // the face, the lane strips west and east of it, else the activation
-  auto window_src = [&](long long cf, int x, int y) -> const float* {
-    if (x < 0) return a.top + (cf * a.Rs + a.Rs + x) * P + y;
-    if (x >= n) return a.bot + (cf * a.Rs + x - n) * P + y;
-    if (y < h) return a.ls + (cf * n + x) * 128 + y;
-    if (y >= h + n) return a.ls + (cf * n + x) * 128 + y - n;
-    return a.xc + (cf * n + x) * P + y;
-  };
-  // halo windows of step s's channel group into buffer set `set`: position
-  // (i, j) is face row x0 - h + i, lane y0 + j.  Groups of four lanes from
-  // one source go as one 16-byte copy (the rows' last group may copy up to
-  // 3 lanes past W0 into the row's padding: P > n + 2h + 2 whenever W0 is
-  // not a multiple of 4).
-  auto stage_window = [&](int s, int set) {
+  stage_weights<R>(s_w, a.wext, a.F, f, n, a.Rs, P, h, x0, y0, Ww);
+  const Halo halo{a.xc, a.top, a.bot, a.ls, n, h, a.Rs, P};
+  // halo windows of step s's channel group into buffer set `set`
+  auto stage_step = [&](int s, int set) {
     const int b = b0 + s / ngroups;
     const int fi0 = (s % ngroups) * G;
-    const int c4 = WS / 4;
-    for (int g = 0; g < G; ++g) {
-      const long long cf = ((long long)b * a.Fin + fi0 + g) * a.F + f;
-      float* dst = bufs + (set * G + g) * BW;
-      for (int e = tid; e < W0 * c4; e += NT) {
-        const int i = e / c4;
-        const int j = 4 * (e - i * c4);
-        const int x = x0 - h + i;
-        const int y = y0 + j;
-        if (a.vec && (x < 0 || x >= n
-                      || ((y < h) == (y + 3 < h)
-                          && (y >= h + n) == (y + 3 >= h + n)))) {
-          cp_async16(dst + i * WS + j, window_src(cf, x, y));
-        } else {
-          for (int t = 0; t < 4; ++t)
-            if (j + t < W0) cp_async4(dst + i * WS + j + t, window_src(cf, x, y + t));
-        }
-      }
-    }
+    stage_window<G>(bufs + set * G * BW, halo,
+                    ((long long)b * a.Fin + fi0) * a.F + f, a.F, x0, y0, W0,
+                    WS, BW, a.vec);
   };
   // step s's slice of wk3, zero past Fout: s_wk[slot][k][g][fo], copied
   // asynchronously like the windows
   auto stage_wk = [&](int s, int slot) {
-    const int fi0 = (s % ngroups) * G;
-    for (int e = tid; e < wkn; e += NT) {
-      const int k = e / (G * FC);
-      const int rem = e - k * G * FC;
-      const int g = rem / FC;
-      const int fo = fo0 + rem - g * FC;
-      const bool ok = fo < a.Fout;
-      cp_async4_zfill(s_wk + slot * wkn + e,
-                      a.wk3 + (ok ? ((long long)k * a.Fin + fi0 + g) * a.Fout + fo : 0),
-                      ok);
-    }
+    stage_slice<G, FC>(s_wk + slot * wkn, a.wk3, K, a.Fin, a.Fout,
+                       (s % ngroups) * G, fo0);
   };
 
   const int lgT = 31 - __clz(T);  // T is 8, 16 or 32
@@ -294,7 +364,7 @@ stencil_conv_kernel(const ConvArgs a) {
 #pragma unroll
     for (int o = 0; o < FC; ++o) acc[p][o] = 0.f;
 
-  stage_window(0, 0);
+  stage_step(0, 0);
   stage_wk(0, 0);
   cp_async_commit();
   cp_async_wait_all();
@@ -314,7 +384,7 @@ stencil_conv_kernel(const ConvArgs a) {
     float* P0 = bufs + cur * G * BW;        // even terms
     float* P1 = bufs + (cur ^ 1) * G * BW;  // odd terms
     const int next = cur ^ flip;
-    if (K == 1 && more) stage_window(s + 1, next);
+    if (K == 1 && more) stage_step(s + 1, next);
 
     fold<G, PP, FC>(acc, P0, wk, BW, WS, h, lgT);
     for (int k = 1; k < K; ++k) {
@@ -325,7 +395,7 @@ stencil_conv_kernel(const ConvArgs a) {
       else
         lap<R, G, false>(src, dst, s_w, W0, WS, Ww, BW, k);
       __syncthreads();
-      if (k == K - 1 && more) stage_window(s + 1, next);
+      if (k == K - 1 && more) stage_step(s + 1, next);
       fold<G, PP, FC>(acc, dst, wk + k * G * FC, BW, WS, h, lgT);
     }
 
@@ -338,28 +408,15 @@ stencil_conv_kernel(const ConvArgs a) {
           float* oc = a.out + ((long long)(b * a.Fout + fo0 + o) * a.F + f) * n * P;
 #pragma unroll
           for (int p = 0; p < PP; ++p) {
-            const int pix = tid + p * NT;
+            const int pix = threadIdx.x + p * NT;
             if (pix < T * T)
               oc[(x0 + (pix >> lgT)) * P + h + y0 + (pix & (T - 1))] = acc[p][o];
             acc[p][o] = 0.f;
           }
         }
       }
-      // lanes outside the interior are zero: [0, h) by the first tile
-      // column, [h + n, P) by the last
-      const int wlo = y0 == 0 ? h : 0;
-      const int whi = y0 + T == n ? P - h - n : 0;
-      const int wpad = wlo + whi;
-      if (wpad > 0) {
-        for (int e = tid; e < nfo * T * wpad; e += NT) {
-          const int o = e / (T * wpad);
-          const int rem = e - o * T * wpad;
-          const int ti = rem / wpad;
-          const int l = rem - ti * wpad;
-          const int y = l < wlo ? l : h + n + (l - wlo);
-          a.out[(((long long)(b * a.Fout + fo0 + o) * a.F + f) * n + x0 + ti) * P + y] = 0.f;
-        }
-      }
+      zero_pad_lanes(a.out, (long long)b * a.Fout + fo0, nfo, a.F, f, n, P,
+                     h, T, x0, y0);
     }
 
     cp_async_commit();
@@ -369,22 +426,22 @@ stencil_conv_kernel(const ConvArgs a) {
   }
 }
 
-template <int R, int G, int PP, int FC>
-int launch(const ConvArgs& a, dim3 grid, size_t smem, cudaStream_t stream) {
-  auto kern = stencil_conv_kernel<R, G, PP, FC>;
-  // The dynamic shared-memory limit is an attribute of the function on the
-  // current device: raised per (instantiation, device) only when a launch
-  // needs more, under a lock so that it only ever grows.  It is not a stream
-  // operation, so a launch captured in a CUDA graph after a first eager call
-  // never sets it.
+// kern<<<grid, NT, smem, stream>>>(a).  The dynamic shared-memory limit is
+// an attribute of the function on the current device: raised per (function,
+// device) only when a launch needs more, under a lock so that it only ever
+// grows.  It is not a stream operation, so a launch captured in a CUDA graph
+// after a first eager call never sets it.  K2 and K3 launch through it too.
+template <class Args>
+int launch_kernel(void (*kern)(Args), const Args& a, dim3 grid, size_t smem,
+                  cudaStream_t stream) {
   static std::mutex mu;
-  static std::unordered_map<int, size_t> set_bytes;
+  static std::map<std::pair<const void*, int>, size_t> set_bytes;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   {
     std::lock_guard<std::mutex> lock(mu);
-    size_t& have = set_bytes[dev];
+    size_t& have = set_bytes[{reinterpret_cast<const void*>(kern), dev}];
     if (smem > have) {
       err = cudaFuncSetAttribute(
           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -394,6 +451,12 @@ int launch(const ConvArgs& a, dim3 grid, size_t smem, cudaStream_t stream) {
   }
   kern<<<grid, NT, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <int R, int G, int PP, int FC>
+int launch(const ConvArgs& a, dim3 grid, size_t smem, cudaStream_t stream) {
+  return launch_kernel(stencil_conv_kernel<R, G, PP, FC>, a, grid, smem,
+                       stream);
 }
 
 template <int R, int G, int PP>

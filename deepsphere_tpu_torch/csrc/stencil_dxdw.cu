@@ -1,4 +1,4 @@
-// Fused backward of the stencil conv: dx and dW in one pass over dy.
+// Fused backward of the stencil conv: dx and dW in one pass over dy (K2).
 //
 // Replaces the TPU kernel deepsphere_tpu/ops/pallas_stencil.py::_dxdw_kernel
 // (launched by _run_dxdw_kernel).  L~ is symmetric, so the conv's adjoint is
@@ -12,41 +12,57 @@
 // raw conv of dy: its corrupt rows are patched afterwards, as the forward's.
 //
 // Layout: dy (B*Fout, F, n, P) with its strips and the weight planes as in
-// stencil_tile.cuh (recursion channels Fout, chunk channels Fin; F faces);
+// stencil_bwd.cuh (recursion channels Fout, fold channels Fin; F faces);
 // wk3t (K, Fout, Fin); xr (B*Fin, F, n, P) the forward input; mask (F, n, P)
 // or null; dx (B*Fin, F, n, P), zero outside the interior lanes; dw (K*Fin,
-// Fout) in the forward kernel's orientation; partial (K*Fin*Fout, G)
-// scratch, G = B * F * (n/T)^2.
+// Fout) in the forward kernel's orientation; partial (K*Fin*Fout, ncol)
+// scratch, ncol = F * (n/T)^2 * ceil(B/GB).
 //
-// What bounds it on an H100, by count: the same as K1 (the recursion's
-// shared-memory taps and, at Fin*Fout >= 100, the contraction), plus one
-// more contraction of the same size for dW: about twice K1's arithmetic for
-// one more read of the activation.  The TPU kernel summed dW across its
-// sequential grid into one VMEM block; here blocks run in any order, so each
-// block reduces its tile's sums (warp shuffles, then shared memory) into its
-// own column of the partial matrix and a second launch sums the columns in
-// a fixed order: no atomics, bitwise-reproducible dW.  The x tile of the
-// block's 8 channels is staged once in registers, beside the dx
-// accumulators.  Plain f32 FMAs, no tensor cores, no TF32.
+// What bounds it on an H100: at the headline (nside 1024, 4 -> 4 channels)
+// the bytes, as K1's; at the quick_start widths the float32 operations of
+// the laps and the two contractions (dx and dW: about twice K1's).  The
+// first version re-staged the weight window and re-ran every lap for
+// each batch index and 8-channel chunk, with runtime taps.  This one is the
+// kDxDw mode of stencil_bwd.cuh: the weight window once per block for a
+// group of batch indices, K1's compile-time-tap laps on G channels at a
+// time, all fold channels a block holds at once (so each lap runs once per
+// block), the x tile in registers once per batch index, the channel-kernel
+// slice and the next halo windows by cp.async.  The TPU kernel summed dW
+// across its sequential grid into one VMEM block; here each block sums its
+// tile and batch group into its own column of the partial matrix and a
+// second launch reduces the columns in a fixed order: no atomics,
+// bitwise-reproducible dW.  Plain f32 FMAs, no tensor cores, no TF32.
 
-#include "stencil_tile.cuh"
+#include "stencil_bwd.cuh"
+
+namespace ds_bwd {
+
+DS_BWD_LAUNCH(dxdw_r1_g4) {
+  return launch_t<kDxDw, 1, 4>(T, FC, a, grid, smem, stream);
+}
+
+}  // namespace ds_bwd
 
 extern "C" {
 
 // kind: 0 Chebyshev, 1 monomial.  F: faces in the arrays.  Fc: recursion
-// channels (the forward's Fout); Fx: x channels (the forward's Fin).  T: tile
-// side (<= 32, divides n).  Returns cudaGetLastError() after the two launches (or the first
-// error).
+// channels (the forward's Fout); Fx: x channels (the forward's Fin).  T
+// (8, 16 or 32, dividing n), G (recursion channels per lap, dividing Fc), GB
+// (batch indices per block) and FC (x channels per block: 4 or 8 on a
+// 32-tile, up to 32 on smaller ones): the plan of
+// ops/fused_stencil.py::_bwd_plan.  Returns cudaGetLastError() after the
+// two launches (or the first error).
 int ds_stencil_dxdw(const float* dy, const float* top, const float* bot,
                     const float* ls, const float* wext, const float* wk3t,
-                    const int* offs, const float* xr, const float* mask,
-                    float* dx, float* partial, float* dw, int kind, int K,
-                    int radius, int nplanes, int B, int F, int Fc, int Fx,
-                    int n, int h, int R, int P, int T, void* stream) {
-  TileArgs a{dy, top, bot, ls, wext, wk3t, offs, xr, mask, dx, partial,
-             kind == 0, K, radius, nplanes, F, Fc, Fx, n, h, R, P, T, 0, 0,
-             0};
-  return launch_tile<kDxDw>(a, B, dw, stream);
+                    const float* xr, const float* mask, float* dx,
+                    float* partial, float* dw, int kind, int K, int radius,
+                    int nplanes, int B, int F, int Fc, int Fx, int n, int h,
+                    int Rs, int P, int T, int G, int GB, int FC,
+                    void* stream) {
+  ds_bwd::BwdArgs a{dy, top, bot, ls, wext, wk3t, xr, mask, dx, partial,
+                    kind == 0, K, B, F, Fc, Fx, n, h, Rs, P, T, GB, 0, 0, 0};
+  return ds_bwd::launch_bwd(ds_bwd::kDxDw, a, radius, nplanes, G, FC, dw,
+                            (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -2,9 +2,12 @@
 
 The sources under ``deepsphere_tpu_torch/csrc/`` (``strips.cu``,
 ``stencil_conv.cu`` with the instantiations of ``stencil_conv.cuh`` spread
-over ``stencil_conv*.cu``, ``stencil_dxdw.cu`` and ``stencil_grad.cu`` over
-the shared ``stencil_tile.cuh``, and ``bands.cu``) have a plain C
-interface.
+over ``stencil_conv*.cu``, ``stencil_dxdw.cu`` and ``stencil_grad.cu`` as
+the two modes of the backward template ``stencil_bwd.cuh``, which runs its
+laps and stages its windows through K1's device functions, with their
+instantiations spread over
+``stencil_dxdw_r*.cu`` and ``stencil_grad_r*.cu``, and ``bands.cu``) have
+a plain C interface.
 At first use each ``.cu`` is compiled by its own ``nvcc`` for Hopper
 (``sm_90a``), all of them at once, and the objects are linked into one
 shared library in the package's ``_build/`` directory, named by a hash of
@@ -115,9 +118,9 @@ def lib():
         L.ds_strips.restype = ci
         L.ds_stencil_conv.argtypes = [vp] * 7 + [ci] * 16 + [vp]
         L.ds_stencil_conv.restype = ci
-        L.ds_stencil_dxdw.argtypes = [vp] * 12 + [ci] * 13 + [vp]
+        L.ds_stencil_dxdw.argtypes = [vp] * 11 + [ci] * 16 + [vp]
         L.ds_stencil_dxdw.restype = ci
-        L.ds_stencil_grad.argtypes = [vp] * 9 + [ci] * 13 + [vp]
+        L.ds_stencil_grad.argtypes = [vp] * 8 + [ci] * 16 + [vp]
         L.ds_stencil_grad.restype = ci
         L.ds_bands.argtypes = [vp, vp] + [ci] * 6 + [vp]
         L.ds_bands.restype = ci

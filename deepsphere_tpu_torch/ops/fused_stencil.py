@@ -2,9 +2,11 @@
 kernels and their plain versions.
 
 Counterpart of the JAX package's ``deepsphere_tpu.ops.pallas_stencil``.
-Three kernels over (face, tile) blocks (K1 in its own source with its own
-launch plan, :func:`_k1_plan`; K2 and K3 as two modes of
-``csrc/stencil_tile.cuh``, planned by :func:`_conv_tile`):
+Three kernels over (face, tile) blocks: K1 in its own template
+(``csrc/stencil_conv.cuh``) with its own launch plan, :func:`_k1_plan`; K2
+and K3 as the two modes of the backward template ``csrc/stencil_bwd.cuh``,
+which runs its laps through K1's compile-time-tap lap, planned by
+:func:`_bwd_plan`:
 
 * K1, the forward (TPU kernel ``_stencil_kernel``, ``csrc/stencil_conv.cu``,
   :func:`run_stencil_kernel`);
@@ -62,31 +64,9 @@ __all__ = [
     "fused_stencil_conv_cfp_plain",
 ]
 
-# K2's and K3's largest tile side, their chunk of channels per block and
-# warps per block, and the dynamic shared-memory ceiling (an H100 block
-# gets 227 KB; the kernels' static arrays take the rest)
-_TILE = 32
-_CHUNK = 8
-_WARPS = 8
+# the dynamic shared-memory ceiling of a block (an H100 block gets 227 KB;
+# the kernels' static arrays take the rest)
 _SMEM_MAX = 232448 - 1024
-
-
-def _conv_smem(T, h, r, nplanes, n_red=0):
-    """Bytes of dynamic shared memory of one block of K2 or K3: the weight
-    window, three term buffers and (``n_red`` = K) the per-warp dW sums of
-    one channel's K terms."""
-    W0 = T + 2 * h
-    return 4 * (nplanes * (W0 - 2 * r) ** 2 + 3 * W0 * W0
-                + n_red * _WARPS * _CHUNK)
-
-
-def _conv_tile(n, h, r, nplanes, n_red=0):
-    """The largest tile side (32, 16 or 8, dividing n) whose window fits in
-    shared memory, or None."""
-    for T in (_TILE, 16, 8):
-        if n % T == 0 and _conv_smem(T, h, r, nplanes, n_red) <= _SMEM_MAX:
-            return T
-    return None
 
 
 # K1's own launch plan (``csrc/stencil_conv.cu``): its lap points per
@@ -96,10 +76,11 @@ _K1_RUN = 4
 _K1_GMAX = {1: 4, 2: 2, 3: 1, 4: 1}
 
 
-class K1Plan(NamedTuple):
-    """One launch of K1: tile side ``T``, input channels per lap group
-    ``G``, batch indices per block ``GB``, output channels per block
-    ``FC``, dynamic shared bytes and the grid (256 threads a block)."""
+class Plan(NamedTuple):
+    """One launch of K1, K2 or K3: tile side ``T``, channels per lap group
+    ``G`` (K1's input channels, K2's and K3's recursion channels), batch
+    indices per block ``GB``, output or fold channels per block ``FC``,
+    dynamic shared bytes and the grid (256 threads a block)."""
 
     T: int
     G: int
@@ -118,6 +99,14 @@ def _k1_smem(T, h, r, nplanes, K, G, FC):
     Ww = W0 - 2 * r
     return 4 * (2 * K * G * FC + _round_up((Ww + _K1_RUN - 1) * Ww * nplanes, 4)
                 + 2 * G * (W0 + _K1_RUN - 1) * _round_up(W0, 4))
+
+
+def _batch_group(blocks, B, sms):
+    """Batch indices per block: the most that keep two blocks per SM, on a
+    card of ``sms`` SMs, in a grid of ``blocks`` blocks per batch group (1
+    where none does)."""
+    return max([b for b in range(1, B + 1) if blocks * -(-B // b) >= 2 * sms]
+               or [1])
 
 
 def _k1_plan(n, h, r, nplanes, K, B, F, Fin, Fout, sms):
@@ -145,14 +134,67 @@ def _k1_plan(n, h, r, nplanes, K, B, F, Fin, Fout, sms):
             if smem > _SMEM_MAX:
                 continue
             chunks = -(-Fout // fc)
-            base = F * (n // t) ** 2 * chunks
-            gb = max([b for b in range(1, B + 1)
-                      if base * -(-B // b) >= 2 * sms] or [1])
+            gb = _batch_group(F * (n // t) ** 2 * chunks, B, sms)
             gz = -(-B // gb) * chunks
             if gz > 65535:
                 return None
-            return K1Plan(t, g, gb, fc, smem, ((n // t) ** 2, F, gz))
+            return Plan(t, g, gb, fc, smem, ((n // t) ** 2, F, gz))
     return None
+
+
+# warps per block of the backward kernels: the dW sums of one term are
+# reduced over each warp, then over the warps in shared memory
+_BWD_WARPS = 8
+
+
+def _bwd_smem(T, h, r, nplanes, K, G, FC, Crec, dx):
+    """Dynamic shared bytes of one K2 (``dx``) or K3 block: K1's weight
+    window and 2 x G halo-window buffers, two slots of the group's channel
+    kernel (K2 only), two slots of the warps' dW sums of one term, and the
+    block's K x Crec x FC dW cells."""
+    W0 = T + 2 * h
+    Ww = W0 - 2 * r
+    return 4 * ((2 * K * G * FC if dx else 0)
+                + _round_up((Ww + _K1_RUN - 1) * Ww * nplanes, 4)
+                + 2 * G * (W0 + _K1_RUN - 1) * _round_up(W0, 4)
+                + 2 * _BWD_WARPS * G * FC + K * Crec * FC)
+
+
+def _bwd_plan(n, h, r, nplanes, K, B, F, Crec, Cch, dx, sms):
+    """The launch plan of K2 (``dx``: recursion over Crec = Fout channels,
+    Cch = Fin fold channels) or K3 (Crec = Fin, Cch = Fout) on a card of
+    ``sms`` SMs, or None where the kernels do not take the shape.
+
+    FC the smallest of 4, 8, 16, 32 that holds Cch (at most 8 on a 32-tile,
+    whose threads hold 4 pixels x FC fold values, and K2's as many dx
+    sums); the tile the largest (32, 16 or 8, dividing n) on which one
+    chunk of FC holds every fold channel, else the largest; on it the
+    largest lap group G (up to ``_K1_GMAX[r]``, dividing Crec) that fits
+    shared memory; GB the most batch indices per block that keep two
+    blocks per SM in the grid.  Measured on an H100 at the four phase-3
+    shapes of ``chip_smoke.py`` (PERF.md)."""
+    if (r not in _K1_GMAX or nplanes != (2 * r + 1) ** 2 or K < 1
+            or r * (K - 1) > h or not 1 <= F <= 12
+            or min(B, Crec, Cch) < 1):
+        return None
+    plans = []
+    for t in (32, 16, 8):
+        if n % t or (t == 32 and r > 2):
+            continue
+        fc = next(c for c in (4, 8, 16, 32)
+                  if c >= min(Cch, 8 if t == 32 else 32))
+        for g in (g for g in (4, 2, 1) if g <= _K1_GMAX[r] and Crec % g == 0):
+            smem = _bwd_smem(t, h, r, nplanes, K, g, fc, Crec, dx)
+            if smem > _SMEM_MAX:
+                continue
+            chunks = -(-Cch // fc)
+            gb = _batch_group(F * (n // t) ** 2 * chunks, B, sms)
+            gz = -(-B // gb) * chunks
+            if gz <= 65535:
+                plans.append(Plan(t, g, gb, fc, smem, ((n // t) ** 2, F, gz)))
+            break
+    one = [p for p in plans if p.FC >= Cch]
+    return (one or plans or [None])[0]
 
 
 def _round_up(x, m):
@@ -309,59 +351,10 @@ def _check_tensors(what, dev, want):
                              f"{shape} tensor on {dev}")
 
 
-def _launch_plan(what, st, kind, K, strips, wext, B, F, Crec, Cch, offsets,
-                 dev, n_red):
-    """Checks shared by K2 and K3 (recursion over B*Crec
-    channels of F faces through ``strips``, blocks over chunks of Cch
-    channels).
-
-    :return: (T, offsets, geometry): the tile side, the device tap offsets
-        and the trailing ints of the C entry points (kind, K, radius,
-        nplanes, then after B, F and the channel counts n, h, R, P, T)
-    """
-    n, h = st.nside, st.n_steps
-    R, P_l = cfp_geometry(n, h)
-    r = st.radius
-    nplanes = len(st.offsets)
-    top, bot, ls = strips
-    C = B * Crec
-    if not 1 <= F <= 12:
-        raise ValueError(f"{what}: {F} faces (1..12)")
-    _check_tensors(what, dev, {
-        "top": (top, (C, F, R, P_l)),
-        "bot": (bot, (C, F, R, P_l)),
-        "ls": (ls, (C, F, n, 128)),
-        "wext": (wext, (nplanes, F, n + 2 * R, P_l)),
-    })
-    if kind not in ("cheby", "mono"):
-        raise ValueError(f"unknown basis kind: {kind}")
-    T = _conv_tile(n, h, r, nplanes, n_red)
-    if T is None or r * (K - 1) > h or nplanes > 81:
-        raise ValueError(f"{what} does not take n={n} h={h} r={r} K={K}: "
-                         "no tile fits shared memory")
-    if B * -(-Cch // _CHUNK) > 65535:
-        raise ValueError(f"{what}: batch * channels too large for the grid")
-    if offsets is None:
-        offsets = torch.tensor(st.offsets, dtype=torch.int32, device=dev)
-    if (offsets.dtype != torch.int32 or offsets.device != dev
-            or tuple(offsets.shape) != (nplanes, 2)):
-        raise ValueError(f"{what}: offsets must be int32 (nplanes, 2)")
-    head = (0 if kind == "cheby" else 1, K, r, nplanes)
-    return T, offsets, (head, (n, h, R, P_l, T))
-
-
 def _stream():
     """The current stream of the current device (the launches run inside
     ``torch.cuda.device`` of their tensors)."""
     return torch.cuda.current_stream().cuda_stream
-
-
-def _partials(K, Crec, Cch, B, F, n, T, dev):
-    """Scratch of per-block dW sums, (K*Crec*Cch, B*F*tiles^2): each block
-    writes its own column, a second launch reduces the rows in a fixed
-    order (no float atomics, so two calls give bitwise-equal dW)."""
-    G = B * F * (n // T) ** 2
-    return torch.empty((K * Crec * Cch, G), dtype=torch.float32, device=dev)
 
 
 def _stencil_cuda(st, kind, xc, wext, strips, wk3, B):
@@ -407,63 +400,96 @@ def _stencil_cuda(st, kind, xc, wext, strips, wk3, B):
     return out
 
 
-def _grad_cuda(st, kind, K, xc, wext, strips, dy, B, offsets):
-    """Launch the dW kernel (``csrc/stencil_grad.cu``)."""
-    n = st.nside
-    _, P_l = cfp_geometry(n, st.n_steps)
-    Fin, Fout = xc.shape[0] // B, dy.shape[0] // B
-    F = xc.shape[1]
-    dev = xc.device
-    _check_tensors("grad kernel", dev, {
-        "xc": (xc, (B * Fin, F, n, P_l)), "dy": (dy, (B * Fout, F, n, P_l))})
-    T, offsets, (head, tail) = _launch_plan(
-        "grad kernel", st, kind, K, strips, wext, B, F, Fin, Fout, offsets,
-        dev, K)
-    partial = _partials(K, Fin, Fout, B, F, n, T, dev)
-    dw = torch.empty((K * Fin, Fout), dtype=torch.float32, device=dev)
+def _bwd_cuda(what, st, kind, K, src, strips, wext, oth, B, Crec, Cch, dx):
+    """Checks and plan shared by K2 (``dx``) and K3: the recursion over the
+    B*Crec channels of ``src`` through ``strips``, the fold over the B*Cch
+    channels of ``oth``.
+
+    :return: (partial, dw, ints): the scratch of per-block dW sums (each block writes its own column, a second
+        launch reduces the rows in a fixed order: no float atomics, so two
+        calls give bitwise-equal dW), dW, and the C entry points' ints
+        (kind, K, radius, nplanes, B, F, Crec, Cch, n, h, Rs, P, T, G, GB,
+        FC)
+    """
+    n, h, r = st.nside, st.n_steps, st.radius
+    if list(st.offsets) != stencil_offsets(r):
+        raise ValueError(f"{what}: its taps are compiled in the order of "
+                         f"stencil_offsets({r}), not {st.offsets}")
+    R, P_l = cfp_geometry(n, h)
+    nplanes = len(st.offsets)
+    F = src.shape[1]
+    dev = src.device
+    if not 1 <= F <= 12:
+        raise ValueError(f"{what}: {F} faces (1..12)")
+    if kind not in ("cheby", "mono"):
+        raise ValueError(f"unknown basis kind: {kind}")
     top, bot, ls = strips
-    with torch.cuda.device(dev):
+    C = B * Crec
+    _check_tensors(what, dev, {
+        "src": (src, (C, F, n, P_l)), "oth": (oth, (B * Cch, F, n, P_l)),
+        "top": (top, (C, F, R, P_l)), "bot": (bot, (C, F, R, P_l)),
+        "ls": (ls, (C, F, n, 128)),
+        "wext": (wext, (nplanes, F, n + 2 * R, P_l)),
+    })
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    p = _bwd_plan(n, h, r, nplanes, K, B, F, Crec, Cch, dx, sms)
+    if p is None:
+        raise ValueError(f"{what} does not take n={n} h={h} r={r} K={K} B={B}"
+                         f" channels {Crec} x {Cch}: no tile fits shared "
+                         "memory or the grid")
+    ncol = -(-B // p.GB) * F * (n // p.T) ** 2
+    partial = torch.empty((K * Crec * Cch, ncol), dtype=torch.float32,
+                          device=dev)
+    dw = torch.empty((K * Crec * Cch,), dtype=torch.float32, device=dev)
+    ints = (0 if kind == "cheby" else 1, K, r, nplanes, B, F, Crec, Cch, n,
+            h, R, P_l, p.T, p.G, p.GB, p.FC)
+    return partial, dw, ints
+
+
+def _grad_cuda(st, kind, K, xc, wext, strips, dy, B):
+    """Launch the dW kernel (``csrc/stencil_grad.cu``) on :func:`_bwd_plan`'s
+    plan for this card."""
+    Fin, Fout = xc.shape[0] // B, dy.shape[0] // B
+    partial, dw, ints = _bwd_cuda("grad kernel", st, kind, K, xc, strips,
+                                  wext, dy, B, Fin, Fout, False)
+    top, bot, ls = strips
+    with torch.cuda.device(xc.device):
         rc = _cuda.lib().ds_stencil_grad(
             xc.data_ptr(), top.data_ptr(), bot.data_ptr(), ls.data_ptr(),
-            wext.data_ptr(), offsets.data_ptr(), dy.data_ptr(),
-            partial.data_ptr(), dw.data_ptr(), *head, B, F, Fin, Fout, *tail,
-            _stream(),
+            wext.data_ptr(), dy.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+            *ints, _stream(),
         )
     _cuda.check(rc, "ds_stencil_grad")
     _cuda.launch_counts["grad"] += 1
-    return dw
+    return dw.reshape(K * Fin, Fout)
 
 
-def _dxdw_cuda(st, kind, dy, wext, strips, wk3t, xr, mask, B, offsets):
-    """Launch the fused backward kernel (``csrc/stencil_dxdw.cu``)."""
+def _dxdw_cuda(st, kind, dy, wext, strips, wk3t, xr, mask, B):
+    """Launch the fused backward kernel (``csrc/stencil_dxdw.cu``) on
+    :func:`_bwd_plan`'s plan for this card."""
     n = st.nside
     _, P_l = cfp_geometry(n, st.n_steps)
     K, Fc, Fx = wk3t.shape
     F = dy.shape[1]
     dev = dy.device
-    want = {"dy": (dy, (B * Fc, F, n, P_l)), "wk3t": (wk3t, (K, Fc, Fx)),
-            "xr": (xr, (B * Fx, F, n, P_l))}
+    partial, dw, ints = _bwd_cuda("dxdw kernel", st, kind, K, dy, strips,
+                                  wext, xr, B, Fc, Fx, True)
+    want = {"wk3t": (wk3t, (K, Fc, Fx))}
     if mask is not None:
         want["mask"] = (mask, (F, n, P_l))
     _check_tensors("dxdw kernel", dev, want)
-    T, offsets, (head, tail) = _launch_plan(
-        "dxdw kernel", st, kind, K, strips, wext, B, F, Fc, Fx, offsets, dev,
-        K)
     dx = torch.empty((B * Fx, F, n, P_l), dtype=torch.float32, device=dev)
-    partial = _partials(K, Fc, Fx, B, F, n, T, dev)
-    dw = torch.empty((K * Fx, Fc), dtype=torch.float32, device=dev)
     top, bot, ls = strips
     with torch.cuda.device(dev):
         rc = _cuda.lib().ds_stencil_dxdw(
             dy.data_ptr(), top.data_ptr(), bot.data_ptr(), ls.data_ptr(),
-            wext.data_ptr(), wk3t.data_ptr(), offsets.data_ptr(),
-            xr.data_ptr(), 0 if mask is None else mask.data_ptr(),
-            dx.data_ptr(), partial.data_ptr(), dw.data_ptr(), *head, B, F, Fc,
-            Fx, *tail, _stream(),
+            wext.data_ptr(), wk3t.data_ptr(), xr.data_ptr(),
+            0 if mask is None else mask.data_ptr(), dx.data_ptr(),
+            partial.data_ptr(), dw.data_ptr(), *ints, _stream(),
         )
     _cuda.check(rc, "ds_stencil_dxdw")
     _cuda.launch_counts["dxdw"] += 1
-    return dx, dw
+    return dx, dw.reshape(K * Fx, Fc)
 
 
 def run_stencil_kernel(st, kind, n_terms, xc, wext, strips, wk3, B):
@@ -490,8 +516,7 @@ def run_stencil_kernel(st, kind, n_terms, xc, wext, strips, wk3, B):
     return run_stencil_plain(st, kind, n_terms, xc, wext, strips, wk3, B)
 
 
-def run_grad_kernel(st, kind, n_terms, xc, wext, strips, dy, B,
-                    offsets=None):
+def run_grad_kernel(st, kind, n_terms, xc, wext, strips, dy, B):
     """The raw dW of the two-kernel backward (K3).
 
     dW[k, fi, fo] = sum_b sum of T_k(L~) x[b, fi] * dy[b, fo] over the
@@ -501,17 +526,18 @@ def run_grad_kernel(st, kind, n_terms, xc, wext, strips, dy, B,
     :param xc: (B*Fin, F, n, P_l) forward input (F faces, as K1's)
     :param strips: (top, bot, ls) halo strips of ``xc``
     :param dy: (B*Fout, F, n, P_l) cotangent of the conv output
-    :return: (K*Fin, Fout) float, Fin-major per term (k-major rows)
+    :return: (K*Fin, Fout) float, Fin-major per term (k-major rows).  The
+        kernel's taps are compile-time, so ``st.offsets`` must be
+        :func:`..graph.stencil.stencil_offsets` of its radius
     """
     if xc.is_cuda:
-        return _grad_cuda(st, kind, n_terms, xc, wext, strips, dy, B, offsets)
+        return _grad_cuda(st, kind, n_terms, xc, wext, strips, dy, B)
     if xc.device.type != "cpu":
         raise ValueError(f"no grad kernel implementation for device {xc.device}")
     return run_grad_plain(st, kind, n_terms, xc, wext, strips, dy, B)
 
 
-def run_dxdw_kernel(st, kind, n_terms, dy, wext, strips, wk3t, xr, mask, B,
-                    offsets=None):
+def run_dxdw_kernel(st, kind, n_terms, dy, wext, strips, wk3t, xr, mask, B):
     """The raw fused backward (K2): dx and dW in one pass over dy.
 
     Channel roles are the forward's swapped: the recursion runs on ``dy``
@@ -528,13 +554,13 @@ def run_dxdw_kernel(st, kind, n_terms, dy, wext, strips, wk3t, xr, mask, B,
         (``tables["corr_mask"]``: 0 at the corrupt rows), or None
     :return: ``(dx, dW)``: dx (B*Fin, F, n, P_l) = sum_k T_k(L~) dy W_k^T,
         0 outside the interior lanes and wrong at the corrupt rows, as the
-        forward's y; dW (K*Fin, Fout) in the forward's orientation
+        forward's y; dW (K*Fin, Fout) in the forward's orientation.  The
+        kernel's taps are compile-time, as K1's
     """
     if wk3t.shape[0] != n_terms:
         raise ValueError(f"wk3t has {wk3t.shape[0]} terms, expected {n_terms}")
     if dy.is_cuda:
-        return _dxdw_cuda(st, kind, dy, wext, strips, wk3t, xr, mask, B,
-                          offsets)
+        return _dxdw_cuda(st, kind, dy, wext, strips, wk3t, xr, mask, B)
     if dy.device.type != "cpu":
         raise ValueError(f"no dxdw kernel implementation for device {dy.device}")
     return run_dxdw_plain(st, kind, n_terms, dy, wext, strips, wk3t, xr, mask,
@@ -658,7 +684,6 @@ class _FusedConv(torch.autograd.Function):
         need_dx = ctx.needs_input_grad[0]
         has_corr = "corr_rows_cfp" in tables
         rows = tables.get("corr_rows_cfp")
-        offsets = tables.get("offsets")
         wext = tables["weights"]
         wk3t = _wk3t(kernel, K)
         dx = None
@@ -668,8 +693,7 @@ class _FusedConv(torch.autograd.Function):
             # <x, T_k(L~) dy> come from the ball
             dy_strips = build_strips(st, dy, tables.get("strip_idx"))
             dx, dw = run_dxdw_kernel(st, kind, K, dy, wext, dy_strips, wk3t,
-                                     xc, tables.get("corr_mask"), B,
-                                     offsets=offsets)
+                                     xc, tables.get("corr_mask"), B)
             dwk = dw.reshape(K, Fin, Fout)
             if has_corr:
                 if need_dx:
@@ -691,8 +715,7 @@ class _FusedConv(torch.autograd.Function):
                 strips = build_strips(st, xc, tables.get("strip_idx"))
             dy_clean = dy * tables["corr_mask"].to(dy.dtype) if has_corr else dy
             dwk = run_grad_kernel(st, kind, K, xc, wext, tuple(strips),
-                                  dy_clean, B,
-                                  offsets=offsets).reshape(K, Fin, Fout)
+                                  dy_clean, B).reshape(K, Fin, Fout)
             if has_corr:
                 basis = _basis_at_rows(tables, _ball_src(tables, xc), K,
                                        kind)

@@ -87,7 +87,7 @@ def face_shard_tables(st: FaceStencil, rank, n_shards):
     """The host tables of face shard ``rank`` of ``n_shards`` (its faces are
     [rank*F, (rank+1)*F), F = 12 / n_shards), as a dict of numpy arrays:
 
-    * ``weights`` (T2, F, n+2R, P_l), ``offsets``: K1's and K3's;
+    * ``weights`` (T2, F, n+2R, P_l): K1's and K3's;
     * ``band_strip_idx``: the local faces' strip map into the gathered
       bands (:func:`..ops.strips.band_strip_index_map`);
     * with corner corrections: ``corr_idx``/``corr_val``/``corr_out_ball``
@@ -107,7 +107,6 @@ def face_shard_tables(st: FaceStencil, rank, n_shards):
     full = stencil_tables(st)
     out = {
         "weights": np.ascontiguousarray(st.weights[:, f0 : f0 + F]),
-        "offsets": full["offsets"],
         "band_strip_idx": band_strip_index_map(st, range(f0, f0 + F)),
     }
     if "corr_rows_cfp" in full:
@@ -186,8 +185,7 @@ class _FaceShardedConv(torch.autograd.Function):
         has_corr = "ball_send" in tables
         dy_clean = dy * tables["corr_mask"].to(dy.dtype) if has_corr else dy
         dwk = run_grad_kernel(st, kind, K, xc, tables["weights"],
-                              (top, bot, ls), dy_clean, B,
-                              offsets=tables["offsets"])
+                              (top, bot, ls), dy_clean, B)
         dwk = all_reduce_(dwk.reshape(K, Fin, Fout).contiguous(), group)
         if has_corr:
             basis = _basis_at_rows(tables, ball[0], K, kind)

@@ -235,26 +235,70 @@ def test_conv_kernel_on_two_cards(rng, dev):
     assert torch.equal(ys[0], ys[1].to(ys[0].device))
 
 
-_BWD = [(16, 8, "cheby", 0.75, 10, 2, 3, 9), (32, 8, "cheby", 0.75, 5, 1, 2, 4),
-        (64, 8, "mono", 1.0, 3, 2, 1, 8), (8, 8, "cheby", 0.75, 3, 3, 2, 2),
-        (16, 20, "cheby", 0.75, 3, 2, 2, 3), (32, 20, "mono", 1.0, 10, 1, 2, 2)]
+_BWD = [(16, 8, "cheby", 0.75, 10, 2, 3, 9, 12),
+        (32, 8, "cheby", 0.75, 5, 1, 2, 4, 12),
+        (64, 8, "mono", 1.0, 3, 2, 1, 8, 12),
+        (8, 8, "cheby", 0.75, 3, 3, 2, 2, 12),
+        (16, 20, "cheby", 0.75, 3, 2, 2, 3, 12),
+        (32, 20, "mono", 1.0, 10, 1, 2, 2, 12),
+        # Fout 32 at B=4: past one fold chunk of the first version, and past
+        # the 8 fold channels a 32-tile's block holds in registers
+        (32, 8, "cheby", 0.75, 5, 4, 3, 32, 12),
+        # quick_start conv 3's widths, Fin 16 -> Fout 32 at nside 16
+        (16, 8, "cheby", 0.75, 10, 2, 16, 32, 12),
+        # the arrays of a face shard of 3
+        (32, 8, "cheby", 0.75, 5, 2, 4, 4, 3),
+        # the headline's widths
+        (64, 8, "cheby", 0.75, 5, 4, 4, 4, 12),
+        # a batch that the plan's batch group does not divide (5 = 4 + 1 on
+        # an H100)
+        (128, 8, "cheby", 0.75, 3, 5, 2, 3, 12),
+        # 40 channels each way: past the 32 fold channels a block holds, so
+        # K2 and K3 both cut the fold channels into two chunks
+        (16, 8, "cheby", 0.75, 5, 2, 40, 40, 12)]
 
 
-@pytest.mark.parametrize("n,k,kind,scale,K,B,Fin,Fout", _BWD)
-def test_dxdw_kernel_matches_plain(rng, dev, n, k, kind, scale, K, B, Fin,
-                                   Fout):
-    """K2 raw: dx on every interior lane, zero halo lanes, dW with the
-    corr_mask plane; dW bitwise-equal across two calls."""
+def _check_bwd_plan(dev, st, h, K, B, F, Crec, Cch, dx):
+    """The plan's edge cases that a `_BWD` case is there to reach: a batch
+    group that does not divide the batch (nside 128), fold channels in more
+    than one chunk (past 32)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    p = fs._bwd_plan(st.nside, h, st.radius, len(st.offsets), K, B, F, Crec,
+                     Cch, dx, sms)
+    if st.nside == 128:
+        assert B % p.GB, p
+    if Cch > 32:
+        assert -(-Cch // p.FC) == 2, p
+
+
+def _bwd_case(rng, dev, n, k, scale, K, B, Cx, Cdy, F):
+    """Stencil, tables and the (B*Cx, F) / (B*Cdy, F) arrays of a raw
+    backward test, the first F faces of 12 (a face shard's arrays), with
+    garbage in every halo lane, and the strips of each."""
     st = _stencil(n, scale, (K - 1) * (2 if k == 20 else 1), k)
     h = st.n_steps
     tables = as_tensors(stencil_tables(st), dev)
-    dy = _xc(rng, dev, n, h, B * Fout)
-    x = _xc(rng, dev, n, h, B * Fin)
+    x = _xc(rng, dev, n, h, B * Cx)
+    dy = _xc(rng, dev, n, h, B * Cdy)
+    cut = lambda a: a[:, :F].contiguous()
+    sx = tuple(cut(a) for a in tstrips.strip_arrays(st, x))
+    sdy = tuple(cut(a) for a in tstrips.strip_arrays(st, dy))
+    mask = tables.get("corr_mask")
+    return (st, h, cut(tables["weights"]), None if mask is None else
+            mask[:F].contiguous(), cut(x), sx, cut(dy), sdy)
+
+
+@pytest.mark.parametrize("n,k,kind,scale,K,B,Fin,Fout,F", _BWD)
+def test_dxdw_kernel_matches_plain(rng, dev, n, k, kind, scale, K, B, Fin,
+                                   Fout, F):
+    """K2 raw: dx on every interior lane, zero halo lanes, dW with the
+    corr_mask plane; dW bitwise-equal across two calls."""
+    st, h, w, mask, x, _, dy, s = _bwd_case(rng, dev, n, k, scale, K, B, Fin,
+                                            Fout, F)
+    _check_bwd_plan(dev, st, h, K, B, F, Fout, Fin, True)
     wk3t = torch.from_numpy(
         rng.normal(size=(K, Fout, Fin)).astype(np.float32)).to(dev)
-    s = tstrips.strip_arrays(st, dy)
-    args = (st, kind, K, dy, tables["weights"], s, wk3t, x,
-            tables.get("corr_mask"), B)
+    args = (st, kind, K, dy, w, s, wk3t, x, mask, B)
     dx, dw = fs.run_dxdw_kernel(*args)
     _, dw2 = fs.run_dxdw_kernel(*args)
     dx_p, dw_p = fs.run_dxdw_plain(*args)
@@ -266,17 +310,14 @@ def test_dxdw_kernel_matches_plain(rng, dev, n, k, kind, scale, K, B, Fin,
     assert torch.equal(dw, dw2)
 
 
-@pytest.mark.parametrize("n,k,kind,scale,K,B,Fin,Fout", _BWD)
+@pytest.mark.parametrize("n,k,kind,scale,K,B,Fin,Fout,F", _BWD)
 def test_grad_kernel_matches_plain(rng, dev, n, k, kind, scale, K, B, Fin,
-                                   Fout):
+                                   Fout, F):
     """K3 raw against its plain version; dW bitwise-equal across calls."""
-    st = _stencil(n, scale, (K - 1) * (2 if k == 20 else 1), k)
-    h = st.n_steps
-    tables = as_tensors(stencil_tables(st), dev)
-    x = _xc(rng, dev, n, h, B * Fin)
-    dy = _xc(rng, dev, n, h, B * Fout)
-    args = (st, kind, K, x, tables["weights"], tstrips.strip_arrays(st, x),
-            dy, B)
+    st, h, w, _, x, s, dy, _ = _bwd_case(rng, dev, n, k, scale, K, B, Fin,
+                                         Fout, F)
+    _check_bwd_plan(dev, st, h, K, B, F, Fin, Fout, False)
+    args = (st, kind, K, x, w, s, dy, B)
     dw = fs.run_grad_kernel(*args)
     dw2 = fs.run_grad_kernel(*args)
     dw_p = fs.run_grad_plain(*args)

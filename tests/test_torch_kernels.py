@@ -468,12 +468,90 @@ def test_corr_mask_zeroes_exactly_the_corrupt_rows():
     assert cm.shape == (12, n, 128) and (cm == 0).sum() == st.corr_out_face.shape[0]
 
 
-@pytest.mark.parametrize("n,h,r,nplanes,K,T", [(64, 9, 1, 9, 10, 32),
-                                               (16, 9, 1, 9, 10, 16),
-                                               (1024, 4, 1, 9, 5, 32)])
-def test_backward_tile_fits_shared_memory(n, h, r, nplanes, K, T):
-    """The backward kernels add K x 8 warps x 8 floats of dW scratch to
-    K1's window and still take the largest tile at the main-path shapes."""
-    assert tfs._conv_tile(n, h, r, nplanes, K) == T
-    assert tfs._conv_smem(T, h, r, nplanes, K) == (
-        tfs._conv_smem(T, h, r, nplanes) + 4 * K * 64)
+# (label, n, h, r, nplanes, K, B, F, Fin, Fout): every shape the paths give
+# the backward kernels, K2 with Crec = Fout and Cch = Fin, K3 the other way
+_BWD_SHAPES = [
+    ("quick_start conv 1", 64, 9, 1, 9, 10, 16, 12, 1, 8),
+    ("quick_start conv 2", 32, 9, 1, 9, 10, 16, 12, 8, 16),
+    ("quick_start conv 3", 16, 9, 1, 9, 10, 16, 12, 16, 32),
+    ("headline", 1024, 4, 1, 9, 5, 4, 12, 4, 4),
+    ("k=20 radius 2, h=18", 32, 18, 2, 25, 10, 2, 12, 2, 3),
+    ("face shard of 3, headline", 1024, 4, 1, 9, 5, 4, 3, 4, 4),
+]
+
+
+@pytest.mark.parametrize("dx", [True, False], ids=["K2", "K3"])
+@pytest.mark.parametrize("label,n,h,r,nplanes,K,B,F,Fin,Fout", _BWD_SHAPES,
+                         ids=[c[0] for c in _BWD_SHAPES])
+def test_bwd_plan_at_the_paths_shapes(label, n, h, r, nplanes, K, B, F, Fin,
+                                      Fout, dx):
+    """K2's and K3's launch plan at every shape the paths use: a tile, a lap
+    group dividing the recursion channels, at most 227 KB of shared memory
+    (the window, the buffers, the dW sums and cells), and a grid within
+    CUDA's limits that covers every (tile, face, batch index, fold channel)
+    once."""
+    Crec, Cch = (Fout, Fin) if dx else (Fin, Fout)
+    p = tfs._bwd_plan(n, h, r, nplanes, K, B, F, Crec, Cch, dx, _H100_SMS)
+    assert p is not None, label
+    assert p.T in (32, 16, 8) and n % p.T == 0
+    assert 1 <= p.GB <= B and 1 <= p.G <= tfs._K1_GMAX[r] and Crec % p.G == 0
+    assert p.FC in ((4, 8) if p.T == 32 else (4, 8, 16, 32))
+    assert p.smem == tfs._bwd_smem(p.T, h, r, nplanes, K, p.G, p.FC, Crec, dx)
+    assert p.smem <= 227 * 1024
+    chunks = -(-Cch // p.FC)
+    assert p.grid == ((n // p.T) ** 2, F, -(-B // p.GB) * chunks)
+    assert p.grid[0] < 2 ** 31 and p.grid[1] <= 65535 and p.grid[2] <= 65535
+    if p.GB > 1:
+        assert p.grid[0] * p.grid[1] * p.grid[2] >= 2 * _H100_SMS
+
+
+def test_bwd_plan_holds_every_fold_channel_once():
+    """Where a tile's block holds all the fold channels, the plan takes it,
+    so each lap runs once per block: K3 at quick_start conv 2 (16 dy
+    channels) leaves the 32-tile (8 a block) for a 16-tile, and at conv 3
+    holds all 32; only where no tile can does the plan cut the fold
+    channels into chunks."""
+    plan = lambda *shape, sms=_H100_SMS: tfs._bwd_plan(*shape, sms)
+    p = plan(32, 9, 1, 9, 10, 16, 12, 8, 16, False)
+    assert (p.T, p.FC) == (16, 16) and p.grid[2] == -(-16 // p.GB)
+    assert plan(16, 9, 1, 9, 10, 16, 12, 16, 32, False).FC == 32
+    # past 32 fold channels no block holds them all: two chunks of 32
+    p = plan(16, 4, 1, 9, 5, 2, 12, 40, 40, True)
+    assert (p.T, p.FC) == (16, 32) and p.grid[2] == 2 * -(-2 // p.GB)
+    # a 32-face map at radius 3 takes no 32-tile
+    assert plan(32, 9, 3, 49, 4, 2, 12, 2, 2, False).T == 16
+    # the headline fills the card from (face, tile) alone: a block takes the
+    # whole batch; K2 at conv 1 keeps the batch in the grid
+    assert plan(1024, 4, 1, 9, 5, 4, 12, 4, 4, True).GB == 4
+    assert plan(64, 9, 1, 9, 10, 16, 12, 8, 1, True, sms=6).GB == 16
+    # 4 channels a lap group where they divide the recursion channels
+    assert plan(32, 9, 1, 9, 10, 2, 12, 6, 3, False).G == 2
+    assert plan(32, 18, 2, 25, 10, 2, 12, 4, 3, False).G == 2
+
+
+def test_bwd_plan_refuses_what_the_kernels_do_not_take():
+    """None where no tile fits shared memory (radius 4 at h=16), the grid's
+    z extent passes 65535, or the stencil is not a radius's full square."""
+    plan = lambda *shape: tfs._bwd_plan(*shape, _H100_SMS)
+    assert plan(32, 16, 4, 81, 5, 2, 12, 2, 2, True) is None
+    assert plan(16, 4, 1, 9, 3, 1, 12, 1, 32 * 65536, False) is None
+    assert plan(16, 4, 1, 8, 5, 2, 12, 2, 2, False) is None
+    assert plan(16, 4, 1, 9, 6, 2, 12, 2, 2, False) is None  # r (K-1) > h
+
+
+@pytest.mark.parametrize("kernel", ["dxdw", "grad"])
+def test_bwd_wrappers_reject_other_tap_orders(kernel):
+    """K2 and K3 compile their taps as K1 does: a stencil whose taps are not
+    ``stencil_offsets(radius)`` is refused before any launch."""
+    from types import SimpleNamespace
+
+    offs = stencil_offsets(1)
+    st = SimpleNamespace(nside=8, n_steps=2, radius=1,
+                         offsets=offs[1:] + offs[:1])
+    x = torch.zeros(1, 12, 8, 128)
+    with pytest.raises(ValueError, match="stencil_offsets"):
+        if kernel == "dxdw":
+            tfs._dxdw_cuda(st, "cheby", x, None, (None,) * 3,
+                           torch.zeros(3, 1, 1), x, None, 1)
+        else:
+            tfs._grad_cuda(st, "cheby", 3, x, None, (None,) * 3, x, 1)
