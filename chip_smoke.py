@@ -25,8 +25,9 @@ Phases, one result line each (with the elapsed seconds):
 4. serving: the quick_start classifier at nside 64, full width, random
    weights from a seed, answers 4 requests of 16 maps through
    ``model.predict`` on the card; each of the three cface convs must launch
-   K4 and K1 once per forward, and the logits must match the same model on
-   the CPU (plain path, one request) to max rel 1e-4;
+   K4 and K1 once per forward (the fused route: the per-step route's count
+   stays 0), and the logits must match the same model on the CPU (plain
+   path, one request) to max rel 1e-4;
 5. training: the same classifier (weights from another seed), batch 16:
    one ``train_on_batch`` on each backward route (``config.fused_dw`` True:
    K2; False: K1 on dy + K3), with the launches of each step counted; the
@@ -45,8 +46,11 @@ Phases, one result line each (with the elapsed seconds):
    (dx to 2e-5, dW to 1e-4);
 7. sharded, on a 1 x 1 ``("data", "pixel")`` mesh of one NCCL rank: (a) the
    edge-band cut (K5) against its plain version, exactly, at the quick_start
-   convs' shapes on 12 and on 3 faces and at the headline, with its time,
-   bound and the ``index_select`` of the same map; (b) the shard data flow:
+   convs' shapes on 12 and on 3 faces and at the headline, with its time
+   and the ``index_select`` of the same map taken in turns (K5,
+   index_select, index_select, K5, twice; the medians and the spread of
+   their ratio), and its bound: each distinct interior source element read
+   once and the output written once; (b) the shard data flow:
    K5 on 4 face slices, the buffers concatenated as the all-gather returns
    them, every shard's strips from them, exactly the unsharded K4 strips'
    slices and the plain band strips; (c) the face-sharded headline conv,
@@ -56,7 +60,15 @@ Phases, one result line each (with the elapsed seconds):
    ``data_iterator`` with their launches counted (3 K5 per forward), the
    first from phase 5's weights and batch held to the unsharded K1+K3 step
    on the card and to phase 5's float64 CPU step (loss 1e-5, gradients
-   1e-3, BN 1e-5), and ms per step of both.
+   1e-3, BN 1e-5), and ms per step of both;
+8. the per-step cface route: a classifier on the k=60 grid graph (one
+   Chebyshev K=5 conv, radius 4 at h=16, a shape K1-K3 refuse and where
+   the JAX package runs no kernel either; nside 32,
+   batch 4, 1 -> 8 channels, a pool and Dense(4)), built on the card:
+   ``cface_route`` must name the per-step route, a forward and one train
+   step must count it once each and launch no kernel, and the logits
+   (1e-4), the loss (1e-5) and every gradient (1e-4) must match the same
+   model on the CPU (the fused route's plain versions).
 
 It then prints the card line, one JSON line with every kernel's launches on
 its slice's training path (phase 5 for K1-K4, phase 7 for K5), error, times
@@ -704,9 +716,10 @@ def main():
     n_fwd = 4
     want = {"strips": 3 * n_fwd, "stencil_conv": 3 * n_fwd, "dxdw": 0,
             "grad": 0, "bands": 0}
-    if launches != want:
+    if launches != want or _cuda.route_counts["per_step_cface"]:
         raise AssertionError(f"serving launched {launches} in {n_fwd} "
-                             f"forwards, expected {want}")
+                             f"forwards, expected {want}, and took the "
+                             f"routes {_cuda.route_counts}")
     if logits.shape != (64, 4) or not np.all(np.isfinite(logits)):
         raise AssertionError(f"bad logits: shape {logits.shape}")
     t = time.perf_counter()
@@ -800,9 +813,10 @@ def main():
         counts = dict(_cuda.launch_counts)
         for k, v in counts.items():
             train_launches[k] += v
-        if counts != route_want[fused]:
+        if counts != route_want[fused] or _cuda.route_counts["per_step_cface"]:
             raise AssertionError(f"fused_dw={fused}: one train step launched "
-                                 f"{counts}, expected {route_want[fused]}")
+                                 f"{counts}, expected {route_want[fused]}, "
+                                 f"and took the routes {_cuda.route_counts}")
         g, st_ = grads_of(m), stats_of(m)
         loss_rel = abs(logs["loss"] - loss64) / abs(loss64)
         g_err, s_err = tree_errs(g, g64), tree_errs(st_, s64)
@@ -953,17 +967,31 @@ def main():
         flat, idx = xc.reshape(-1), band_map(C, F, n, h, P, dev)
         if not torch.equal(torch.index_select(flat, 0, idx), got.reshape(-1)):
             raise AssertionError(f"{label}: index_select bands differ")
-        # device time (graph replay): the eager call is host-bound here
-        ms = graph_ms(lambda: pack_edge_bands(xc, n, h))
+        # device times (graph replay: the eager call is host-bound here), K5
+        # and index_select in turns: K5, index_select, index_select, K5, ...
+        fns = {"k5": lambda: pack_edge_bands(xc, n, h),
+               "lib": lambda: torch.index_select(flat, 0, idx)}
+        turns = {"k5": [], "lib": []}
+        for i in range(4):
+            for who in (("k5", "lib") if i % 2 == 0 else ("lib", "k5")):
+                turns[who].append(graph_ms(fns[who]))
+        ms, ms_l = (float(np.median(turns[w])) for w in ("k5", "lib"))
+        ratios = [a / b for a, b in zip(turns["k5"], turns["lib"])]
         ms_p = graph_ms(lambda: pack_edge_bands_plain(xc, n, h))
-        ms_l = graph_ms(lambda: torch.index_select(flat, 0, idx))
         eager = cuda_ms(lambda: pack_edge_bands(xc, n, h), iters=20, warmup=3)
-        b = bound(2 * got.numel() * 4, 0)  # read once, written once
+        # the least the card must move: each distinct interior source element
+        # once (the four bands cover all but the inner (n - 2h)^2) and the
+        # output once
+        src = (n * n - max(n - 2 * h, 0) ** 2) * C * F
+        b = bound((src + got.numel()) * 4, 0)
         results["bands"].append((label, 0.0, ms, ms_p, *b, ms_l))
-        say("sharded", f"{label}: K5 exact, {ms:.4f} ms on the device (plain "
-            f"{ms_p:.4f}, index_select {ms_l:.4f}, bound {b[0]:.4f} {b[1]}; "
-            f"{got.numel() * 4 / 1e6:.2f} MB each way); {eager:.4f} ms per "
-            "eager call")
+        say("sharded", f"{label}: K5 exact, {ms:.4f} ms on the device, "
+            f"{b[0] / ms:.0%} of its bound {b[0]:.4f} ms ({b[1]}; "
+            f"{src * 4 / 1e6:.2f} MB in, {got.numel() * 4 / 1e6:.2f} MB out); "
+            f"index_select {ms_l:.4f} ms; in turns K5 {turns['k5']} ms, "
+            f"index_select {turns['lib']} ms, K5 / index_select "
+            f"{min(ratios):.3f}-{max(ratios):.3f}; plain {ms_p:.4f} ms; "
+            f"{eager:.4f} ms per eager call")
 
     def dataflow(label, st, C, S=4):
         """(b) K5 on S face slices, the buffers concatenated (what the
@@ -1160,6 +1188,69 @@ def main():
     finally:
         config.set_fused_dw(True)
         dist.destroy_process_group()
+
+    # 8. the per-step cface route: a k=60 grid graph at K=5 is radius 4 at
+    # h=16, where the JAX package runs no kernel and whose weight window
+    # alone outgrows a block's shared memory, so K1-K3 have no plan and the
+    # unsharded cface conv runs per step
+    nside = 32
+    npix = 12 * nside * nside
+    t = time.perf_counter()
+    model = dt.HealpyGCNN(nside, np.arange(npix), [
+        hp_nn.HealpyChebyshev(K=5, Fout=8, activation="relu"),
+        hp_nn.HealpyPool(p=1), hp_nn.Flatten(), hp_nn.Dense(4)],
+        n_neighbors=60)
+    model.build((4, npix, 1), seed=21)  # on the card
+    cpu = copy.deepcopy(model).to("cpu")
+    conv = next(m for m in model.layers.values()
+                if getattr(m, "layout", None) == "cface")
+    st60 = conv._stencil()
+    rt = fs.cface_route(st60, "cheby", 5, 4, 1, 8,
+                        torch.cuda.get_device_properties(dev)
+                        .multi_processor_count)
+    if rt != "per_step":
+        raise AssertionError(f"the k=60 conv took the route {rt}")
+    x8 = rng.normal(size=(4, npix, 1)).astype(np.float32)
+    y8 = rng.randint(0, 4, size=4)
+    _cuda.reset_launch_counts()
+    logits = model.predict(x8, batch_size=4)
+    torch.cuda.synchronize()
+    fwd_counts = (dict(_cuda.launch_counts), dict(_cuda.route_counts))
+    ref = cpu.predict(x8, batch_size=4)
+    rel = float(np.abs(logits - ref).max() / np.abs(ref).max())
+    for m in (model, cpu):
+        m.compile(optimizer=1e-3, loss=loss_name)
+    _cuda.reset_launch_counts()
+    logs = model._trainer.train_on_batch(x8, y8)
+    torch.cuda.synchronize()
+    step_counts = (dict(_cuda.launch_counts), dict(_cuda.route_counts))
+    logs_c = cpu._trainer.train_on_batch(x8, y8)
+    loss_rel = abs(logs["loss"] - logs_c["loss"]) / abs(logs_c["loss"])
+    g_err = tree_errs(grads_of(model), grads_of(cpu))
+    none = {k: 0 for k in _cuda.launch_counts}
+    if (fwd_counts != (none, {"per_step_cface": 1})
+            or step_counts != (none, {"per_step_cface": 1})):
+        raise AssertionError(f"the k=60 model: a forward counted {fwd_counts}"
+                             f", a train step {step_counts}")
+    if not (logits.shape == (4, 4) and rel <= 1e-4 and loss_rel <= 1e-5
+            and not held(g_err, 1e-4)):
+        raise AssertionError(f"the k=60 model against the CPU: logits "
+                             f"{logits.shape} rel {rel:.3e}, loss rel "
+                             f"{loss_rel:.3e}, gradients {g_err}")
+    xb = torch.from_numpy(x8).to(dev)
+    model.eval()
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: model(xb), iters=10, warmup=2)
+    say("per-step", f"k=60 grid graph, Chebyshev K=5 (radius {st60.radius}, "
+        f"h={st60.n_steps}), nside {nside}, batch 4, 1 -> 8 channels "
+        f"({time.perf_counter() - t:.2f} s with the CPU references): route "
+        f"{rt}; a forward counted "
+        f"{fwd_counts[1]} and launched {fwd_counts[0]}, a train step "
+        f"{step_counts[1]} and {step_counts[0]}; against the CPU: logits rel "
+        f"{rel:.2e}, loss rel {loss_rel:.2e}, gradients "
+        f"{max(g_err.values()):.2e}; {fwd_ms:.3f} ms per forward of 4 maps on "
+        f"{card}")
+    del model, cpu
 
     # main-path kernel times: the quick_start convs' three shapes summed
     def entry(kname, route, source, replaces, launches):

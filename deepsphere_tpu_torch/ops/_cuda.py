@@ -16,7 +16,9 @@ import every module of the port on a machine without ``nvcc``.
 
 Every kernel wrapper adds one to its entry of :data:`launch_counts` where
 it launches its kernel, and nowhere else, so a run can show that its main
-path went through the kernels.
+path went through the kernels.  Beside them, :data:`route_counts` counts
+the routes chosen from a shape that launch none of these kernels (the
+cface conv's per-step route, ``ops/stencil.py::_cface_per_step``).
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ import os
 import subprocess
 import time
 
-__all__ = ["build", "lib", "check", "launch_counts", "reset_launch_counts"]
+__all__ = ["build", "lib", "check", "launch_counts", "route_counts",
+           "reset_launch_counts"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -39,13 +42,17 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: kernel name -> launches since the last :func:`reset_launch_counts`
 launch_counts = {"strips": 0, "stencil_conv": 0, "dxdw": 0, "grad": 0,
                  "bands": 0}
+#: route name -> times taken since the last :func:`reset_launch_counts`
+route_counts = {"per_step_cface": 0}
 
 _lib = None
 
 
 def reset_launch_counts():
-    for k in launch_counts:
-        launch_counts[k] = 0
+    """Set every launch count and every route count to 0."""
+    for counts in (launch_counts, route_counts):
+        for k in counts:
+            counts[k] = 0
 
 
 def _sources():

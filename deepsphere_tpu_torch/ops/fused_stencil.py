@@ -42,6 +42,7 @@ its backward takes the route that ``config.fused_dw`` names.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -54,6 +55,7 @@ from .strips import build_strips, strip_arrays
 __all__ = [
     "cfp_geometry",
     "cfp_structural_available",
+    "cface_route",
     "run_stencil_kernel",
     "run_stencil_plain",
     "run_grad_kernel",
@@ -218,6 +220,52 @@ def cfp_structural_available(st: FaceStencil, kind, n_terms):
     if st.nside % 8 or st.nside < _round_up(h, 8) or 2 * h > 128:
         return False
     return True
+
+
+def cface_route(st: FaceStencil, kind, n_terms, B, Fin, Fout, sms,
+                grad=True):
+    """The route of the unsharded cface conv of a CUDA input on a card of
+    ``sms`` SMs, from the shape alone, before any launch.
+
+    ``"fused"`` where the kernels take every launch the conv makes: K1
+    forward and, with ``grad`` (autograd will differentiate the conv), every
+    launch of its backward on either ``config.fused_dw`` route (K2; K1 on dy
+    with the channels swapped, and K3).  ``"per_step"``, the per-step face
+    path through the interior slice, only where the JAX package runs no
+    kernel either: where ``cfp_structural_available`` fails, or at radius
+    >= 3 with n_terms > 2 (its compile-mode gate) and a plan is refused.
+    Anywhere else a refused plan is a gap of the kernels, and this raises.
+
+    The JAX gate's other declines route around TPU compiler faults and
+    have no counterpart here (``config``): h > 8 and not a multiple of 8
+    (its ``deep_stencil`` rounds such depths up; the port keeps exact
+    depths, h = 9 at quick_start, which the kernels take), and a dot-form
+    contraction below ``dot_fused_min_nside``."""
+    if not cfp_structural_available(st, kind, n_terms):
+        return "per_step"
+    return _cface_route(st.nside, st.n_steps, st.radius, len(st.offsets),
+                        n_terms, B, Fin, Fout, sms, bool(grad))
+
+
+@functools.lru_cache(maxsize=None)
+def _cface_route(n, h, r, nplanes, K, B, Fin, Fout, sms, grad):
+    """:func:`cface_route` past the structural check, memoised on the ints
+    of the shape (it runs at every forward)."""
+    shape = (n, h, r, nplanes, K, B, 12)
+    plans = {"K1": _k1_plan(*shape, Fin, Fout, sms)}
+    if grad:
+        plans["K2"] = _bwd_plan(*shape, Fout, Fin, True, sms)
+        plans["K1 on dy"] = _k1_plan(*shape, Fout, Fin, sms)
+        plans["K3"] = _bwd_plan(*shape, Fin, Fout, False, sms)
+    refused = [name for name, plan in plans.items() if plan is None]
+    if not refused:
+        return "fused"
+    if r >= 3 and K > 2:
+        return "per_step"
+    raise ValueError(
+        f"cface conv: no plan of {', '.join(refused)} takes n={n} h={h} "
+        f"r={r} K={K} B={B} Fin={Fin} Fout={Fout} on {sms} SMs: no tile "
+        "fits shared memory or the grid")
 
 
 def cfp_geometry(n, h):

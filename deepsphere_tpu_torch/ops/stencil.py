@@ -13,10 +13,14 @@ Two conv forms live here:
 * :func:`stencil_graph_conv` — the per-step path: one halo refill and one
   stencil application per term, on (B, M, F) activations in NEST or
   face-flat order.  Plain torch ops on every device.
-* :func:`stencil_graph_conv_cface` — the fused conv on the channels-first
-  padded "cface" layout (B, F, 12, n, P_l), face col y at lane y + h.  It
-  always calls :func:`.fused_stencil.fused_stencil_conv_cfp`: the device of
-  the tensor decides between the CUDA kernels and their plain versions.
+* :func:`stencil_graph_conv_cface` — the conv on the channels-first padded
+  "cface" layout (B, F, 12, n, P_l), face col y at lane y + h.  It calls
+  :func:`.fused_stencil.fused_stencil_conv_cfp` (the device of the tensor
+  decides between the CUDA kernels and their plain versions), except for a
+  CUDA input of a shape where the JAX package runs no kernel either and the
+  kernels refuse it (:func:`.fused_stencil.cface_route`): that runs the
+  per-step path on the interior lanes and pads the result again, as the
+  JAX package does.
 
 The face-sharded conv (``parallel/cface_sharded.py``) exchanges only the
 four h-deep edge bands of each face: :func:`pack_edge_bands` cuts them (the
@@ -415,11 +419,19 @@ def stencil_graph_conv_cface(st: FaceStencil, x5, kernel, n_terms, kind,
                              tables=None):
     """Polynomial graph conv in the channels-first padded layout.
 
+    A CUDA input takes the route that :func:`.fused_stencil.cface_route`
+    gives its shape on its card: the kernels, or :func:`_cface_per_step`.
+    A CPU input runs the kernels' plain versions.
+
     :param x5: (B, Fin, 12, n, P_l) with face col y at lane y + h; only
         interior lanes are read
     :return: (B, Fout, 12, n, P_l); lanes outside the interior are 0
     """
-    from .fused_stencil import cfp_geometry, fused_stencil_conv_cfp
+    from .fused_stencil import (
+        cface_route,
+        cfp_geometry,
+        fused_stencil_conv_cfp,
+    )
 
     B, Fin, _, n, P_l = x5.shape
     h = st.n_steps
@@ -431,10 +443,28 @@ def stencil_graph_conv_cface(st: FaceStencil, x5, kernel, n_terms, kind,
         )
     Fout = kernel.shape[-1]
     tables = _tables_for(tables, st, x5.device)
+    if x5.is_cuda:
+        sms = torch.cuda.get_device_properties(x5.device).multi_processor_count
+        grad = torch.is_grad_enabled() and (x5.requires_grad
+                                            or kernel.requires_grad)
+        if cface_route(st, kind, n_terms, B, Fin, Fout, sms,
+                       grad) == "per_step":
+            return _cface_per_step(st, x5, kernel, n_terms, kind, tables)
     y = fused_stencil_conv_cfp(
         st, tables, x5.reshape(B * Fin, 12, n, P_l), kernel, n_terms, kind, B,
     )
     return y.reshape(B, Fout, 12, n, P_l).to(x5.dtype)
+
+
+def _cface_per_step(st: FaceStencil, x5, kernel, n_terms, kind, tables=None):
+    """The cface conv's per-step route: :func:`stencil_graph_conv` on the
+    interior lanes, padded again with zeros (differentiated by autograd;
+    counted in ``_cuda.route_counts["per_step_cface"]``)."""
+    n, h = st.nside, st.n_steps
+    _cuda.route_counts["per_step_cface"] += 1
+    yf = stencil_graph_conv(st, cface_extract(x5, h), kernel, n_terms, kind,
+                            tables=tables, layout="face")
+    return cface_embed(yf, n, h)
 
 
 def cface_embed(x, n, h):

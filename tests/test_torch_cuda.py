@@ -89,8 +89,15 @@ def test_strips_kernel_matches_plain(rng, dev, n, h, C):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("n,h,C,F", [(16, 9, 3, 12), (64, 9, 2, 3),
-                                     (32, 4, 5, 4), (8, 2, 1, 1)])
+# (n, h, C, F): the quick_start depth, the headline depth, 2h > n (the
+# bands overlap), h = 1, one face, more channels than a block has threads,
+# a deep band (h = 16) on a wider face
+_BANDS = [(16, 9, 3, 12), (64, 9, 2, 3), (32, 4, 5, 4), (8, 2, 1, 1),
+          (8, 5, 2, 3), (16, 1, 3, 12), (16, 9, 300, 1), (32, 9, 257, 12),
+          (64, 16, 3, 2)]
+
+
+@pytest.mark.parametrize("n,h,C,F", _BANDS)
 def test_bands_kernel_matches_plain(rng, dev, n, h, C, F):
     """K5: the four edge bands of F faces, packed face-major, are a copy:
     exactly the plain version's."""
@@ -102,6 +109,19 @@ def test_bands_kernel_matches_plain(rng, dev, n, h, C, F):
     assert _cuda.launch_counts["bands"] == 1
     assert got.shape == (F, C, 4 * h * n)
     assert torch.equal(got, pack_edge_bands_plain(x, n, h))
+
+
+@pytest.mark.parametrize("n,h", [(16, 9), (32, 4), (32, 9)])
+def test_bands_kernel_takes_an_unaligned_input(rng, dev, n, h):
+    """An xc that starts 4 bytes past a 16-byte boundary (a view into a
+    larger buffer) reads its floats one by one: still exact."""
+    _, P_l = fs.cfp_geometry(n, h)
+    C, F = 3, 12
+    buf = torch.from_numpy(
+        rng.normal(size=C * F * n * P_l + 1).astype(np.float32)).to(dev)
+    x = buf[1:].view(C, F, n, P_l)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    assert torch.equal(pack_edge_bands(x, n, h), pack_edge_bands_plain(x, n, h))
 
 
 @pytest.mark.parametrize("n,h,S", [(16, 9, 4), (32, 4, 3), (64, 9, 12)])
@@ -377,6 +397,65 @@ def _small_quick_start():
         hp_nn.Flatten(),
         hp_nn.Dense(4),
     ]
+
+
+def test_k60_model_takes_the_per_step_route(rng, dev):
+    """``HealpyGCNN(n_neighbors=60)`` with one Chebyshev K=5 conv at nside
+    32: radius 4 at h=16 is a shape K1-K3 refuse, so on the card the cface
+    conv takes the per-step route (counted once a forward) and launches no
+    kernel; its logits and the gradients of a fixed cotangent match the
+    same model on the CPU (the fused route's plain versions) to 1e-4."""
+    nside = 32
+    npix = 12 * nside * nside
+    layers = [hp_nn.HealpyChebyshev(K=5, Fout=4, activation="relu"),
+              hp_nn.HealpyPool(p=1), hp_nn.Flatten(), hp_nn.Dense(3)]
+    cpu = dt.HealpyGCNN(nside, np.arange(npix), layers, n_neighbors=60).build(
+        (2, npix, 1), seed=3, device="cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    x = torch.from_numpy(rng.normal(size=(2, npix, 1)).astype(np.float32))
+    cot = torch.from_numpy(rng.normal(size=(2, 3)).astype(np.float32))
+    out = {}
+    for m, d in ((card, dev), (cpu, torch.device("cpu"))):
+        _cuda.reset_launch_counts()
+        y = m(x.to(d))
+        y.backward(cot.to(d))
+        out[d.type] = (y.detach().cpu(), {n: p.grad.cpu()
+                                          for n, p in m.named_parameters()})
+        if d.type == "cuda":
+            assert all(v == 0 for v in _cuda.launch_counts.values())
+            assert _cuda.route_counts == {"per_step_cface": 1}
+    (y_c, g_c), (y_p, g_p) = out["cuda"], out["cpu"]
+    _close(y_c, y_p, 1e-4)
+    for name in g_p:
+        _close(g_c[name], g_p[name], 1e-4)
+
+
+def test_cface_conv_raises_before_launch_where_a_kernel_has_no_plan(rng,
+                                                                    dev):
+    """k=20 grid at K=11 (radius 2, h=20), batch 16, 8 -> 16: K1 takes the
+    forward but no plan of K2 takes the backward.  The JAX package runs its
+    kernel at radius 2, so this is a gap of the kernels, not the per-step
+    route: a conv that needs a gradient raises before any launch, and one
+    that needs none runs K1 and matches its plain version on the CPU."""
+    from deepsphere_tpu_torch.ops.stencil import stencil_graph_conv_cface
+
+    n, K, B, Fin, Fout = 32, 11, 16, 8, 16
+    st = _stencil(n, 0.75, 20, k=20)
+    assert st.radius == 2
+    _, P_l = fs.cfp_geometry(n, st.n_steps)
+    x = torch.from_numpy(rng.normal(size=(B, Fin, 12, n, P_l)).astype(
+        np.float32))
+    kern = torch.from_numpy((rng.normal(size=(Fin * K, Fout))
+                             / np.sqrt(Fin * K)).astype(np.float32))
+    with pytest.raises(ValueError, match="no plan of K2"):
+        stencil_graph_conv_cface(st, x.to(dev), kern.to(dev).requires_grad_(),
+                                 K, "cheby")
+    assert all(v == 0 for v in _cuda.launch_counts.values())
+    assert _cuda.route_counts == {"per_step_cface": 0}
+    with torch.no_grad():
+        y = stencil_graph_conv_cface(st, x.to(dev), kern.to(dev), K, "cheby")
+    assert _cuda.launch_counts["stencil_conv"] == 1
+    _close(y.cpu(), stencil_graph_conv_cface(st, x, kern, K, "cheby"))
 
 
 def test_model_forward_matches_cpu(rng, dev):

@@ -24,6 +24,7 @@ import deepsphere_tpu.ops.stencil as jstencil
 import deepsphere_tpu_torch as dt
 import deepsphere_tpu_torch.graph as tgraph
 import deepsphere_tpu_torch.nn.layers as tl
+import deepsphere_tpu_torch.ops.stencil as tstencil
 from deepsphere_tpu.nn import healpy_layers as jhp
 from deepsphere_tpu_torch.interop import load_jax_variables
 from deepsphere_tpu_torch.nn import healpy_layers as thp
@@ -311,3 +312,47 @@ def test_port_imports_no_jax():
                          text=True, timeout=240, env=env, cwd=REPO)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip().endswith("ok")
+
+
+def _k60_layers(hp):
+    """A Chebyshev K=5 conv on the k=60 grid graph (radius 4, h=16: a
+    shape the card's kernels refuse), then a pool and a Dense head."""
+    return [hp.HealpyChebyshev(K=5, Fout=4, activation="relu"),
+            hp.HealpyPool(p=1), hp.Flatten(), hp.Dense(3)]
+
+
+def test_k60_model_per_step_route_matches_the_fused_route(rng, monkeypatch):
+    """``HealpyGCNN(n_neighbors=60)`` plans its K=5 conv in the cface
+    layout.  On the card that conv takes the per-step route; forced onto
+    it here, the model's logits and every gradient of a fixed cotangent
+    match the fused route's plain versions (1e-5 of each max), and only
+    the route is counted."""
+    nside = 32
+    npix = 12 * nside * nside
+    model = dt.HealpyGCNN(nside, np.arange(npix), _k60_layers(thp),
+                          n_neighbors=60).build((2, npix, 1), seed=3,
+                                                device="cpu")
+    assert [getattr(m, "layout", None) for m in model.layers.values()
+            if isinstance(m, tl.ChebyshevConv)] == ["cface"]
+    x = torch.from_numpy(rng.normal(size=(2, npix, 1)).astype(np.float32))
+    cot = torch.from_numpy(rng.normal(size=(2, 3)).astype(np.float32))
+
+    def run():
+        model.zero_grad()
+        y = model(x)
+        y.backward(cot)
+        return y.detach(), {n: p.grad.clone()
+                            for n, p in model.named_parameters()}
+
+    _cuda.reset_launch_counts()
+    y_f, g_f = run()
+    assert _cuda.route_counts["per_step_cface"] == 0
+    monkeypatch.setattr(tl, "stencil_graph_conv_cface",
+                        tstencil._cface_per_step)
+    y_s, g_s = run()
+    assert _cuda.route_counts["per_step_cface"] == 1
+    assert all(v == 0 for v in _cuda.launch_counts.values())
+    _close(y_s, y_f)
+    assert g_s.keys() == g_f.keys()
+    for name in g_f:
+        _close(g_s[name], g_f[name])

@@ -5,6 +5,9 @@ The same seeded numpy inputs go through both; layout moves are exact, the
 arithmetic is float32 on both sides and held to rtol 1e-5.
 """
 
+from types import SimpleNamespace
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +21,9 @@ import deepsphere_tpu_torch.graph as tgraph
 import deepsphere_tpu_torch.ops.layout as tlayout
 import deepsphere_tpu_torch.ops.spmv as tspmv
 import deepsphere_tpu_torch.ops.stencil as tstencil
+from deepsphere_tpu_torch.graph.stencil import stencil_offsets
+from deepsphere_tpu_torch.ops import _cuda
+from deepsphere_tpu_torch.ops import fused_stencil as tfs
 
 _GRAPHS = {}
 
@@ -150,3 +156,121 @@ def test_per_step_conv_rejects_partial_maps():
     with pytest.raises(ValueError, match="full sphere"):
         tstencil.stencil_graph_conv(st, torch.zeros(1, 10, 1),
                                     torch.zeros(2, 1), 2, "cheby")
+
+
+# the cface conv's route.  The JAX package runs no kernel at radius >= 3
+# with K > 2 on a TPU, and K1, K2 and K3 take no radius-4 conv at h = 16
+# (its weight window alone outgrows a block's shared memory), so the conv of
+# a k=60 grid graph at K=5 takes the per-step path on the card; a radius-3
+# conv the kernels take stays on them; at radius <= 2, where the JAX
+# package runs its kernel, a refused plan raises (a gap of the kernels)
+_H100_SMS = 132  # an H100 SXM's SMs
+
+# (label, nside, k, K, B, Fin, Fout, route)
+_ROUTES = [
+    ("k=60 K=5 nside 32, 2 -> 3", 32, 60, 5, 2, 2, 3, "per_step"),
+    ("k=60 K=5 nside 32, 16 -> 32", 32, 60, 5, 16, 16, 32, "per_step"),
+    ("k=40 K=5 nside 32, 16 -> 32", 32, 40, 5, 16, 16, 32, "fused"),
+    ("quick_start conv 1", 64, 8, 10, 16, 1, 8, "fused"),
+    ("quick_start conv 2", 32, 8, 10, 16, 8, 16, "fused"),
+    ("quick_start conv 3", 16, 8, 10, 16, 16, 32, "fused"),
+    ("k=20 K=11 nside 32, 8 -> 16", 32, 20, 11, 16, 8, 16, "raises"),
+]
+
+_TGRAPHS = {}
+
+
+def _deep_stencil(n, k, K):
+    if (n, k) not in _TGRAPHS:
+        _TGRAPHS[n, k] = tgraph.build_sphere_graph(n, k=k, method="grid")
+    return _TGRAPHS[n, k].deep_stencil(0.75, K)
+
+
+@pytest.mark.parametrize("label,n,k,K,B,Fin,Fout,route", _ROUTES,
+                         ids=[c[0] for c in _ROUTES])
+def test_cface_route_follows_the_plans(label, n, k, K, B, Fin, Fout, route):
+    """The route is "fused" where K1 (forward and, channels swapped, the dx
+    conv on dy), K2 and K3 all have a plan on an H100; "per_step" where
+    one is refused at radius >= 3 and K > 2 (the JAX package's own
+    decline); elsewhere a refused plan raises, naming the kernels.  An
+    inference conv needs only K1's plan."""
+    st = _deep_stencil(n, k, K)
+    assert tfs.cfp_structural_available(st, "cheby", K), label
+    if route == "raises":
+        with pytest.raises(ValueError, match="no plan of K2"):
+            tfs.cface_route(st, "cheby", K, B, Fin, Fout, _H100_SMS)
+        assert tfs.cface_route(st, "cheby", K, B, Fin, Fout, _H100_SMS,
+                               grad=False) == "fused"
+    else:
+        assert tfs.cface_route(st, "cheby", K, B, Fin, Fout,
+                               _H100_SMS) == route
+
+
+def test_cface_route_takes_the_headline_fused():
+    """The headline conv (nside 1024, K=5 on the 8-neighbour grid: radius
+    1, h=4, B=4, 4 -> 4).  The route reads only the stencil's nside, depth
+    and radius, so a stand-in of those spares the nside-1024 graph build
+    (``test_torch_kernels.py`` holds each plan at these numbers)."""
+    st = SimpleNamespace(nside=1024, n_steps=4, radius=1,
+                         offsets=stencil_offsets(1))
+    assert tfs.cface_route(st, "cheby", 5, 4, 4, 4, _H100_SMS) == "fused"
+    # the same shape at a halo the tiles cannot hold takes the per-step path
+    deep = SimpleNamespace(nside=1024, n_steps=16, radius=4,
+                           offsets=stencil_offsets(4))
+    assert tfs.cface_route(deep, "cheby", 5, 4, 4, 4, _H100_SMS) == "per_step"
+
+
+def test_cface_per_step_route_matches_jax():
+    """At a shape the kernels refuse (k=60 grid, K=5, nside 32, batch 2,
+    2 -> 3 channels) the port's cface conv on its per-step route matches
+    the JAX package's ``stencil_graph_conv_cface`` on the CPU, which takes
+    its per-step fallback there (no Pallas backend): forward, and the
+    gradients of a fixed cotangent with respect to x and to the kernel, to
+    1e-5 of each max (float32 on both sides, sums in another order).  The
+    route is counted, and launches nothing."""
+    n, K, B, Fin, Fout = 32, 5, 2, 2, 3
+    sj = jgraph.build_sphere_graph(n, k=60, method="grid").deep_stencil(0.75, K)
+    st = _deep_stencil(n, 60, K)
+    h = st.n_steps
+    assert sj.n_steps == h == 16
+    _, P_l = tfs.cfp_geometry(n, h)
+    rng = np.random.RandomState(5)
+    x = rng.normal(size=(B, Fin, 12, n, P_l)).astype(np.float32)
+    x[..., :h] = 0.0
+    x[..., h + n:] = 0.0
+    kern = (rng.normal(size=(Fin * K, Fout)) / np.sqrt(Fin * K)).astype(np.float32)
+    cot = rng.normal(size=(B, Fout, 12, n, P_l)).astype(np.float32)
+
+    y_j, vjp = jax.vjp(
+        lambda a, w: jstencil.stencil_graph_conv_cface(sj, a, w, K, "cheby"),
+        jnp.asarray(x), jnp.asarray(kern))
+    dx_j, dk_j = vjp(jnp.asarray(cot))
+
+    _cuda.reset_launch_counts()
+    xt = _t(x).requires_grad_()
+    kt = _t(kern).requires_grad_()
+    y = tstencil._cface_per_step(st, xt, kt, K, "cheby")
+    dx, dk = torch.autograd.grad(y, (xt, kt), _t(cot))
+    assert _cuda.route_counts == {"per_step_cface": 1}
+    assert all(v == 0 for v in _cuda.launch_counts.values())
+    y = y.detach()
+    assert (y[..., :h] == 0).all() and (y[..., h + n:] == 0).all()
+    _close(y, y_j)
+    _close(dx, dx_j)
+    _close(dk, dk_j)
+
+
+def test_cface_conv_on_the_cpu_keeps_the_fused_plain_route():
+    """A CPU input runs the kernels' plain versions, whatever its shape,
+    and agrees with the per-step route."""
+    n, K, B, Fin, Fout = 32, 5, 2, 2, 3
+    st = _deep_stencil(n, 60, K)
+    h = st.n_steps
+    _, P_l = tfs.cfp_geometry(n, h)
+    rng = np.random.RandomState(6)
+    x = _t(rng.normal(size=(B, Fin, 12, n, P_l)).astype(np.float32))
+    kern = _t(rng.normal(size=(Fin * K, Fout)).astype(np.float32))
+    _cuda.reset_launch_counts()
+    y = tstencil.stencil_graph_conv_cface(st, x, kern, K, "cheby")
+    assert _cuda.route_counts["per_step_cface"] == 0
+    _close(y, tstencil._cface_per_step(st, x, kern, K, "cheby"))
