@@ -68,11 +68,43 @@ Phases, one result line each (with the elapsed seconds):
    ``cface_route`` must name the per-step route, a forward and one train
    step must count it once each and launch no kernel, and the logits
    (1e-4), the loss (1e-5) and every gradient (1e-4) must match the same
-   model on the CPU (the fused route's plain versions).
+   model on the CPU (the fused route's plain versions);
+9. the lap chain (one L~ application per launch on the shallow stencil,
+   h = radius: K4 strips, then K1 with the term selector kernel; the
+   recursion and the contraction between the launches): (a) a k=40 grid
+   graph (radius 3) at nside 256, Chebyshev K=5, 4 -> 4, batch 4, NEST
+   layout: the route counted once a forward, 4 K1 and 4 K4 launches, y
+   against the per-step path on the card (2e-5), forward + backward with a
+   fixed cotangent on both routes (dx 2e-5, dW 1e-4; K2 once a lap, or K1
+   on dy once a lap and no K3), and device times by graph replay of the
+   chain, one lap's K1 and the one-shot conv on the deep stencil (h=12)
+   with its K1; (b) ROADMAP fault 3.2 inside a classifier on the k=20 graph
+   at nside 64, batch 16 (Chebyshev K=11, h=20, 1 -> 8 -> 16, a pool,
+   Dense(4)): ``cface_route`` names the chain for conv 2 in training;
+   serving takes the one-shot K1, a training forward and one
+   ``train_on_batch`` on each route count the chain and launch K1, K4 and
+   K2 or K3; logits (1e-4), loss (1e-5) and every gradient (1e-3) against
+   one float64 CPU step;
+10. the conv family at full width: (a) the autoencoder of
+   ``examples/autoencoder.py`` (nside 64 -> 16 -> 64, Chebyshev K=5 convs
+   of 8 and 16 channels, pseudo-convs and their transposes) as one cface
+   segment: 4 requests of 8 maps (5 K4 and 5 K1 a forward), two MSE train
+   steps with Adam on each route, held to a float64 CPU step as phase 5;
+   ms per step, device ops and device-busy share; (b)
+   ``examples/advanced_masked.py``'s stack on the full sphere (nside 64,
+   batch 16), its residual layer in cface with batch norm and with layer
+   norm: a forward (logits 1e-4) and a train step against float64 (loss
+   1e-5; gradients 1e-3 of the tree's largest entry and BN statistics 1e-5
+   absolute, since its normalised convs make several leaves cancellations
+   that float32 resolves only to ~3e-3 of their own max); (c) a Bernstein
+   conv with and without the reference quirk: no kernel, against the CPU.
+   The float64 references of phases 9-10 are CPU copies planned in the
+   NEST layout (per-step convs), the parameters copied.
 
-It then prints the card line, one JSON line with every kernel's launches on
-its slice's training path (phase 5 for K1-K4, phase 7 for K5), error, times
-and bound, and finally
+It then prints the card line, one JSON line with every kernel's launches
+(the sum over the main paths, each counted from 0: quick_start training
+for K1-K4, the sharded training for K5, and phases 9-10, with the paths
+under ``paths``), error, times and bound, and finally
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
 non-zero and prints no result line.  It needs one card, never falls back to
 the CPU, and imports no JAX.
@@ -90,6 +122,7 @@ unpacked with ``git archive``) and this one in turns, parent, this, this,
 parent, and also writes the pairs to OUT.json.
 """
 
+import atexit
 import copy
 import json
 import os
@@ -194,6 +227,54 @@ def rel_err(got, want):
     return (got - want).abs().max().item() / max(scale, 1e-30)
 
 
+def grads_of(m):
+    from deepsphere_tpu_torch.interop import export_jax_variables
+
+    return export_jax_variables(m, grads=True)
+
+
+def stats_of(m):
+    from deepsphere_tpu_torch.interop import export_jax_variables
+
+    return export_jax_variables(m)["batch_stats"]
+
+
+def tree_errs(got, want, path="", scale=None):
+    """{leaf path: max|got - want| / max|want|}, or over ``scale`` instead
+    of each leaf's own max where it is given."""
+    out = {}
+    for k, v in want.items():
+        if isinstance(v, dict):
+            out.update(tree_errs(got[k], v, f"{path}/{k}", scale))
+        else:
+            den = np.abs(v).max() if scale is None else scale
+            out[f"{path}/{k}"] = float(np.abs(got[k] - v).max()
+                                       / max(den, 1e-30))
+    return out
+
+
+def tree_max(tree):
+    """The largest magnitude in a tree of arrays."""
+    return max(tree_max(v) if isinstance(v, dict) else float(np.abs(v).max())
+               for v in tree.values())
+
+
+def held(errs, tol):
+    """Leaves where the card is further from the reference than ``tol``."""
+    return {k: e for k, e in errs.items() if not e <= tol}
+
+
+def counted(fn):
+    """Run ``fn`` with every launch and route count at 0; returns (its
+    result, the launches, the routes), read after a synchronize."""
+    from deepsphere_tpu_torch.ops import _cuda
+
+    _cuda.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(_cuda.launch_counts), dict(_cuda.route_counts)
+
+
 def card_line():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -224,6 +305,74 @@ def tile_work(st, K, C):
     return halo + planes, laps + cheby
 
 
+def k1_bound(st, K, B, Fin, Fout):
+    """(ms, by) of one K1 launch: the interior lanes of B*Fin channels in
+    and B*Fout out, the halo ring and weight planes (:func:`tile_work`)
+    and the (K, Fin, Fout) kernel; the recursion's and the contraction's
+    operations."""
+    n = st.nside
+    tb, tf = tile_work(st, K, B * Fin)
+    cells = 2 * K * Fin * Fout * B * 12 * n * n
+    return bound(4 * 12 * n * n * B * (Fin + Fout) + tb + 4 * K * Fin * Fout,
+                 tf + cells)
+
+
+def autoencoder_layers(hp_nn, nside, bottleneck):
+    """``examples/autoencoder.py``'s encoder and decoder layers (its
+    published widths: Chebyshev K=5 convs of 8 * 2^i channels, pseudo-convs
+    down to the bottleneck and transposes back) as one layer list."""
+    steps = int(np.log2(nside // bottleneck))
+    layers = []
+    for i in range(steps):
+        layers += [hp_nn.HealpyChebyshev(K=5, Fout=8 * 2**i, activation="relu"),
+                   hp_nn.HealpyPseudoConv(p=1, Fout=8 * 2**i)]
+    for i in reversed(range(steps)):
+        layers += [hp_nn.HealpyPseudoConv_Transpose(p=1, Fout=8 * 2**i),
+                   hp_nn.HealpyChebyshev(K=5, Fout=8 * 2**i, activation="relu")]
+    layers.append(hp_nn.HealpyChebyshev(K=5, Fout=1))
+    return layers
+
+
+def masked_layers(hp_nn, norm):
+    """``examples/advanced_masked.py``'s layer stack, ``norm_type`` in the
+    residual layer."""
+    return [
+        hp_nn.HealpyChebyshev(K=5, Fout=8, activation="relu", use_bn=True),
+        hp_nn.HealpyPool(p=1),
+        hp_nn.Healpy_ResidualLayer("CHEBY", {"K": 5}, activation="relu",
+                                   use_bn=True, norm_type=norm),
+        hp_nn.HealpyPool(p=1),
+        hp_nn.HealpyMonomial(K=3, Fout=16, activation="relu"),
+        hp_nn.Flatten(),
+        hp_nn.Dense(2),
+    ]
+
+
+def nest_reference(dt, model, nside, layers, **kw):
+    """A float64 CPU copy of ``model`` planned in the NEST layout (its convs
+    per step, no cface segment), with ``model``'s parameters and batch
+    statistics: the same model by another route, and ~20x cheaper on the
+    host than the fused route's plain versions at these depths."""
+    ref = dt.HealpyGCNN(nside, np.arange(12 * nside * nside), layers,
+                        internal_layout="nest", **kw)
+    ref.build((1,) + tuple(model._built_input_shape[1:]), device="cpu")
+    ref.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    return ref.double()
+
+
+def chain_launches(laps, fused_dw=None):
+    """Launches of a lap chain of ``laps`` laps: the forward, and with
+    ``fused_dw`` set its backward too (K2 a lap; or K1 on dy a lap and no
+    K3: the term selector needs no gradient)."""
+    want = {"strips": laps, "stencil_conv": laps, "dxdw": 0, "grad": 0,
+            "bands": 0}
+    if fused_dw is True:
+        want.update(strips=2 * laps, dxdw=laps)
+    elif fused_dw is False:
+        want.update(strips=2 * laps, stencil_conv=2 * laps)
+    return want
+
+
 def quick_start_layers(hp_nn):
     """``examples/quick_start.py``'s classifier at full width."""
     return [
@@ -239,16 +388,16 @@ def quick_start_layers(hp_nn):
     ]
 
 
-def time_routes(config, trainers, x, y, steps=10, warmup=3):
-    """Host-clock ms per synchronized ``train_on_batch`` of 16 maps on each
-    backward route (``config.fused_dw`` True: ``trainers[True]``, the K2
-    route; False: the K1+K3 route): ``warmup`` steps of each, then ``steps``
-    rounds of one step of each, the first route swapped every round.
-    Returns ({route: median ms}, {route: [ms, ...]})."""
+def time_routes(config, trainers, x, y, steps=10, warmup=3, batch=16):
+    """Host-clock ms per synchronized ``train_on_batch`` of ``batch`` maps
+    on each backward route (``config.fused_dw`` True: ``trainers[True]``,
+    the K2 route; False: the K1+K3 route): ``warmup`` steps of each, then
+    ``steps`` rounds of one step of each, the first route swapped every
+    round.  Returns ({route: median ms}, {route: [ms, ...]})."""
     def step(fused, i):
         config.set_fused_dw(fused)
-        j = 16 * (i % (len(x) // 16))
-        trainers[fused].train_on_batch(x[j:j + 16], y[j:j + 16])
+        j = batch * (i % (len(x) // batch))
+        trainers[fused].train_on_batch(x[j:j + batch], y[j:j + batch])
 
     try:
         for i in range(warmup):
@@ -462,6 +611,461 @@ def compare(parent, out_path=None):
     print(json.dumps(summary), flush=True)
 
 
+K40_GRAPH = (256, 40, 5)  # phase 9(a): nside, k, K
+
+
+def prebuild_k40(root):
+    """Build phase 9(a)'s k=40 graph and its two stencils in another
+    process, into ``ROOT/.bench_cache`` (ARPACK's lmax of the nside-256
+    graph takes minutes of host time; built beside phases 3-8, phase 9
+    loads it).  Returns the process."""
+    n, k, K = K40_GRAPH
+    code = ("import sys; sys.path.insert(0, {root!r}); "
+            "from deepsphere_tpu_torch.graph import build_sphere_graph; "
+            "g = build_sphere_graph({n}, k={k}, method='grid', "
+            "cache_dir={cache!r}); g.face_stencil(0.75); "
+            "g.deep_stencil(0.75, {K})").format(
+                root=root, n=n, k=k, K=K,
+                cache=os.path.join(root, ".bench_cache"))
+    return subprocess.Popen([sys.executable, "-c", code])
+
+
+def chain_and_family(dev, card, rng, prebuild):
+    """Phases 9 and 10: the lap chain (a k=40 conv in NEST, and fault 3.2's
+    shape inside a classifier) and the conv family at full width (the
+    autoencoder, the residual stack, Bernstein).  Returns the launches of
+    each main path, the chain's times and the family's."""
+    import deepsphere_tpu_torch as dt
+    from deepsphere_tpu_torch import config
+    from deepsphere_tpu_torch.graph import build_sphere_graph
+    from deepsphere_tpu_torch.nn import healpy_layers as hp_nn
+    from deepsphere_tpu_torch.ops import _cuda
+    from deepsphere_tpu_torch.ops import fused_stencil as fs
+    from deepsphere_tpu_torch.ops import stencil as tst
+    from deepsphere_tpu_torch.ops.layout import face_to_nest, nest_to_face
+    from deepsphere_tpu_torch.ops.stencil import (
+        as_tensors,
+        cface_embed,
+        cface_extract,
+        stencil_graph_conv,
+        stencil_tables,
+    )
+    from deepsphere_tpu_torch.ops.strips import build_strips
+    from deepsphere_tpu_torch.train.losses import resolve_loss
+
+    loss_name = "sparse_categorical_crossentropy_from_logits"
+    # 9. the lap chain: one L~ application per launch (K4 strips, then K1
+    # with the term selector kernel) on the shallow stencil, h = radius
+    path_launches = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def add_path(name, *counts):
+        total = {k: 0 for k in _cuda.launch_counts}
+        for c in counts:
+            for k, v in c.items():
+                total[k] += v
+        path_launches[name] = total
+
+    # (a) a k=40 grid graph (radius 3) at nside 256, Chebyshev K=5, 4 -> 4,
+    # batch 4, NEST layout: bench.py's k20 stage moved to k=40
+    n, k40, K = K40_GRAPH
+    B, Fin, Fout = 4, 4, 4
+    M = 12 * n * n
+    t = time.perf_counter()
+    if prebuild.wait() != 0:
+        raise RuntimeError("building the k=40 graph failed")
+    root = os.path.dirname(os.path.abspath(__file__))
+    g40 = build_sphere_graph(n, k=k40, method="grid",
+                             cache_dir=os.path.join(root, ".bench_cache"))
+    st40 = g40.face_stencil(0.75)
+    st40d = g40.deep_stencil(0.75, K)
+    g40_s = time.perf_counter() - t
+    tab40 = as_tensors(stencil_tables(st40), dev)
+    if (st40.radius, st40.n_steps) != (3, 3) or tst.conv_route(
+            st40, "cheby", K, True) != "chain":
+        raise AssertionError("the k=40 conv does not take the lap chain")
+    x40 = torch.from_numpy(rng.normal(size=(B, M, Fin)).astype(np.float32)).to(dev)
+    k40 = torch.from_numpy((rng.normal(size=(Fin * K, Fout))
+                            / np.sqrt(Fin * K)).astype(np.float32)).to(dev)
+    cot40 = torch.from_numpy(rng.normal(size=(B, M, Fout)).astype(np.float32)).to(dev)
+    chain = lambda a, w, layout="nest": stencil_graph_conv(
+        st40, a, w, K, "cheby", tables=tab40, layout=layout)
+    plain = lambda a, w: tst._per_step(st40, a, w, K, "cheby", tab40, "nest")
+    with torch.no_grad():
+        y_c, fwd40, rt40 = counted(lambda: chain(x40, k40))
+        y_p = plain(x40, k40)
+    e40 = rel_err(y_c, y_p)
+    if fwd40 != chain_launches(K - 1) or rt40["lap_chain"] != 1:
+        raise AssertionError(f"k=40 chain forward launched {fwd40}, routes "
+                             f"{rt40}")
+    if not e40 <= TOL:
+        raise AssertionError(f"k=40 chain rel err {e40:.3e} vs per step")
+    xl = x40.clone().requires_grad_()
+    kl = k40.clone().requires_grad_()
+    dx_p, dk_p = torch.autograd.grad(plain(xl, kl), (xl, kl), cot40)
+    bwd40 = {}
+    try:
+        for fused_dw in (True, False):
+            config.set_fused_dw(fused_dw)
+            (dx_c, dk_c), c, _ = counted(lambda: torch.autograd.grad(
+                chain(xl, kl), (xl, kl), cot40))
+            e_dx, e_dk = rel_err(dx_c, dx_p), rel_err(dk_c, dk_p)
+            if c != chain_launches(K - 1, fused_dw) or not (
+                    e_dx <= TOL and e_dk <= DW_TOL):
+                raise AssertionError(
+                    f"k=40 chain fwd + bwd fused_dw={fused_dw}: launched {c}"
+                    f", dx rel {e_dx:.3e}, dW rel {e_dk:.3e}")
+            ms = cuda_ms(lambda: torch.autograd.grad(chain(xl, kl), (xl, kl),
+                                                     cot40), iters=5, warmup=1)
+            bwd40[fused_dw] = (c, e_dx, e_dk, ms)
+    finally:
+        config.set_fused_dw(True)
+    add_path("lap_chain", fwd40, bwd40[True][0], bwd40[False][0])
+    del dx_p, dk_p, xl, kl
+    # device times by graph replay: the whole chain from face-flat maps,
+    # one lap's K1, and the one-shot conv on the deep stencil (h=12) where
+    # K1 has a plan for it
+    xf40 = nest_to_face(x40)
+    ms_chain = graph_ms(lambda: chain(xf40, k40, "face"), iters=5)
+    ms_chain_nest = graph_ms(lambda: chain(x40, k40), iters=5)
+    ms_plain40 = cuda_ms(lambda: plain(x40, k40), iters=3, warmup=1)
+    sel = torch.stack([torch.zeros(Fin, Fin, device=dev),
+                       torch.eye(Fin, device=dev)], dim=1).reshape(2 * Fin,
+                                                                   Fin)
+    xc40 = cface_embed(xf40, n, 3).reshape(B * Fin, 12, n, -1).contiguous()
+    lap_args = (st40, "mono", 2, xc40, tab40["weights"],
+                build_strips(st40, xc40, tab40["strip_idx"]),
+                fs._wk3(sel, 2), B)
+    ms_lap_k1 = graph_ms(lambda: fs.run_stencil_kernel(*lap_args))
+    lap_bound = k1_bound(st40, 2, B, Fin, Fin)
+    lap_plan = fs._k1_plan(n, 3, 3, len(st40.offsets), 2, B, 12, Fin, Fin,
+                           sms)
+    hd = st40d.n_steps
+    one_plan = fs._k1_plan(n, hd, 3, len(st40d.offsets), K, B, 12, Fin, Fout,
+                           sms)
+    one = "no K1 plan"
+    if one_plan is not None:
+        tab40d = as_tensors(stencil_tables(st40d), dev)
+        xc40d = cface_embed(xf40, n, hd).reshape(B * Fin, 12, n, -1).contiguous()
+        one_shot = lambda: fs.fused_stencil_conv_cfp(st40d, tab40d, xc40d, k40,
+                                                     K, "cheby", B)
+        with torch.no_grad():
+            y1 = cface_extract(one_shot().reshape(B, Fout, 12, n, -1), hd)
+        e1 = rel_err(face_to_nest(y1), y_p)
+        if not e1 <= TOL:
+            raise AssertionError(f"k=40 one-shot conv rel err {e1:.3e}")
+        ms_one = graph_ms(one_shot, iters=5)
+        s40d = build_strips(st40d, xc40d, tab40d["strip_idx"])
+        ms_one_k1 = graph_ms(lambda: fs.run_stencil_kernel(
+            st40d, "cheby", K, xc40d, tab40d["weights"], s40d,
+            fs._wk3(k40, K), B))
+        one_bound = k1_bound(st40d, K, B, Fin, Fout)
+        one = (f"one-shot conv (h={hd}, plan {one_plan}, rel {e1:.2e}) "
+               f"{ms_one:.4f} ms, its K1 alone {ms_one_k1:.4f} ms (bound "
+               f"{one_bound[0]:.4f} ms, {one_bound[1]})")
+        del tab40d, xc40d, s40d
+    say("lap chain", f"k=40 grid graph nside {n} (waited for and loaded "
+        f"the graph and stencils in {g40_s:.2f} s), Chebyshev K={K}, B={B}, {Fin} -> {Fout}, NEST: "
+        f"route chain, a forward launched {fwd40}; rel err vs the per-step "
+        f"path {e40:.2e}; fwd + bwd K2 route {bwd40[True][3]:.3f} ms "
+        f"(dx {bwd40[True][1]:.2e}, dW {bwd40[True][2]:.2e}, launches "
+        f"{bwd40[True][0]}), K1+K3 route {bwd40[False][3]:.3f} ms (dx "
+        f"{bwd40[False][1]:.2e}, dW {bwd40[False][2]:.2e}, launches "
+        f"{bwd40[False][0]}); graph replay: chain {ms_chain:.4f} ms from "
+        f"face-flat maps ({ms_chain_nest:.4f} from NEST), one lap's K1 "
+        f"{ms_lap_k1:.4f} ms (bound {lap_bound[0]:.4f} ms, {lap_bound[1]}; "
+        f"plan {lap_plan}); {one}; per-step plain {ms_plain40:.3f} ms "
+        f"(CUDA events) on {card}")
+    chain_times = {"chain_ms": ms_chain, "chain_nest_ms": ms_chain_nest,
+                   "lap_k1_ms": ms_lap_k1, "plain_ms": ms_plain40,
+                   "one_shot": one}
+    del tab40, x40, xf40, xc40, cot40, lap_args, y_c, y_p
+
+    # (b) ROADMAP fault 3.2 inside a model: a classifier on the k=20 graph
+    # at nside 64, batch 16, Chebyshev K=11 (h=20) 1 -> 8 and 8 -> 16: no
+    # one-shot K2 takes conv 2, so it trains on the chain
+    nside = 64
+    npix = 12 * nside * nside
+    t = time.perf_counter()
+    model = dt.HealpyGCNN(nside, np.arange(npix), [
+        hp_nn.HealpyChebyshev(K=11, Fout=8, activation="relu"),
+        hp_nn.HealpyChebyshev(K=11, Fout=16, activation="relu"),
+        hp_nn.HealpyPool(p=1), hp_nn.Flatten(), hp_nn.Dense(4)],
+        n_neighbors=20)
+    model.build((16, npix, 1), seed=31)
+    convs = [m for m in model.layers.values()
+             if getattr(m, "layout", None) == "cface" and hasattr(m, "graph")]
+    rts = [fs.cface_route(c._stencil(), "cheby", 11, 16, fi, fo, sms)
+           for c, (fi, fo) in zip(convs, ((1, 8), (8, 16)))]
+    if rts != ["fused", "chain"]:
+        raise AssertionError(f"the k=20 convs took the routes {rts}")
+    x9 = rng.normal(size=(16, npix, 1)).astype(np.float32)
+    y9 = rng.randint(0, 4, size=16)
+    # serving needs no gradient, and K1 alone takes conv 2 one shot
+    logits, srv9, srv_rt9 = counted(lambda: model.predict(x9, batch_size=16))
+    if (srv9 != {"strips": 2, "stencil_conv": 2, "dxdw": 0, "grad": 0,
+                 "bands": 0} or any(srv_rt9.values())):
+        raise AssertionError(f"the k=20 model served with {srv9}, routes "
+                             f"{srv_rt9}")
+    # a training forward: conv 2 on the chain (10 laps), conv 1 one shot
+    xb = torch.from_numpy(x9).to(dev)
+    model.train()
+    _, fwd9, rt9 = counted(lambda: model(xb))
+    model.eval()
+    want9 = {"strips": 11, "stencil_conv": 11, "dxdw": 0, "grad": 0,
+             "bands": 0}
+    if fwd9 != want9 or rt9["chain_cface"] != 1:
+        raise AssertionError(f"the k=20 model's training forward launched "
+                             f"{fwd9}, routes {rt9}")
+    t64 = time.perf_counter()
+    cpu64 = nest_reference(dt, model, nside, [
+        hp_nn.HealpyChebyshev(K=11, Fout=8, activation="relu"),
+        hp_nn.HealpyChebyshev(K=11, Fout=16, activation="relu"),
+        hp_nn.HealpyPool(p=1), hp_nn.Flatten(), hp_nn.Dense(4)],
+        n_neighbors=20)
+    cpu64.train()
+    out64 = cpu64(torch.from_numpy(x9.astype(np.float64)))
+    loss64 = resolve_loss(loss_name)(torch.from_numpy(y9), out64)
+    loss64.backward()
+    g64 = grads_of(cpu64)
+    out64 = out64.detach().numpy()
+    loss64 = float(loss64.detach())
+    cpu_s = time.perf_counter() - t64
+    del cpu64
+    rel = float(np.abs(logits - out64).max() / np.abs(out64).max())
+    if not (logits.shape == (16, 4) and rel <= 1e-4):
+        raise AssertionError(f"the k=20 model's logits {logits.shape} rel "
+                             f"{rel:.3e} from float64")
+    steps9 = {}
+    try:
+        for fused in (True, False):
+            config.set_fused_dw(fused)
+            m = copy.deepcopy(model)
+            m.compile(optimizer=1e-3, loss=loss_name)
+            logs, c, r = counted(lambda: m._trainer.train_on_batch(x9, y9))
+            kern = "dxdw" if fused else "grad"
+            if (r["chain_cface"] != 1 or c["strips"] == 0
+                    or c["stencil_conv"] == 0 or c[kern] == 0):
+                raise AssertionError(f"fused_dw={fused}: the k=20 train "
+                                     f"step launched {c}, routes {r}")
+            loss_rel = abs(logs["loss"] - loss64) / abs(loss64)
+            g_err = tree_errs(grads_of(m), g64)
+            if not loss_rel <= 1e-5 or held(g_err, GRAD_TOL):
+                raise AssertionError(
+                    f"fused_dw={fused}: the k=20 train step's loss rel "
+                    f"{loss_rel:.3e}, gradients {g_err} from float64")
+            steps9[fused] = (c, loss_rel, max(g_err.values()))
+            del m
+    finally:
+        config.set_fused_dw(True)
+    add_path("chain_cface", fwd9, steps9[True][0], steps9[False][0])
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: model(xb), iters=5, warmup=1)
+    say("lap chain", f"k=20 classifier nside {nside}, batch 16, Chebyshev "
+        f"K=11 (h={convs[0]._stencil().n_steps}) 1 -> 8 -> 16 "
+        f"({time.perf_counter() - t:.2f} s with the float64 CPU step, "
+        f"{cpu_s:.1f} s of it): routes {rts} in training; serving 16 maps "
+        f"launched {srv9}, logits rel {rel:.2e} from float64; a training "
+        f"forward launched {fwd9} (routes {rt9}); train step K2 "
+        f"route launched {steps9[True][0]}, loss rel {steps9[True][1]:.2e}, "
+        f"gradients {steps9[True][2]:.2e}; K1+K3 route launched "
+        f"{steps9[False][0]}, loss rel {steps9[False][1]:.2e}, gradients "
+        f"{steps9[False][2]:.2e}; {fwd_ms:.3f} ms per serving forward of 16 "
+        f"maps on {card}")
+    del model
+
+    # 10. the conv family at full width
+    # (a) the autoencoder of examples/autoencoder.py: nside 64, bottleneck
+    # 16, its published widths, one cface segment from input to output
+    nside, bott = 64, 16
+    npix = 12 * nside * nside
+    t = time.perf_counter()
+    model = dt.HealpyGCNN(nside, np.arange(npix),
+                          autoencoder_layers(hp_nn, nside, bott))
+    model.build((8, npix, 1), seed=41)
+    plan = [type(m).__name__ for m in model.layers.values()]
+    mids = list(model.layers.values())[1:-1]
+    if (plan.count("NestToCface") != 1 or plan.count("CfaceToNest") != 1
+            or any(getattr(m, "layout", None) != "cface" for m in mids)):
+        raise AssertionError(f"the autoencoder's plan {plan}")
+    init = copy.deepcopy(model)
+    xa = rng.normal(size=(32, npix, 1)).astype(np.float32)
+    rec, fwd_a, rt_a = counted(lambda: model.predict(xa, batch_size=8))
+    want_a = {"strips": 20, "stencil_conv": 20, "dxdw": 0, "grad": 0,
+              "bands": 0}  # 5 convs x 4 requests
+    if fwd_a != want_a or any(rt_a.values()):
+        raise AssertionError(f"the autoencoder served with {fwd_a}, routes "
+                             f"{rt_a}")
+    cpu64 = nest_reference(dt, model, nside,
+                           autoencoder_layers(hp_nn, nside, bott))
+    out64 = cpu64(torch.from_numpy(xa[:8].astype(np.float64)))
+    loss64 = resolve_loss("mse")(torch.from_numpy(xa[:8].astype(np.float64)),
+                                 out64)
+    loss64.backward()
+    g64 = grads_of(cpu64)
+    rel = float(np.abs(rec[:8] - out64.detach().numpy()).max()
+                / np.abs(out64.detach().numpy()).max())
+    loss64 = float(loss64.detach())
+    del cpu64, out64
+    if not (rec.shape == xa.shape and np.all(np.isfinite(rec))
+            and rel <= 1e-4):
+        raise AssertionError(f"the autoencoder's output {rec.shape} rel "
+                             f"{rel:.3e} from float64")
+    want_step = {True: {"strips": 10, "stencil_conv": 5, "dxdw": 5, "grad": 0,
+                        "bands": 0},
+                 False: {"strips": 9, "stencil_conv": 9, "dxdw": 0, "grad": 5,
+                         "bands": 0}}
+    ae = {}
+    try:
+        for fused in (True, False):
+            config.set_fused_dw(fused)
+            m = copy.deepcopy(init)
+            m.compile(optimizer=1e-3, loss="mse")
+            logs, c, r = counted(
+                lambda: m._trainer.train_on_batch(xa[:8], xa[:8]))
+            loss_rel = abs(logs["loss"] - loss64) / abs(loss64)
+            g_err = tree_errs(grads_of(m), g64)
+            logs2 = m._trainer.train_on_batch(xa[8:16], xa[8:16])
+            if (c != want_step[fused] or any(r.values())
+                    or not loss_rel <= 1e-5 or held(g_err, GRAD_TOL)
+                    or not np.isfinite(logs2["loss"])):
+                raise AssertionError(
+                    f"fused_dw={fused}: an autoencoder step launched {c} "
+                    f"(routes {r}), loss rel {loss_rel:.3e}, gradients "
+                    f"{g_err}, second loss {logs2['loss']}")
+            ae[fused] = (m, c, loss_rel, max(g_err.values()), logs2["loss"])
+    finally:
+        config.set_fused_dw(True)
+    add_path("autoencoder", fwd_a, ae[True][1], ae[False][1])
+    ae_ms, _ = time_routes(config, {f: ae[f][0]._trainer for f in ae}, xa, xa,
+                           steps=6, warmup=2, batch=8)
+    tr = ae[True][0]._trainer
+    ae_ops, ae_busy, ae_top, _ = device_profile(
+        lambda i: tr.train_on_batch(xa[8 * i:8 * i + 8], xa[8 * i:8 * i + 8]),
+        3, top=4)
+    xb = torch.from_numpy(xa[:8]).to(dev)
+    model.eval()
+    with torch.inference_mode():
+        ae_fwd = cuda_ms(lambda: model(xb), iters=10, warmup=2)
+    say("family", f"autoencoder nside {nside} -> {bott} -> {nside}, batch 8 "
+        f"({time.perf_counter() - t:.2f} s with the float64 CPU step): plan "
+        f"{plan}; 4 requests launched {fwd_a}, output rel {rel:.2e} from "
+        f"float64; {ae_fwd:.3f} ms per forward of 8 maps; train step K2 "
+        f"route {ae_ms[True]:.3f} ms (launches {ae[True][1]}, loss rel "
+        f"{ae[True][2]:.2e}, gradients {ae[True][3]:.2e}), K1+K3 route "
+        f"{ae_ms[False]:.3f} ms (launches {ae[False][1]}, loss rel "
+        f"{ae[False][2]:.2e}, gradients {ae[False][3]:.2e}); second losses "
+        f"{ae[True][4]:.6f} / {ae[False][4]:.6f}; profile of the K2-route "
+        f"step: {ae_ops:.0f} device ops, {ae_busy:.3f} ms device-busy = "
+        f"{ae_busy / ae_ms[True]:.1%} of the step; top: "
+        + "; ".join(f"{nm[:50]} x{c:.0f} {t_:.3f} ms" for nm, c, t_ in ae_top)
+        + f" on {card}")
+    family = {"ae_fwd_ms": ae_fwd, "ae_step_ms": ae_ms, "ae_ops": ae_ops,
+              "ae_busy_ms": ae_busy}
+    del model, init, ae, tr
+
+    # (b) examples/advanced_masked.py's stack on the full sphere (nside 64,
+    # batch 16): the residual layer runs in the cface segment
+    nside = 64
+    npix = 12 * nside * nside
+    xm = rng.normal(size=(16, npix, 1)).astype(np.float32)
+    ym = rng.randint(0, 2, size=16)
+    masked_launch = []
+    for norm in ("batch_norm", "layer_norm"):
+        t = time.perf_counter()
+        model = dt.HealpyGCNN(nside, np.arange(npix),
+                              masked_layers(hp_nn, norm))
+        model.build((16, npix, 1), seed=51)
+        res = model.layers["layer_2"]
+        if res.layout != "cface":
+            raise AssertionError(f"the residual layer planned {res.layout}")
+        out, fwd_m, rt_m = counted(lambda: model.predict(xm, batch_size=16))
+        want_m = {"strips": 4, "stencil_conv": 4, "dxdw": 0, "grad": 0,
+                  "bands": 0}
+        if fwd_m != want_m or any(rt_m.values()):
+            raise AssertionError(f"{norm}: a forward launched {fwd_m}, "
+                                 f"routes {rt_m}")
+        cpu64 = nest_reference(dt, model, nside, masked_layers(hp_nn, norm))
+        with torch.no_grad():
+            ev64 = cpu64.eval()(torch.from_numpy(xm.astype(np.float64)))
+        rel = float((torch.from_numpy(out).double() - ev64).abs().max()
+                    / ev64.abs().max())
+        cpu64.train()
+        out64 = cpu64(torch.from_numpy(xm.astype(np.float64)))
+        loss64 = resolve_loss(loss_name)(torch.from_numpy(ym), out64)
+        loss64.backward()
+        g64, s64 = grads_of(cpu64), stats_of(cpu64)
+        loss64 = float(loss64.detach())
+        del cpu64, out64
+        model.compile(optimizer=1e-3, loss=loss_name)
+        logs, c, r = counted(lambda: model._trainer.train_on_batch(xm, ym))
+        # every conv here is normalised, so several leaves are
+        # cancellations: a normalised conv's kernel gradient is orthogonal
+        # to the kernel, bn1's bias shifts a conv's input whose output bn2
+        # centres again, and bn2's running mean is the mean of a centred
+        # activation (~1e-4).  float32 resolves those only to ~3e-3 of
+        # their own max, so the gradients are held to float64 over the
+        # tree's largest entry and the statistics absolutely; each leaf's
+        # own error is printed
+        loss_rel = abs(logs["loss"] - loss64) / abs(loss64)
+        g_err = tree_errs(grads_of(model), g64)
+        g_tree = tree_errs(grads_of(model), g64, scale=tree_max(g64))
+        s_abs = tree_errs(stats_of(model), s64, scale=1.0)
+        bad = {**held(g_tree, GRAD_TOL), **held(s_abs, BN_TOL)}
+        if (not rel <= 1e-4 or not loss_rel <= 1e-5 or bad
+                or c["dxdw"] != 4 or any(r.values())):
+            raise AssertionError(
+                f"{norm}: logits rel {rel:.3e}, loss rel {loss_rel:.3e}, "
+                f"launches {c}, routes {r}, errors above the limits {bad}")
+        masked_launch += [fwd_m, c]
+        say("family", f"advanced_masked stack, full sphere nside {nside}, "
+            f"batch 16, residual {norm} in cface "
+            f"({time.perf_counter() - t:.2f} s with the float64 CPU step): a "
+            f"forward launched {fwd_m}, logits rel {rel:.2e}; a train step "
+            f"launched {c}, loss rel {loss_rel:.2e}; against float64: "
+            f"gradients {max(g_tree.values()):.2e} of the tree's largest "
+            f"(per leaf of its own {g_err}), BN statistics "
+            f"{max(s_abs.values()):.2e} absolute")
+        del model
+    add_path("residual", *masked_launch)
+
+    # (c) a Bernstein conv, with and without the reference quirk: the face
+    # layout's per-step path, as in the JAX package (no kernel)
+    nside = 32
+    npix = 12 * nside * nside
+    xbn = rng.normal(size=(4, npix, 1)).astype(np.float32)
+    ybn = rng.randint(0, 4, size=4)
+    for quirk in (False, True):
+        model = dt.HealpyGCNN(nside, np.arange(npix), [
+            hp_nn.HealpyBernstein(K=3, Fout=8, activation="relu",
+                                  ref_quirks=quirk),
+            hp_nn.HealpyPool(p=1), hp_nn.Flatten(), hp_nn.Dense(4)])
+        model.build((4, npix, 1), seed=61)
+        cpu = copy.deepcopy(model).to("cpu")
+        out, fwd_b, rt_b = counted(lambda: model.predict(xbn, batch_size=4))
+        rel = float(np.abs(out - cpu.predict(xbn, batch_size=4)).max()
+                    / np.abs(out).max())
+        for m in (model, cpu):
+            m.compile(optimizer=1e-3, loss=loss_name)
+        logs, c, r = counted(lambda: model._trainer.train_on_batch(xbn, ybn))
+        logs_c = cpu._trainer.train_on_batch(xbn, ybn)
+        loss_rel = abs(logs["loss"] - logs_c["loss"]) / abs(logs_c["loss"])
+        g_err = tree_errs(grads_of(model), grads_of(cpu))
+        if (any(fwd_b.values()) or any(c.values()) or any(rt_b.values())
+                or not rel <= 1e-4 or not loss_rel <= 1e-5
+                or held(g_err, 1e-4)):
+            raise AssertionError(
+                f"Bernstein ref_quirks={quirk}: launches {fwd_b} / {c}, "
+                f"logits rel {rel:.3e}, loss rel {loss_rel:.3e}, gradients "
+                f"{g_err}")
+        say("family", f"Bernstein K=3 ref_quirks={quirk}, nside {nside}, "
+            f"batch 4, layout {model.layers['layer_0'].layout}: no kernel "
+            f"launched; logits rel {rel:.2e}, loss rel {loss_rel:.2e}, "
+            f"gradients {max(g_err.values()):.2e} from the CPU")
+        del model, cpu
+    return path_launches, chain_times, family
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -470,7 +1074,6 @@ def main():
     import deepsphere_tpu_torch as dt
     from deepsphere_tpu_torch import config
     from deepsphere_tpu_torch.graph import build_sphere_graph
-    from deepsphere_tpu_torch.interop import export_jax_variables
     from deepsphere_tpu_torch.nn import healpy_layers as hp_nn
     from deepsphere_tpu_torch.ops import _cuda
     from deepsphere_tpu_torch.ops import fused_stencil as fs
@@ -510,7 +1113,9 @@ def main():
     say("card", f"{card} | torch {torch.__version__} cuda {torch.version.cuda}"
         f" | capability {torch.cuda.get_device_capability(0)}")
 
-    # 2. build
+    # 2. build (phase 9's k=40 graph builds beside it and phases 3-8)
+    prebuild = prebuild_k40(os.path.dirname(os.path.abspath(__file__)))
+    atexit.register(lambda: (prebuild.kill(), prebuild.wait()))
     path, secs, log = _cuda.build()
     _cuda.lib()
     ptxas = [ln.strip() for ln in log.splitlines()
@@ -597,9 +1202,7 @@ def main():
         ms_k1p = cuda_ms(lambda: fs.run_stencil_plain(*args), iters=3,
                          warmup=1)
         abs_k1 = (y_k[..., inner] - y_p[..., inner]).abs().max().item()
-        tb, tf = tile_work(st, K, B * Fin)
-        k1 = bound(interior(B * Fin) + tb + wk3.numel() * 4
-                   + interior(B * Fout), tf + cells)
+        k1 = k1_bound(st, K, B, Fin, Fout)
         results["stencil_conv"].append((label, abs_k1, ms_k1, ms_k1p, *k1,
                                         None))
 
@@ -750,23 +1353,6 @@ def main():
     yt = data.randint(0, 4, size=64)
     say("train", f"model built in {time.perf_counter() - t:.2f} s")
 
-    def grads_of(m):
-        return export_jax_variables(m, grads=True)
-
-    def stats_of(m):
-        return export_jax_variables(m)["batch_stats"]
-
-    def tree_errs(got, want, path=""):
-        """{leaf path: max|got - want| / max|want|}."""
-        out = {}
-        for k, v in want.items():
-            if isinstance(v, dict):
-                out.update(tree_errs(got[k], v, f"{path}/{k}"))
-            else:
-                out[f"{path}/{k}"] = float(np.abs(got[k] - v).max()
-                                           / max(np.abs(v).max(), 1e-30))
-        return out
-
     # the reference is a float64 copy on the CPU.  A conv followed by batch
     # norm (no affine) gives the same loss for any scale of its kernel, so
     # its gradient is orthogonal to the kernel: a cancellation, which
@@ -788,10 +1374,6 @@ def main():
     g_cpu = tree_errs(grads_of(cpu32), g64)
     s_cpu = tree_errs(stats_of(cpu32), s64)
     del cpu32, cpu64, out64
-
-    def held(errs, tol):
-        """Leaves where the card is further from float64 than ``tol``."""
-        return {k: e for k, e in errs.items() if not e <= tol}
 
     # the main path of this slice, counted from 0: one step on each route
     route_want = {
@@ -1228,8 +1810,9 @@ def main():
     loss_rel = abs(logs["loss"] - logs_c["loss"]) / abs(logs_c["loss"])
     g_err = tree_errs(grads_of(model), grads_of(cpu))
     none = {k: 0 for k in _cuda.launch_counts}
-    if (fwd_counts != (none, {"per_step_cface": 1})
-            or step_counts != (none, {"per_step_cface": 1})):
+    per_step_once = {"per_step_cface": 1, "chain_cface": 0, "lap_chain": 0}
+    if (fwd_counts != (none, per_step_once)
+            or step_counts != (none, per_step_once)):
         raise AssertionError(f"the k=60 model: a forward counted {fwd_counts}"
                              f", a train step {step_counts}")
     if not (logits.shape == (4, 4) and rel <= 1e-4 and loss_rel <= 1e-5
@@ -1252,8 +1835,15 @@ def main():
         f"{card}")
     del model, cpu
 
+    # 9-10. the lap chain and the conv family
+    path_launches, chain_times, family = chain_and_family(dev, card, rng,
+                                                          prebuild)
+
     # main-path kernel times: the quick_start convs' three shapes summed
-    def entry(kname, route, source, replaces, launches):
+    path_launches["quick_start_train"] = train_launches
+    path_launches["sharded_train"] = shard_launches
+
+    def entry(kname, route, source, replaces):
         rows = results[kname]
         qs = [r for r in rows if r[0].startswith("quick_start")]
         # the side of the bound that holds most of the summed bound
@@ -1261,7 +1851,9 @@ def main():
                  for b in ("bytes", "operations")}
         return {
             "name": kname, "route": route, "source": source,
-            "replaces": replaces, "launches": launches[kname],
+            "replaces": replaces,
+            "launches": sum(p[kname] for p in path_launches.values()),
+            "paths": {nm: p[kname] for nm, p in path_launches.items()},
             "max_abs_err": max(r[1] for r in rows),
             "ms": sum(r[2] for r in qs), "plain_ms": sum(r[3] for r in qs),
             "bound_ms": sum(r[4] for r in qs),
@@ -1270,21 +1862,25 @@ def main():
                            else sum(r[6] for r in qs)),
         }
 
-    # launches: each kernel's count on its slice's main path (training for
-    # K1-K4, the sharded training for K5)
+    # launches: each kernel's counts on the main paths, each counted from 0
+    # (quick_start training for K1-K4, the sharded training for K5, the lap
+    # chain, the chain-routed cface conv, the autoencoder and the residual
+    # stack), their sum under "launches"
     kernels = [
         entry("strips", "cuda", "deepsphere_tpu_torch/csrc/strips.cu",
-              "deepsphere_tpu/ops/pallas_strips.py:183", train_launches),
+              "deepsphere_tpu/ops/pallas_strips.py:183"),
         entry("stencil_conv", "cuda",
               "deepsphere_tpu_torch/csrc/stencil_conv.cu",
-              "deepsphere_tpu/ops/pallas_stencil.py:522", train_launches),
+              "deepsphere_tpu/ops/pallas_stencil.py:522"),
         entry("dxdw", "cuda", "deepsphere_tpu_torch/csrc/stencil_dxdw.cu",
-              "deepsphere_tpu/ops/pallas_stencil.py:688", train_launches),
+              "deepsphere_tpu/ops/pallas_stencil.py:688"),
         entry("grad", "cuda", "deepsphere_tpu_torch/csrc/stencil_grad.cu",
-              "deepsphere_tpu/ops/pallas_stencil.py:614", train_launches),
+              "deepsphere_tpu/ops/pallas_stencil.py:614"),
         entry("bands", "cuda", "deepsphere_tpu_torch/csrc/bands.cu",
-              "deepsphere_tpu/ops/stencil.py:82", shard_launches),
+              "deepsphere_tpu/ops/stencil.py:82"),
     ]
+    say("paths", f"launches by path: {path_launches}; lap chain times "
+        f"{chain_times}; family {family}")
     for kname, rows in results.items():
         for r in rows:
             if r[0].startswith("headline"):

@@ -4,9 +4,14 @@
 layer's) ``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy
 arrays and copies them into the matching port modules:
 
-* a conv's ``kernel`` (Fin*K, Fout), Fin-major and term-minor, and its
-  ``bias`` (1, 1, Fout) load as they are; so do the batch-norm ``mean`` /
-  ``var`` under ``batch_stats[...]["bn"]``;
+* a conv's ``kernel`` (Fin*K, Fout), Fin-major and term-minor (Chebyshev,
+  monomial, Bernstein), and its ``bias`` (1, 1, Fout) load as they are; so
+  do the batch-norm ``mean`` / ``var`` under ``batch_stats[...]["bn"]``;
+* a ``ResidualLayer``'s sublayers ``layer1`` / ``layer2`` load as convs,
+  its norms ``bn1`` / ``bn2`` as ``scale`` / ``bias`` parameters and, for
+  batch norm, ``mean`` / ``var`` statistics;
+* a pseudo-conv's ``kernel`` ((4^p*Fin, Fout), or (4^p, Fin, Fout) for the
+  transpose, NEST tap order in every layout) and ``bias`` (Fout,);
 * a ``Dense`` kernel (in, out) is transposed into ``nn.Linear.weight``;
 * model-level keys ``layers_layer_{i}`` name the port's ``layer_{i}``.
 
@@ -27,7 +32,16 @@ import numpy as np
 import torch
 
 from .models import HealpyGCNN
-from .nn.layers import Dense, _GraphPolyConv
+from .nn.layers import (
+    Dense,
+    ResidualLayer,
+    _BatchNorm,
+    _GraphPolyConv,
+    _PseudoConvBase,
+)
+
+# the layers that hold parameters
+_PARAM_LAYERS = (_GraphPolyConv, ResidualLayer, _PseudoConvBase, Dense)
 
 __all__ = ["load_jax_variables", "export_jax_variables"]
 
@@ -50,8 +64,46 @@ def _expect(tree, keys, what):
         raise KeyError(f"{what}: unexpected entries {sorted(extra)}")
 
 
+def _norm_keys(bn):
+    return tuple(k for k in ("scale", "bias") if getattr(bn, k) is not None)
+
+
+def _load_norm(bn, params, stats, what):
+    if bn is None:
+        raise ValueError(f"{what}: build the model (or run one forward) first")
+    keys = _norm_keys(bn)
+    _expect(params, keys, what)
+    for k in keys:
+        _copy(getattr(bn, k), params[k], f"{what}.{k}")
+    if isinstance(bn, _BatchNorm):
+        _expect(stats, ("mean", "var"), what)
+        _copy(bn.mean, stats["mean"], f"{what}.mean")
+        _copy(bn.var, stats["var"], f"{what}.var")
+    else:
+        _expect(stats, (), what)
+
+
 def _load_layer(module, params, stats, what):
-    if isinstance(module, _GraphPolyConv):
+    if isinstance(module, ResidualLayer):
+        names = ("layer1", "layer2") + (("bn1", "bn2") if module.use_bn
+                                        else ())
+        _expect(params, names, what)
+        _expect(stats, names, what)
+        for nm in ("layer1", "layer2"):
+            _load_layer(getattr(module, nm), params[nm], stats.get(nm, {}),
+                        f"{what}.{nm}")
+        for nm in names[2:]:
+            _load_norm(getattr(module, nm), params.get(nm, {}),
+                       stats.get(nm, {}), f"{what}.{nm}")
+    elif isinstance(module, _PseudoConvBase):
+        _expect(params, ("kernel", "bias"), what)
+        _expect(stats, (), what)
+        _copy(module.kernel, params["kernel"], f"{what}.kernel")
+        if module.use_bias:
+            _copy(module.bias, params["bias"], f"{what}.bias")
+        elif "bias" in params:
+            raise KeyError(f"{what}: bias given but the layer has none")
+    elif isinstance(module, _GraphPolyConv):
         _expect(params, ("kernel", "bias"), what)
         _copy(module.kernel, params["kernel"], f"{what}.kernel")
         if module.use_bias:
@@ -102,8 +154,7 @@ def load_jax_variables(model, variables):
                     stats.get(key, {}), key)
     for name, module in model.layers.items():
         key = f"layers_{name}"
-        if (isinstance(module, (_GraphPolyConv, Dense))
-                and key not in params):
+        if isinstance(module, _PARAM_LAYERS) and key not in params:
             raise KeyError(f"{key}: missing from the JAX variables")
     return model
 
@@ -120,7 +171,29 @@ def _np(t, grads):
 def _export_layer(module, grads):
     """(params, batch_stats) of one port layer, JAX keys, numpy."""
     params, stats = {}, {}
-    if isinstance(module, _GraphPolyConv):
+    if isinstance(module, ResidualLayer):
+        for nm in ("layer1", "layer2"):
+            p, st = _export_layer(getattr(module, nm), grads)
+            params[nm] = p
+            if st:
+                stats[nm] = st
+        for nm in (("bn1", "bn2") if module.use_bn else ()):
+            bn = getattr(module, nm)
+            if bn is None:
+                raise ValueError("build the model (or run one forward) first")
+            p = {k: _np(getattr(bn, k), grads) for k in _norm_keys(bn)}
+            if p:
+                params[nm] = p
+            if isinstance(bn, _BatchNorm):
+                stats[nm] = {"mean": bn.mean.cpu().numpy().copy(),
+                             "var": bn.var.cpu().numpy().copy()}
+    elif isinstance(module, _PseudoConvBase):
+        if module.kernel is None:
+            raise ValueError("build the model (or run one forward) first")
+        params["kernel"] = _np(module.kernel, grads)
+        if module.use_bias:
+            params["bias"] = _np(module.bias, grads)
+    elif isinstance(module, _GraphPolyConv):
         if module.kernel is None:
             raise ValueError("build the model (or run one forward) first")
         params["kernel"] = _np(module.kernel, grads)

@@ -19,8 +19,10 @@ Submodules are named ``layer_{i}`` after the user layer list (layout
 converters get positional names), the JAX package's ``layers_layer_{i}``
 keys, so :func:`deepsphere_tpu_torch.interop.load_jax_variables` can load a
 JAX model's variables and :func:`~deepsphere_tpu_torch.interop.export_jax_variables`
-write them back.  A sharded model (``shard_cfg``) has the same parameter
-tree as an unsharded one.  Export comes later (ROADMAP.md, queue 1).
+write them back; ``layer_names`` holds the JAX package's display names
+(``chebyshev``, ``gcnn__residual_layer``, ...).  A sharded model
+(``shard_cfg``) has the same parameter tree as an unsharded one.  Export
+comes later (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -31,11 +33,37 @@ from torch import nn
 
 from .._logger import logger
 from ..graph import build_sphere_graph
-from ..nn.healpy_layers import HealpyPool, _DeferredLayer
+from ..nn.healpy_layers import (
+    HealpyPool,
+    HealpyPseudoConv,
+    HealpyPseudoConv_Transpose,
+    _DeferredLayer,
+)
 from ..sphere import healpix as hp
 from ..sphere.indexing import check_indices_consistent, transform_indices
 
 __all__ = ["HealpyGCNN"]
+
+
+def _layer_display_name(layer, counters):
+    """Keras-style snake-case auto names, as the JAX package gives them
+    (the reference test suite looks up ``chebyshev`` and
+    ``gcnn__residual_layer``)."""
+    cls = type(layer).__name__
+    base = {
+        "ChebyshevConv": "chebyshev",
+        "MonomialConv": "monomial",
+        "BernsteinConv": "bernstein",
+        "ResidualLayer": "gcnn__residual_layer",
+        "HealpyPool": "healpy_pool",
+        "HealpyPseudoConv": "healpy_pseudo_conv",
+        "HealpyPseudoConv_Transpose": "healpy_pseudo_conv__transpose",
+        "Flatten": "flatten",
+        "Dense": "dense",
+    }.get(cls, cls.lower())
+    n = counters.get(base, 0)
+    counters[base] = n + 1
+    return base if n == 0 else f"{base}_{n}"
 
 
 class HealpyGCNN(nn.Module):
@@ -44,7 +72,9 @@ class HealpyGCNN(nn.Module):
     :param nside: nside of the input maps
     :param indices: 1d array of NEST pixel ids covered by the input
     :param layers: list of layer specs — deferred graph layers
-        (``HealpyChebyshev`` & co.), ``HealpyPool``, or any ``nn.Module``
+        (``HealpyChebyshev`` & co.), resolution layers (``HealpyPool``,
+        ``HealpyPseudoConv``, ``HealpyPseudoConv_Transpose``), or any
+        ``nn.Module``
     :param n_neighbors: graph degree; 8 (default), 20, 40 or 60
     :param max_batch_size, initial_Fin: accepted for API parity with the
         reference (no matmul splitting is needed)
@@ -106,8 +136,10 @@ class HealpyGCNN(nn.Module):
         # resolution scan
         self.reduction_fac = 1.0
         for layer in self.layers_in:
-            if isinstance(layer, HealpyPool):
+            if isinstance(layer, (HealpyPool, HealpyPseudoConv)):
                 self.reduction_fac *= 2**layer.p
+            if isinstance(layer, HealpyPseudoConv_Transpose):
+                self.reduction_fac /= 2**layer.p
 
         self.nside_out = int(self.nside_in // self.reduction_fac)
         if self.nside_out < 1:
@@ -138,7 +170,9 @@ class HealpyGCNN(nn.Module):
 
         # per-layer build with graph memoization per resolution level
         self.layers_use = []
+        self.layer_names = []
         self.graphs = {}
+        counters = {}
         current_nside = self.nside_in
         current_indices = self.indices_in
         for layer in self.layers_in:
@@ -148,13 +182,19 @@ class HealpyGCNN(nn.Module):
                 if shard_cfg is not None and layer.needs == "L":
                     extra["shard_cfg"] = shard_cfg
                 self.layers_use.append(layer._get_layer(graph, **extra))
-            elif isinstance(layer, HealpyPool):
-                new_nside = int(current_nside // 2**layer.p)
+            elif isinstance(layer, (HealpyPool, HealpyPseudoConv,
+                                    HealpyPseudoConv_Transpose)):
+                if isinstance(layer, HealpyPseudoConv_Transpose):
+                    new_nside = int(current_nside * 2**layer.p)
+                else:
+                    new_nside = int(current_nside // 2**layer.p)
                 current_indices = transform_indices(current_nside, new_nside, current_indices)
                 current_nside = new_nside
                 self.layers_use.append(layer)
             else:
                 self.layers_use.append(layer)
+            self.layer_names.append(
+                _layer_display_name(self.layers_use[-1], counters))
 
         self._plan_internal_layout(internal_layout)
         names = []
@@ -176,12 +216,14 @@ class HealpyGCNN(nn.Module):
         """Run as much of the model as possible in the conv's native layout.
 
         * **cface** — channels-first padded face images (B, F, 12, n, P_l),
-          the fused conv's native layout: a chain of convs and pools runs
-          with no per-layer permutation.  Chosen for every maximal run of
-          layers whose convs fit the deep stencil structurally (so plans do
-          not depend on the device).
+          the fused conv's native layout: a chain of convs, residual
+          layers, pools and pseudo-convs runs with no per-layer
+          permutation.  Chosen for every maximal run of layers whose convs
+          fit the deep stencil structurally (so plans do not depend on the
+          device).
         * **face** — face-flat pixel axis (B, M, F), for stencil-capable
-          convs that cannot run cface (e.g. a halo deeper than the face).
+          convs that cannot run cface (e.g. Bernstein, or a halo deeper
+          than the face); pools and pseudo-convs stay in it.
 
         Under a mesh a cface conv runs face-sharded, so its pixel axis must
         divide the 12 faces; the other convs take the halo-sharded ELLPACK
@@ -193,6 +235,7 @@ class HealpyGCNN(nn.Module):
             FaceToNest,
             NestToCface,
             NestToFace,
+            ResidualLayer,
             _GraphPolyConv,
         )
         from ..ops.fused_stencil import cfp_structural_available
@@ -227,7 +270,20 @@ class HealpyGCNN(nn.Module):
                 ):
                     return None
                 return ("cf", st.n_steps)
-            if isinstance(layer, HealpyPool):
+            if isinstance(layer, ResidualLayer):
+                scales = {"CHEBY": 0.75, "MONO": 1.0}
+                if (not shardable(layer) or layer.layer_type not in scales
+                        or not full_sphere(layer)):
+                    return None
+                K = dict(layer.layer_kwargs or {}).get("K", None)
+                if K is None or K < 2:
+                    return None
+                st = layer.graph.deep_stencil(scales[layer.layer_type], K)
+                kind = "cheby" if layer.layer_type == "CHEBY" else "mono"
+                if st is None or not cfp_structural_available(st, kind, K):
+                    return None
+                return ("cf", st.n_steps)
+            if isinstance(layer, stay_in_face):
                 return ("sif",)
             return None
 
@@ -242,7 +298,20 @@ class HealpyGCNN(nn.Module):
                     and layer.graph.face_stencil(layer._scale) is not None
                 ):
                     return layer.clone(layout="face")
-            return None
+            if isinstance(layer, ResidualLayer):
+                scales = {"CHEBY": 0.75, "MONO": 1.0}
+                if (
+                    layer.shard_cfg is None
+                    and layer.layer_type in scales
+                    and full_sphere(layer)
+                    and layer.graph.face_stencil(scales[layer.layer_type])
+                    is not None
+                ):
+                    return layer.clone(layout="face")
+            return None  # pools and pseudo-convs: stay-in-face only
+
+        stay_in_face = (HealpyPool, HealpyPseudoConv,
+                        HealpyPseudoConv_Transpose)
 
         # 1) carve out cface segments: maximal runs of (cf | sif) layers
         #    containing at least one conv
@@ -293,7 +362,7 @@ class HealpyGCNN(nn.Module):
                         )
                     actual = layer.clone(layout="cface")
                     cur_off = h
-                else:  # sif: pool — re-embeds for the next conv
+                else:  # sif: pool / pseudo-conv — re-embeds for the next conv
                     off_out = next_cf_h(i + 1, j)
                     actual = layer.clone(
                         layout="cface", cface_off=cur_off,
@@ -314,7 +383,7 @@ class HealpyGCNN(nn.Module):
                     self._module_layers.append(NestToFace())
                     in_face = True
                 actual = fc
-            elif in_face and isinstance(layer, HealpyPool):
+            elif in_face and isinstance(layer, stay_in_face):
                 actual = layer.clone(layout="face")
             else:
                 if in_face:

@@ -1,13 +1,18 @@
 """Layers of the PyTorch port: graph convolutions, pooling, layout converters.
 
-Counterpart of the JAX package's ``deepsphere_tpu.nn.layers`` (the subset
-the quick_start classifier runs):
+Counterpart of the JAX package's ``deepsphere_tpu.nn.layers`` (its graph
+conv family; attention and smoothing are not ported yet):
 
-* ``ChebyshevConv`` / ``MonomialConv`` — graph polynomial convolutions over
-  a :class:`~deepsphere_tpu_torch.graph.SphereGraph`, in the ``nest``,
-  ``face`` or ``cface`` layout, with the reference's initializer /
-  batch-norm / bias / activation semantics;
+* ``ChebyshevConv`` / ``MonomialConv`` / ``BernsteinConv`` — graph
+  polynomial convolutions over a
+  :class:`~deepsphere_tpu_torch.graph.SphereGraph`, in the ``nest``,
+  ``face`` or (Chebyshev, monomial) ``cface`` layout, with the reference's
+  initializer / batch-norm / bias / activation semantics;
+* ``ResidualLayer`` — two conv sublayers with optional Keras-default norms
+  and the ``act(out + alpha * in)`` coupling;
 * ``HealpyPool`` — NEST-hierarchy max/avg pooling in all three layouts;
+* ``HealpyPseudoConv`` / ``HealpyPseudoConv_Transpose`` — learnable 4^p
+  down/up-sampling (blocked matmuls) in all three layouts;
 * ``Flatten`` and ``Dense`` heads;
 * the parameter-free layout converters the model assembler inserts.
 
@@ -50,12 +55,17 @@ from ..parallel.cface_sharded import cface_model_conv, face_shard_tables
 from ..parallel.collectives import all_reduce_sum, shard, unshard
 from ..parallel.halo import shard_ellpack_cached
 from ..parallel.sharded_ops import sharded_poly_conv
+from ..sphere.healpix import _spread_bits
 from ..utils import resolve_activation
 
 __all__ = [
     "ChebyshevConv",
     "MonomialConv",
+    "BernsteinConv",
+    "ResidualLayer",
     "HealpyPool",
+    "HealpyPseudoConv",
+    "HealpyPseudoConv_Transpose",
     "Flatten",
     "Dense",
     "NestToFace",
@@ -79,6 +89,19 @@ class _Layer(nn.Module):
 
     def clone(self, **overrides):
         return type(self)(**{**self._cfg, **overrides})
+
+
+def _raster_to_morton_taps(p):
+    """Tap permutation between the two orderings of a 2^p x 2^p NEST parent
+    block: entry j (raster dx*2^p + dy) gives the NEST child index (Morton
+    interleave).  Reordering kernel taps with it makes the face-layout
+    pseudo-convs equal to their NEST form, so checkpoints are
+    layout-independent."""
+    sp = 2**p
+    j = np.arange(sp * sp, dtype=np.int64)
+    dx, dy = j // sp, j % sp
+    return torch.from_numpy(np.asarray(
+        _spread_bits(dx) | (_spread_bits(dy) << 1), dtype=np.int64))
 
 
 def _pad_lanes(y, off, P_out):
@@ -160,18 +183,42 @@ def _stat_dtype(x):
     return x if x.dtype == torch.float64 else x.float()
 
 
+def _affine(module, num_features, use_scale, use_bias):
+    """flax's ``scale`` (ones) and ``bias`` (zeros) of a norm, or None."""
+    module.scale = (nn.Parameter(torch.ones(num_features)) if use_scale
+                    else None)
+    module.bias = (nn.Parameter(torch.zeros(num_features)) if use_bias
+                   else None)
+
+
+def _normalize(module, x, mean, var, shape):
+    """flax's ``_normalize``: (x - mean) * (rsqrt(var + eps) * scale) +
+    bias, with ``mean`` and ``var`` broadcastable to x and the affine
+    parameters reshaped to ``shape``."""
+    mul = torch.rsqrt(var.to(x.dtype) + module.epsilon)
+    if module.scale is not None:
+        mul = mul * module.scale.reshape(shape).to(x.dtype)
+    y = (x - mean.to(x.dtype)) * mul
+    if module.bias is not None:
+        y = y + module.bias.reshape(shape).to(x.dtype)
+    return y
+
+
 class _BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm`` semantics on (..., F): momentum 0.9 (running =
-    0.9 running + 0.1 batch), biased batch variance E[x^2] - E[x]^2 clipped
-    at 0, epsilon 1e-5, no affine parameters; eval uses the running
-    averages.  State ``mean``/``var`` matches flax's ``batch_stats``.
+    """flax ``nn.BatchNorm`` semantics on (..., F): running = momentum x
+    running + (1 - momentum) x batch, biased batch variance E[x^2] - E[x]^2
+    clipped at 0; eval uses the running averages.  The conv layers' BN has
+    momentum 0.9, epsilon 1e-5 and no affine parameters; the residual
+    layer's Keras-default BN momentum 0.99, epsilon 1e-3, a ``scale`` and a
+    ``bias``.  State ``mean``/``var`` matches flax's ``batch_stats``.
 
     ``shard_cfg``/``shard_axes``: the mesh axes over which the batch
     moments are averaged (set by a sharded conv: every rank holds an equal
     share of the global batch), so every rank normalizes with, and keeps,
     the global batch's statistics."""
 
-    def __init__(self, num_features, momentum=0.9, epsilon=1e-5):
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 use_scale=False, use_bias=False):
         super().__init__()
         self.momentum = momentum
         self.epsilon = epsilon
@@ -179,6 +226,7 @@ class _BatchNorm(nn.Module):
         self.shard_axes = ()
         self.register_buffer("mean", torch.zeros(num_features))
         self.register_buffer("var", torch.ones(num_features))
+        _affine(self, num_features, use_scale, use_bias)
 
     def _moments(self, xf, axes):
         """E[x] and E[x^2] over ``axes``, and over the ranks of the
@@ -210,8 +258,8 @@ class _BatchNorm(nn.Module):
         else:
             mean, var = self.mean, self.var
         shape = self._shape(x)
-        return (x - mean.reshape(shape).to(x.dtype)) * torch.rsqrt(
-            var.reshape(shape).to(x.dtype) + self.epsilon)
+        return _normalize(self, x, mean.reshape(shape), var.reshape(shape),
+                          shape)
 
 
 class _CfaceBatchNorm(_BatchNorm):
@@ -219,8 +267,10 @@ class _CfaceBatchNorm(_BatchNorm):
     statistics (the halo/pad lanes must not pollute them); the whole array
     is normalized.  Like the JAX module, the variance is not clipped."""
 
-    def __init__(self, off, num_features, momentum=0.9, epsilon=1e-5):
-        super().__init__(num_features, momentum, epsilon)
+    def __init__(self, off, num_features, momentum=0.9, epsilon=1e-5,
+                 use_scale=False, use_bias=False):
+        super().__init__(num_features, momentum, epsilon, use_scale,
+                         use_bias)
         self.off = off
 
     def _stats(self, x):
@@ -231,6 +281,29 @@ class _CfaceBatchNorm(_BatchNorm):
 
     def _shape(self, x):
         return (1, -1, 1, 1, 1)
+
+
+class _LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` over the feature axis ``axis`` (-1 on (B, M, F),
+    1 on the cface layout: each pixel's channels): mean and the variance
+    E[x^2] - E[x]^2 clipped at 0 (flax's fast variance), then
+    :func:`_normalize` with a ``scale`` and a ``bias``."""
+
+    def __init__(self, num_features, epsilon=1e-6, use_scale=True,
+                 use_bias=True, axis=-1):
+        super().__init__()
+        self.epsilon = epsilon
+        self.axis = axis
+        _affine(self, num_features, use_scale, use_bias)
+
+    def forward(self, x):
+        xs = _stat_dtype(x)
+        mean = xs.mean(self.axis, keepdim=True)
+        var = ((xs * xs).mean(self.axis, keepdim=True)
+               - mean * mean).clamp_min(0.0)
+        shape = [1] * x.ndim
+        shape[self.axis] = -1
+        return _normalize(self, x, mean, var, tuple(shape))
 
 
 def _batch_norm(num_features):
@@ -265,11 +338,11 @@ class _GraphPolyConv(_Layer):
 
     def __init__(self, graph, K, Fout=None, initializer=None, activation=None,
                  use_bias=False, use_bn=False, conv_method="auto",
-                 layout="nest", shard_cfg=None):
+                 layout="nest", shard_cfg=None, ref_quirks=False):
         super().__init__(graph=graph, K=K, Fout=Fout, initializer=initializer,
                          activation=activation, use_bias=use_bias,
                          use_bn=use_bn, conv_method=conv_method, layout=layout,
-                         shard_cfg=shard_cfg)
+                         shard_cfg=shard_cfg, ref_quirks=ref_quirks)
         self.graph = graph
         self.K = K
         self.Fout = Fout
@@ -280,17 +353,28 @@ class _GraphPolyConv(_Layer):
         self.conv_method = conv_method
         self.layout = layout
         self.shard_cfg = shard_cfg
+        # Bernstein only: the reference's stale-buffer i = K term
+        # (spmv.bernstein_basis_ref)
+        self.ref_quirks = ref_quirks
         self.register_parameter("kernel", None)
         self.register_parameter("bias", None)
         self.bn = None
         self._table_keys = ()
+        self._chain_keys = ()
 
     def _default_std(self, Fin, Fout):
         raise NotImplementedError
 
     @property
     def basis_kind(self):
+        if self.ref_quirks and self._basis_kind == "bern":
+            return "bern_ref"
         return self._basis_kind
+
+    def _basis_fn(self):
+        if self.basis_kind == "bern_ref":
+            return spmv.bernstein_basis_ref
+        return type(self)._basis
 
     @property
     def n_terms(self):
@@ -335,6 +419,20 @@ class _GraphPolyConv(_Layer):
     def _tables(self):
         return {k: getattr(self, f"tab_{k}") for k in self._table_keys}
 
+    def _chain(self):
+        """The shallow stencil (``n_steps`` == its radius) and its tables on
+        the layer's device, for the lap-chain route of the cface conv.
+        Built at the route's first use (at nside 1024 a table set is on
+        the order of a GB), as non-persistent buffers: out of
+        ``state_dict``, moved by ``.to``."""
+        st = self.graph.face_stencil(self._scale)
+        if not self._chain_keys:
+            tables = stencil_tables(st)
+            for k, v in as_tensors(tables, self.kernel.device).items():
+                self.register_buffer(f"chain_{k}", v, persistent=False)
+            self._chain_keys = tuple(tables)
+        return st, {k: getattr(self, f"chain_{k}") for k in self._chain_keys}
+
     def _materialize(self, Fin, Fout, st, device):
         if self.kernel is not None:
             return
@@ -350,8 +448,10 @@ class _GraphPolyConv(_Layer):
             self.bias = nn.Parameter(torch.zeros((1, 1, Fout), device=device))
         cfg = self.shard_cfg
         if self.use_bn:
+            # in the mode of the forward that creates it (build's is eval,
+            # which must leave the running statistics at 0 and 1)
             self.bn = (_CfaceBatchNorm(st.n_steps, Fout) if self.layout == "cface"
-                       else _batch_norm(Fout)).to(device)
+                       else _batch_norm(Fout)).to(device).train(self.training)
             if cfg is not None:
                 # cface: this rank's faces of its rows; nest: its rows of
                 # the whole map
@@ -399,7 +499,7 @@ class _GraphPolyConv(_Layer):
                                    self.basis_kind, tables=tables,
                                    layout=self.layout)
         else:
-            basis_impl = type(self)._basis
+            basis_impl = self._basis_fn()
             basis = lambda x2d, nt: basis_impl(tables["idx"], tables["val"],
                                                x2d, nt)
             y = spmv.graph_conv(basis, x, self.kernel, n_terms)
@@ -421,7 +521,8 @@ class _GraphPolyConv(_Layer):
         else:
             y = stencil_graph_conv_cface(st, x, self.kernel, self.n_terms,
                                          self.basis_kind,
-                                         tables=self._tables())
+                                         tables=self._tables(),
+                                         chain=self._chain)
         if self.use_bn:
             y = self.bn(y)
         if self.use_bias:
@@ -450,6 +551,114 @@ class MonomialConv(_GraphPolyConv):
 
     def _default_std(self, Fin, Fout):
         return 0.1
+
+
+class BernsteinConv(_GraphPolyConv):
+    """Bernstein graph conv (arXiv:2106.10994); rescale 0.75, K+1 terms,
+    kernel (Fin*(K+1), Fout).  ``ref_quirks=True`` reproduces the
+    reference's last term (``basis_kind`` ``"bern_ref"``)."""
+
+    _scale: ClassVar[float] = 0.75
+    _basis: ClassVar = staticmethod(spmv.bernstein_basis)
+    _basis_kind: ClassVar[str] = "bern"
+    _n_terms_offset: ClassVar[int] = 1
+
+    def _default_std(self, Fin, Fout):
+        return np.sqrt(6.0 / (Fin + Fout))
+
+
+_CONV_TYPES = {"CHEBY": ChebyshevConv, "MONO": MonomialConv}
+
+
+class ResidualLayer(_Layer):
+    """``out = act(layer2(norm1(layer1(x))) + alpha * x)`` (or, with
+    ``act_before``, ``act(...) + alpha * x``; without an activation
+    ``y + x``): two CHEBY or MONO sublayers ``layer1``/``layer2`` built from
+    ``layer_kwargs``, and with ``use_bn`` the norms ``bn1``/``bn2``.
+
+    The norms are Keras-default layers, as the reference instantiates
+    them: batch norm with epsilon 1e-3, momentum 0.99 and a ``scale`` and a
+    ``bias`` (in cface over the interior lanes, at the sublayers' own
+    halo depth), or layer norm with epsilon 1e-3 (in cface over each
+    pixel's channels); ``bn_kwargs`` (epsilon, momentum, use_scale,
+    use_bias) override them, ``axis`` is ignored."""
+
+    def __init__(self, graph, layer_type, layer_kwargs, activation=None,
+                 act_before=False, use_bn=False, norm_type="batch_norm",
+                 bn_kwargs=None, alpha=1.0, shard_cfg=None, layout="nest"):
+        super().__init__(graph=graph, layer_type=layer_type,
+                         layer_kwargs=layer_kwargs, activation=activation,
+                         act_before=act_before, use_bn=use_bn,
+                         norm_type=norm_type, bn_kwargs=bn_kwargs,
+                         alpha=alpha, shard_cfg=shard_cfg, layout=layout)
+        if layer_type not in _CONV_TYPES:
+            raise IOError(f"Layertype not understood: {layer_type}")
+        if use_bn and norm_type not in ("batch_norm", "layer_norm"):
+            raise ValueError(f"norm_type <{norm_type}> not understood!")
+        resolve_activation(activation)
+        self.graph = graph
+        self.layer_type = layer_type
+        self.layer_kwargs = layer_kwargs
+        self.activation = activation
+        self.act_before = act_before
+        self.use_bn = use_bn
+        self.norm_type = norm_type
+        self.bn_kwargs = bn_kwargs
+        self.alpha = alpha
+        self.shard_cfg = shard_cfg
+        self.layout = layout
+        kwargs = dict(layer_kwargs or {})
+        kwargs.pop("L", None)
+        kwargs.pop("n_matmul_splits", None)
+        conv_cls = _CONV_TYPES[layer_type]
+        self.layer1 = conv_cls(graph=graph, shard_cfg=shard_cfg,
+                               layout=layout, **kwargs)
+        self.layer2 = conv_cls(graph=graph, shard_cfg=shard_cfg,
+                               layout=layout, **kwargs)
+        self.bn1 = None
+        self.bn2 = None
+
+    def _norm(self, F, device):
+        kw = dict(self.bn_kwargs or {})
+        kw.pop("axis", None)  # always the feature axis
+        kw.setdefault("epsilon", 1e-3)
+        cface = self.layout == "cface"
+        if self.norm_type == "layer_norm":
+            return _LayerNorm(F, axis=1 if cface else -1, **kw).to(device)
+        # a BN in the mode of the forward that creates it (see
+        # _GraphPolyConv._materialize)
+        kw.setdefault("momentum", 0.99)
+        kw.setdefault("use_bias", True)
+        kw.setdefault("use_scale", True)
+        if cface:
+            # statistics over the interior lanes of the sublayers' geometry
+            bn = _CfaceBatchNorm(self.layer1._stencil().n_steps, F, **kw)
+        else:
+            bn = _BatchNorm(F, **kw)
+        cfg = self.shard_cfg
+        if cfg is not None:
+            bn.shard_cfg = cfg
+            bn.shard_axes = ((cfg.data_axis, cfg.pixel_axis) if cface
+                             else (cfg.data_axis,))
+        return bn.to(device).train(self.training)
+
+    def forward(self, x):
+        y = self.layer1(x)
+        F = y.shape[1] if self.layout == "cface" else y.shape[-1]
+        if self.use_bn and self.bn1 is None:
+            self.bn1 = self._norm(F, x.device)
+            self.bn2 = self._norm(F, x.device)
+        if self.use_bn:
+            y = self.bn1(y)
+        y = self.layer2(y)
+        if self.use_bn:
+            y = self.bn2(y)
+        act = resolve_activation(self.activation)
+        if act is None:
+            return y + x
+        if self.act_before:
+            return act(y) + self.alpha * x
+        return act(y + self.alpha * x)
 
 
 class HealpyPool(_Layer):
@@ -497,6 +706,139 @@ class HealpyPool(_Layer):
             blocks = x.reshape(B, 12, n // sp, sp, n // sp, sp, F)
             return self._reduce(blocks, (3, 5)).reshape(B, M // fs, F)
         return self._reduce(x.reshape(B, M // fs, fs, F), (2,))
+
+
+def _glorot_uniform(shape, generator, receptive=1):
+    """flax ``glorot_uniform`` of a kernel (..., in, out) whose leading
+    axes (``receptive`` elements) are its receptive field: uniform in
+    +-sqrt(6 / (fan_in + fan_out)), the fans counted over it."""
+    fan_in, fan_out = shape[-2] * receptive, shape[-1] * receptive
+    limit = np.sqrt(6.0 / (fan_in + fan_out))
+    w = torch.rand(shape, generator=generator, dtype=torch.float32)
+    return (2.0 * w - 1.0) * limit
+
+
+class _PseudoConvBase(_Layer):
+    """Shared skeleton of the pseudo-convs: the (NEST tap order) kernel and
+    the bias, created at the first forward from the layer's generator."""
+
+    _grow_msg: ClassVar[str] = ""
+
+    def __init__(self, p, Fout, kernel_initializer=None, use_bias=True,
+                 layout="nest", cface_off=0, cface_off_out=0):
+        super().__init__(p=p, Fout=Fout, kernel_initializer=kernel_initializer,
+                         use_bias=use_bias, layout=layout, cface_off=cface_off,
+                         cface_off_out=cface_off_out)
+        if not p >= 1:
+            raise IOError(self._grow_msg)
+        self.p = p
+        self.Fout = Fout
+        self.kernel_initializer = kernel_initializer
+        self.use_bias = use_bias
+        self.layout = layout
+        self.cface_off = cface_off
+        self.cface_off_out = cface_off_out
+        self.register_parameter("kernel", None)
+        self.register_parameter("bias", None)
+
+    @property
+    def filter_size(self):
+        return int(4**self.p)
+
+    def _materialize(self, shape, receptive, device):
+        if self.kernel is not None:
+            return
+        if self.kernel_initializer is None:
+            w = _glorot_uniform(shape, self._init_generator, receptive)
+        else:
+            w = self.kernel_initializer(shape, self._init_generator)
+        self.kernel = nn.Parameter(w.to(device))
+        if self.use_bias:
+            self.bias = nn.Parameter(torch.zeros(self.Fout, device=device))
+
+    def _face_taps(self):
+        """The kernel's taps in raster order of the 2^p x 2^p block."""
+        fs = self.filter_size
+        Fin = self.kernel.numel() // (fs * self.Fout)
+        perm = _raster_to_morton_taps(self.p).to(self.kernel.device)
+        return self.kernel.reshape(fs, Fin, self.Fout)[perm]
+
+    def _embed(self, y):
+        """(B, Fout, faces, n2, n2) -> the cface layout at ``cface_off_out``."""
+        from ..ops.fused_stencil import cfp_geometry
+
+        if self.use_bias:
+            y = y + self.bias.reshape(1, self.Fout, 1, 1, 1).to(y.dtype)
+        _, P_out = cfp_geometry(y.shape[3], self.cface_off_out)
+        return _pad_lanes(y, self.cface_off_out, P_out)
+
+
+class HealpyPseudoConv(_PseudoConvBase):
+    """Learnable 4^p -> 1 downsampling: a Conv1D with kernel == stride, the
+    blocked matmul (B, M/4^p, 4^p*Fin) @ (4^p*Fin, Fout), plus a bias; a
+    glorot-uniform kernel and a zero bias.  In the face layouts a NEST
+    parent block is a 2^p x 2^p tile of its face."""
+
+    _grow_msg: ClassVar[str] = "The reduction factors has to be at least 1!"
+
+    def forward(self, x):
+        fs = self.filter_size
+        sp = 2**self.p
+        if self.layout == "cface":
+            B, Fin, faces, n, _ = x.shape
+            self._materialize((fs * Fin, self.Fout), 1, x.device)
+            xi = x[:, :, :, :, self.cface_off : self.cface_off + n]
+            blocks = xi.reshape(B, Fin, faces, n // sp, sp, n // sp, sp)
+            k = self._face_taps().reshape(sp, sp, Fin, self.Fout)
+            y = torch.einsum("bfgxpyq,pqfo->bogxy", blocks, k.to(x.dtype))
+            return self._embed(y)
+        B, M, Fin = x.shape
+        if M % fs != 0:
+            raise IOError(f"Input shape {tuple(x.shape)} not compatible with the filter size {fs}")
+        self._materialize((fs * Fin, self.Fout), 1, x.device)
+        if self.layout == "face":
+            n = nside_of_axis(M)
+            blocks = x.reshape(B, 12, n // sp, sp, n // sp, sp, Fin)
+            x3d = blocks.permute(0, 1, 2, 4, 3, 5, 6).reshape(B, M // fs,
+                                                               fs * Fin)
+            k = self._face_taps().reshape(fs * Fin, self.Fout)
+        else:
+            x3d = x.reshape(B, M // fs, fs * Fin)
+            k = self.kernel
+        y = x3d @ k.to(x.dtype)
+        return y + self.bias.to(y.dtype) if self.use_bias else y
+
+
+class HealpyPseudoConv_Transpose(_PseudoConvBase):
+    """Learnable 1 -> 4^p upsampling, the transpose of the pseudo-conv:
+    ``y[b, m*4^p + j, o] = sum_f x[b, m, f] W[j, f, o] + b[o]``, the kernel
+    (4^p, Fin, Fout); a glorot-uniform kernel (fans over the 4^p taps) and
+    a zero bias.  In the face layouts each coarse pixel emits a 2^p x 2^p
+    tile of its face."""
+
+    _grow_msg: ClassVar[str] = "The boost factors has to be at least 1!"
+
+    def forward(self, x):
+        fs = self.filter_size
+        sp = 2**self.p
+        if self.layout == "cface":
+            B, Fin, faces, n, _ = x.shape
+            self._materialize((fs, Fin, self.Fout), fs, x.device)
+            xi = x[:, :, :, :, self.cface_off : self.cface_off + n]
+            k = self._face_taps().reshape(sp, sp, Fin, self.Fout)
+            y = torch.einsum("bfgxy,pqfo->bogxpyq", xi, k.to(x.dtype))
+            return self._embed(y.reshape(B, self.Fout, faces, n * sp, n * sp))
+        B, M, Fin = x.shape
+        self._materialize((fs, Fin, self.Fout), fs, x.device)
+        if self.layout == "face":
+            n = nside_of_axis(M)
+            y = torch.einsum("bmf,jfo->bmjo", x, self._face_taps().to(x.dtype))
+            y = y.reshape(B, 12, n, n, sp, sp, self.Fout)
+            y = y.permute(0, 1, 2, 4, 3, 5, 6)
+        else:
+            y = torch.einsum("bmf,jfo->bmjo", x, self.kernel.to(x.dtype))
+        y = y.reshape(B, M * fs, self.Fout)
+        return y + self.bias.to(y.dtype) if self.use_bias else y
 
 
 class Flatten(_Layer):

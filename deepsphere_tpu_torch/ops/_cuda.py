@@ -18,7 +18,9 @@ Every kernel wrapper adds one to its entry of :data:`launch_counts` where
 it launches its kernel, and nowhere else, so a run can show that its main
 path went through the kernels.  Beside them, :data:`route_counts` counts
 the routes chosen from a shape that launch none of these kernels (the
-cface conv's per-step route, ``ops/stencil.py::_cface_per_step``).
+cface conv's per-step route, ``ops/stencil.py::_cface_per_step``) or that
+choose which launches run (the lap chain: ``lap_chain`` for each conv that
+takes it, ``chain_cface`` for a cface conv on it).
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 launch_counts = {"strips": 0, "stencil_conv": 0, "dxdw": 0, "grad": 0,
                  "bands": 0}
 #: route name -> times taken since the last :func:`reset_launch_counts`
-route_counts = {"per_step_cface": 0}
+route_counts = {"per_step_cface": 0, "chain_cface": 0, "lap_chain": 0}
 
 _lib = None
 

@@ -56,6 +56,7 @@ __all__ = [
     "cfp_geometry",
     "cfp_structural_available",
     "cface_route",
+    "chain_refused",
     "run_stencil_kernel",
     "run_stencil_plain",
     "run_grad_kernel",
@@ -234,7 +235,10 @@ def cface_route(st: FaceStencil, kind, n_terms, B, Fin, Fout, sms,
     path through the interior slice, only where the JAX package runs no
     kernel either: where ``cfp_structural_available`` fails, or at radius
     >= 3 with n_terms > 2 (its compile-mode gate) and a plan is refused.
-    Anywhere else a refused plan is a gap of the kernels, and this raises.
+    ``"chain"`` at radius <= 2 where a one-shot plan is refused but the
+    lap chain's are (:func:`chain_refused`): one L~ application per launch
+    on the shallow stencil (h = radius, K = 2, Fin -> Fin), which never
+    builds the deep window.  A shape both refuse raises.
 
     The JAX gate's other declines route around TPU compiler faults and
     have no counterpart here (``config``): h > 8 and not a multiple of 8
@@ -247,25 +251,43 @@ def cface_route(st: FaceStencil, kind, n_terms, B, Fin, Fout, sms,
                         n_terms, B, Fin, Fout, sms, bool(grad))
 
 
-@functools.lru_cache(maxsize=None)
-def _cface_route(n, h, r, nplanes, K, B, Fin, Fout, sms, grad):
-    """:func:`cface_route` past the structural check, memoised on the ints
-    of the shape (it runs at every forward)."""
+def _refused(n, h, r, nplanes, K, B, Fin, Fout, sms, grad):
+    """Names of the kernels of a conv's launches (K1 forward; with
+    ``grad`` K2, K1 on dy and K3) whose plan does not take the shape."""
     shape = (n, h, r, nplanes, K, B, 12)
     plans = {"K1": _k1_plan(*shape, Fin, Fout, sms)}
     if grad:
         plans["K2"] = _bwd_plan(*shape, Fout, Fin, True, sms)
         plans["K1 on dy"] = _k1_plan(*shape, Fout, Fin, sms)
         plans["K3"] = _bwd_plan(*shape, Fin, Fout, False, sms)
-    refused = [name for name, plan in plans.items() if plan is None]
+    return [name for name, plan in plans.items() if plan is None]
+
+
+def chain_refused(n, r, nplanes, B, C, sms, grad=True):
+    """The kernels whose plan does not take a lap of the lap chain
+    (:func:`.stencil.lap_chain_conv`): one application on the shallow
+    stencil (h = r, K = 2) over B x C channels in and out.  Empty where
+    the chain runs on the card."""
+    return _refused(n, r, r, nplanes, 2, B, C, C, sms, grad)
+
+
+@functools.lru_cache(maxsize=None)
+def _cface_route(n, h, r, nplanes, K, B, Fin, Fout, sms, grad):
+    """:func:`cface_route` past the structural check, memoised on the ints
+    of the shape (it runs at every forward)."""
+    refused = _refused(n, h, r, nplanes, K, B, Fin, Fout, sms, grad)
     if not refused:
         return "fused"
     if r >= 3 and K > 2:
         return "per_step"
+    chain = chain_refused(n, r, nplanes, B, Fin, sms, grad)
+    if not chain:
+        return "chain"
     raise ValueError(
         f"cface conv: no plan of {', '.join(refused)} takes n={n} h={h} "
-        f"r={r} K={K} B={B} Fin={Fin} Fout={Fout} on {sms} SMs: no tile "
-        "fits shared memory or the grid")
+        f"r={r} K={K} B={B} Fin={Fin} Fout={Fout} on {sms} SMs, and no plan "
+        f"of {', '.join(chain)} takes its lap chain (h={r}, {Fin} -> {Fin}): "
+        "no tile fits shared memory or the grid")
 
 
 def cfp_geometry(n, h):
@@ -716,9 +738,9 @@ class _FusedConv(torch.autograd.Function):
         y = _forward_cfp(st, tables, xc, _wk3(kernel, n_terms), n_terms, kind,
                          B, strips, run_stencil_kernel)
         # the fused backward rebuilds its strips from dy: keep x's only for
-        # the two-kernel backward
-        ctx.save_for_backward(xc, kernel,
-                              *(() if config.fused_dw else strips))
+        # the two-kernel backward's K3 (none for a constant kernel)
+        keep = not config.fused_dw and kernel.requires_grad
+        ctx.save_for_backward(xc, kernel, *(strips if keep else ()))
         ctx.meta = (st, tables, n_terms, kind, B)
         return y
 
@@ -759,6 +781,9 @@ class _FusedConv(torch.autograd.Function):
                 dx = _forward_cfp(st, tables, dy, wk3t, K, kind, B,
                                   build_strips(st, dy, tables.get("strip_idx")),
                                   run_stencil_kernel)
+            if not ctx.needs_input_grad[1]:
+                # a constant kernel (the lap chain's term selector): no K3
+                return dx, None, None, None, None, None, None
             if not strips:  # fused_dw was switched on between fwd and bwd
                 strips = build_strips(st, xc, tables.get("strip_idx"))
             dy_clean = dy * tables["corr_mask"].to(dy.dtype) if has_corr else dy

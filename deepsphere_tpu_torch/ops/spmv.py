@@ -3,12 +3,15 @@
 The port's independent oracle for the stencil path and its kernels: K
 applications of the rescaled graph Laplacian in padded ELLPACK form
 ``(idx, val)`` of shape (M, W) against a dense (M, C) activation,
-interleaved per the Chebyshev / monomial recurrences, followed by one
+interleaved per the Chebyshev / monomial / Bernstein recurrences, followed
+by one
 (B*M, Fin*K) x (Fin*K, Fout) matmul.  Counterpart of the JAX package's
 ``deepsphere_tpu.ops.spmv``.
 """
 
 from __future__ import annotations
+
+from math import comb
 
 import torch
 
@@ -18,6 +21,9 @@ __all__ = [
     "chebyshev_terms",
     "monomial_basis",
     "monomial_terms",
+    "bernstein_basis",
+    "bernstein_basis_ref",
+    "bernstein_terms",
     "graph_conv",
 ]
 
@@ -69,6 +75,51 @@ def monomial_basis(idx, val, x, K):
     """Monomial basis stack, shape (K, M, C)."""
     return torch.stack(
         list(monomial_terms(lambda y: ellpack_spmv(idx, val, y), x, K)))
+
+
+def bernstein_terms(matvec, x0, n_terms, quirk=False):
+    """Yield the Bernstein basis terms over an abstract ``matvec``: term i
+    is comb(K, i) / 2^K (2I - L)^(K-i) L^i x, K = n_terms - 1.
+
+    ``quirk=True`` reproduces the reference's stale-buffer i = K term: it
+    re-emits term K-1 divided by 2^K (and skips the L^K power the correct
+    term needs).  K = 0 with the quirk raises, as the reference does.
+    """
+    K = n_terms - 1
+    if quirk and K < 1:
+        raise ValueError(
+            "ref_quirks Bernstein needs K >= 1 (the reference crashes at "
+            "K=0: gnn_layers.py:542-554 never assigns its output buffer)"
+        )
+    power = x0
+    prev = None
+    for i in range(K + 1):
+        theta = float(comb(K, i)) / (2.0**K)
+        if i == K and quirk:
+            yield prev / (2.0**K)
+            return
+        y = power
+        for _ in range(K - i):
+            y = 2.0 * y - matvec(y)
+        prev = theta * y
+        yield prev
+        if i < K:
+            power = matvec(power)
+
+
+def bernstein_basis(idx, val, x, n_terms):
+    """Bernstein basis stack, shape (n_terms = K+1, M, C), with the
+    mathematically correct i = K term."""
+    return torch.stack(list(bernstein_terms(
+        lambda y: ellpack_spmv(idx, val, y), x, n_terms)))
+
+
+def bernstein_basis_ref(idx, val, x, n_terms):
+    """Bernstein basis with the reference's i = K quirk
+    (:func:`bernstein_terms` with ``quirk=True``), for reference-trained
+    checkpoints; K = 0 raises."""
+    return torch.stack(list(bernstein_terms(
+        lambda y: ellpack_spmv(idx, val, y), x, n_terms, quirk=True)))
 
 
 def graph_conv(basis, x, kernel, n_terms):

@@ -10,17 +10,21 @@ term at a time.
 
 Two conv forms live here:
 
-* :func:`stencil_graph_conv` — the per-step path: one halo refill and one
-  stencil application per term, on (B, M, F) activations in NEST or
-  face-flat order.  Plain torch ops on every device.
+* :func:`stencil_graph_conv` — the conv on (B, M, F) activations in NEST
+  or face-flat order.  The per-step path: one halo refill and one stencil
+  application per term, plain torch ops.  A CUDA input of a deep-radius
+  graph (radius >= 3, K > 2) on its shallow stencil takes the lap chain
+  instead (:func:`conv_route`, :func:`lap_chain_conv`): one fused launch
+  (K4 strips, K1) per L~ application, the recursion and the channel
+  contraction between the launches, as the JAX package does on a TPU.
 * :func:`stencil_graph_conv_cface` — the conv on the channels-first padded
   "cface" layout (B, F, 12, n, P_l), face col y at lane y + h.  It calls
   :func:`.fused_stencil.fused_stencil_conv_cfp` (the device of the tensor
   decides between the CUDA kernels and their plain versions), except for a
-  CUDA input of a shape where the JAX package runs no kernel either and the
-  kernels refuse it (:func:`.fused_stencil.cface_route`): that runs the
-  per-step path on the interior lanes and pads the result again, as the
-  JAX package does.
+  CUDA input of a shape the one-shot kernels refuse
+  (:func:`.fused_stencil.cface_route`): where the JAX package runs no
+  kernel either, the per-step path on the interior lanes, padded again;
+  at radius <= 2, the lap chain on the shallow stencil.
 
 The face-sharded conv (``parallel/cface_sharded.py``) exchanges only the
 four h-deep edge bands of each face: :func:`pack_edge_bands` cuts them (the
@@ -54,6 +58,9 @@ __all__ = [
     "stencil_matvec",
     "stencil_graph_conv",
     "stencil_graph_conv_cface",
+    "conv_route",
+    "lap_chain_available",
+    "lap_chain_conv",
     "cface_embed",
     "cface_extract",
 ]
@@ -361,19 +368,37 @@ def stencil_matvec(st: FaceStencil, tables, xf):
 
 def _term_stream(kind, matvec, x0, n_terms):
     """Yield the polynomial basis terms one at a time (never stacked)."""
-    from .spmv import chebyshev_terms, monomial_terms
+    from .spmv import bernstein_terms, chebyshev_terms, monomial_terms
 
     if kind == "cheby":
         yield from chebyshev_terms(matvec, x0, n_terms)
     elif kind == "mono":
         yield from monomial_terms(matvec, x0, n_terms)
+    elif kind in ("bern", "bern_ref"):
+        yield from bernstein_terms(matvec, x0, n_terms,
+                                   quirk=kind == "bern_ref")
     else:
         raise ValueError(f"unknown basis kind: {kind}")
 
 
+def conv_route(st: FaceStencil, kind, n_terms, cuda):
+    """The route of :func:`stencil_graph_conv`, from the stencil, the basis
+    and the device alone: ``"chain"`` (:func:`lap_chain_conv`) for a CUDA
+    input of a deep-radius conv (radius >= 3, n_terms > 2) on its shallow
+    stencil (``n_steps == radius``) that the chain takes, where the JAX
+    package chains its single-lap kernel; ``"per_step"`` everywhere else
+    (on the CPU always, as the JAX package without a Pallas backend)."""
+    r = getattr(st, "radius", 1) or 1
+    if (cuda and n_terms > 2 and r >= 3 and st.n_steps == r
+            and lap_chain_available(st, kind, n_terms)):
+        return "chain"
+    return "per_step"
+
+
 def stencil_graph_conv(st: FaceStencil, x, kernel, n_terms, kind, tables=None,
                        layout="nest"):
-    """Polynomial graph conv on the face layout, one stencil step per term.
+    """Polynomial graph conv on the face layout, on the route that
+    :func:`conv_route` gives: the lap chain, or one stencil step per term.
 
     Drop-in equivalent of :func:`.spmv.graph_conv` (same kernel layout),
     keeping the reference's (batch, pixel, channel) contract.
@@ -386,6 +411,36 @@ def stencil_graph_conv(st: FaceStencil, x, kernel, n_terms, kind, tables=None,
         and exit) or "face" (face-flat [f, x, y])
     :return: (B, M, Fout)
     """
+    if conv_route(st, kind, n_terms, x.is_cuda) == "chain":
+        _cuda.route_counts["lap_chain"] += 1
+        return lap_chain_conv(st, x, kernel, n_terms, kind, tables=tables,
+                              layout=layout)
+    return _per_step(st, x, kernel, n_terms, kind, tables, layout)
+
+
+def _to_face(x, layout):
+    """(B, M, F) in ``layout`` -> face-flat."""
+    if layout == "nest":
+        from .layout import nest_to_face
+
+        return nest_to_face(x)
+    if layout != "face":
+        raise ValueError(f"unknown layout: {layout}")
+    return x
+
+
+def _from_face(y, layout):
+    if layout == "nest":
+        from .layout import face_to_nest
+
+        return face_to_nest(y)
+    return y
+
+
+def _per_step(st: FaceStencil, x, kernel, n_terms, kind, tables=None,
+              layout="nest"):
+    """:func:`stencil_graph_conv`'s per-step path: one halo refill and one
+    stencil application per term, plain torch ops on any device."""
     B, M, Fin = x.shape
     n = st.nside
     if M != 12 * n * n:
@@ -393,38 +448,108 @@ def stencil_graph_conv(st: FaceStencil, x, kernel, n_terms, kind, tables=None,
     Fout = kernel.shape[-1]
     tables = _tables_for(tables, st, x.device)
 
-    x2d = x.permute(1, 0, 2).reshape(M, B * Fin)
-    if layout == "nest":
-        from .layout import nest_to_face
-
-        x2d = nest_to_face(x2d)
-    elif layout != "face":
-        raise ValueError(f"unknown layout: {layout}")
-
-    xf = x2d.reshape(12, n, n, B * Fin)
+    xf = _to_face(x, layout).permute(1, 0, 2).reshape(12, n, n, B * Fin)
     matvec = lambda t: stencil_matvec(st, tables, t)
     wk = kernel.reshape(Fin, n_terms, Fout)
     y = x.new_zeros((M, B, Fout), dtype=torch.float32)
     for k, t in enumerate(_term_stream(kind, matvec, xf, n_terms)):
         tk = t.reshape(M, B, Fin)
         y = y + torch.einsum("mbf,fo->mbo", tk, wk[:, k, :].to(t.dtype))
-    if layout == "nest":
-        from .layout import face_to_nest
+    return _from_face(y.permute(1, 0, 2), layout).to(x.dtype)
 
-        y = face_to_nest(y.reshape(M, B * Fout)).reshape(M, B, Fout)
-    return y.permute(1, 0, 2).to(x.dtype)
+
+def lap_chain_available(st: FaceStencil, kind, n_terms):
+    """Whether :func:`lap_chain_conv` takes this conv: a Chebyshev or
+    monomial recursion of at least 2 terms on a shallow stencil
+    (``n_steps`` == its radius) that fits the fused conv for one
+    application."""
+    from .fused_stencil import cfp_structural_available
+
+    if st is None or kind not in ("cheby", "mono") or n_terms < 2:
+        return False
+    r = getattr(st, "radius", 1) or 1
+    if st.n_steps != r:
+        return False
+    return cfp_structural_available(st, "mono", 2)
+
+
+def lap_chain_conv(st: FaceStencil, x, kernel, n_terms, kind, tables=None,
+                   layout="nest"):
+    """Polynomial graph conv as a chain of single-lap fused convs.
+
+    One L~ application per fused launch on the shallow stencil
+    (``n_steps == radius``: strips, then K1 with the monomial K=2 term
+    selector kernel ``[0; I]``, y = L~ x, exact with no corner correction),
+    the Chebyshev or monomial recursion and the [Fin, Fout] contraction of
+    each term between the launches.  It never builds the deep window of
+    the one-shot conv, whose h = r*(K-1) outgrows a block's shared memory
+    at radius >= 3 (and at radius 2 from h = 20).  Each lap is
+    differentiated by the fused conv's backward; the selector needs no
+    gradient, so the K1+K3 route runs no K3.  Same math as the per-step
+    recursion.
+
+    Same contract as :func:`stencil_graph_conv` (x: (B, M, Fin) ->
+    (B, M, Fout)); requires :func:`lap_chain_available`.  A CUDA input
+    whose laps the kernels' plans refuse raises before any launch.
+    """
+    from .fused_stencil import chain_refused, fused_stencil_conv_cfp
+    from .spmv import chebyshev_terms, monomial_terms
+
+    B, M, Fin = x.shape
+    n, h = st.nside, st.n_steps
+    if M != 12 * n * n:
+        raise ValueError(
+            f"stencil conv needs the full sphere ({12*n*n} pixels), got {M}")
+    if not lap_chain_available(st, kind, n_terms):
+        raise ValueError(f"the lap chain does not take a {kind} conv of "
+                         f"{n_terms} terms on a depth-{h} stencil")
+    if x.is_cuda:
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        grad = torch.is_grad_enabled() and x.requires_grad
+        refused = chain_refused(n, st.radius, len(st.offsets), B, Fin, sms,
+                                grad)
+        if refused:
+            raise ValueError(
+                f"lap chain: no plan of {', '.join(refused)} takes n={n} "
+                f"r={st.radius} B={B} channels {Fin} on {sms} SMs")
+    Fout = kernel.shape[-1]
+    tables = _tables_for(tables, st, x.device)
+
+    # (B, M, Fin) -> (B*Fin, 12, n, P_l) once for the whole chain
+    xc = cface_embed(_to_face(x, layout), n, h).reshape(B * Fin, 12, n, -1)
+    # term selector: monomial, 2 terms, rows (Fin-major, term-minor) [0; I]
+    eye = torch.eye(Fin, dtype=xc.dtype, device=x.device)
+    sel = torch.stack([torch.zeros_like(eye), eye], dim=1).reshape(2 * Fin,
+                                                                  Fin)
+
+    def matvec(t):
+        return fused_stencil_conv_cfp(st, tables, t, sel, 2, "mono", B)
+
+    terms = (chebyshev_terms if kind == "cheby" else monomial_terms)(
+        matvec, xc, n_terms)
+    wk = kernel.reshape(Fin, n_terms, Fout)
+    y = None
+    for k, t in enumerate(terms):
+        ti = t[..., h : h + n].reshape(B, Fin, M)
+        yk = torch.einsum("bfm,fo->bmo", ti, wk[:, k, :].to(ti.dtype))
+        y = yk if y is None else y + yk
+    return _from_face(y, layout).to(x.dtype)
 
 
 def stencil_graph_conv_cface(st: FaceStencil, x5, kernel, n_terms, kind,
-                             tables=None):
+                             tables=None, chain=None):
     """Polynomial graph conv in the channels-first padded layout.
 
     A CUDA input takes the route that :func:`.fused_stencil.cface_route`
-    gives its shape on its card: the kernels, or :func:`_cface_per_step`.
-    A CPU input runs the kernels' plain versions.
+    gives its shape on its card: the kernels, :func:`_cface_per_step`, or
+    :func:`_cface_chain`.  A CPU input runs the kernels' plain versions.
 
     :param x5: (B, Fin, 12, n, P_l) with face col y at lane y + h; only
         interior lanes are read
+    :param chain: a callable returning the shallow stencil of the same
+        Laplacian (``n_steps`` == its radius) and its tables on the device
+        of ``x5``, called only where the route is the lap chain (the layer
+        builds them then, not before); without it a chain route raises
     :return: (B, Fout, 12, n, P_l); lanes outside the interior are 0
     """
     from .fused_stencil import (
@@ -442,18 +567,34 @@ def stencil_graph_conv_cface(st: FaceStencil, x5, kernel, n_terms, kind,
             f"({st.nside}, {P_exp})"
         )
     Fout = kernel.shape[-1]
-    tables = _tables_for(tables, st, x5.device)
     if x5.is_cuda:
         sms = torch.cuda.get_device_properties(x5.device).multi_processor_count
         grad = torch.is_grad_enabled() and (x5.requires_grad
                                             or kernel.requires_grad)
-        if cface_route(st, kind, n_terms, B, Fin, Fout, sms,
-                       grad) == "per_step":
+        route = cface_route(st, kind, n_terms, B, Fin, Fout, sms, grad)
+        if route == "per_step":
             return _cface_per_step(st, x5, kernel, n_terms, kind, tables)
+        if route == "chain":
+            if chain is None:
+                raise ValueError("the cface conv's route is the lap chain, "
+                                 "which needs the shallow stencil (chain=)")
+            return _cface_chain(*chain(), x5, kernel, n_terms, kind, h)
+    tables = _tables_for(tables, st, x5.device)
     y = fused_stencil_conv_cfp(
         st, tables, x5.reshape(B * Fin, 12, n, P_l), kernel, n_terms, kind, B,
     )
     return y.reshape(B, Fout, 12, n, P_l).to(x5.dtype)
+
+
+def _cface_chain(st_r, tables_r, x5, kernel, n_terms, kind, h):
+    """The cface conv's lap-chain route: the interior lanes of the depth-h
+    layout through :func:`lap_chain_conv` on the shallow stencil ``st_r``
+    (face layout), padded again to depth h (counted in
+    ``_cuda.route_counts["chain_cface"]``)."""
+    _cuda.route_counts["chain_cface"] += 1
+    yf = lap_chain_conv(st_r, cface_extract(x5, h), kernel, n_terms, kind,
+                        tables=tables_r, layout="face")
+    return cface_embed(yf, st_r.nside, h)
 
 
 def _cface_per_step(st: FaceStencil, x5, kernel, n_terms, kind, tables=None):
@@ -462,8 +603,8 @@ def _cface_per_step(st: FaceStencil, x5, kernel, n_terms, kind, tables=None):
     counted in ``_cuda.route_counts["per_step_cface"]``)."""
     n, h = st.nside, st.n_steps
     _cuda.route_counts["per_step_cface"] += 1
-    yf = stencil_graph_conv(st, cface_extract(x5, h), kernel, n_terms, kind,
-                            tables=tables, layout="face")
+    yf = _per_step(st, cface_extract(x5, h), kernel, n_terms, kind,
+                   tables=tables, layout="face")
     return cface_embed(yf, n, h)
 
 

@@ -423,7 +423,8 @@ def test_k60_model_takes_the_per_step_route(rng, dev):
                                           for n, p in m.named_parameters()})
         if d.type == "cuda":
             assert all(v == 0 for v in _cuda.launch_counts.values())
-            assert _cuda.route_counts == {"per_step_cface": 1}
+            assert _cuda.route_counts == {"per_step_cface": 1,
+                                          "chain_cface": 0, "lap_chain": 0}
     (y_c, g_c), (y_p, g_p) = out["cuda"], out["cpu"]
     _close(y_c, y_p, 1e-4)
     for name in g_p:
@@ -432,30 +433,123 @@ def test_k60_model_takes_the_per_step_route(rng, dev):
 
 def test_cface_conv_raises_before_launch_where_a_kernel_has_no_plan(rng,
                                                                     dev):
-    """k=20 grid at K=11 (radius 2, h=20), batch 16, 8 -> 16: K1 takes the
-    forward but no plan of K2 takes the backward.  The JAX package runs its
-    kernel at radius 2, so this is a gap of the kernels, not the per-step
-    route: a conv that needs a gradient raises before any launch, and one
-    that needs none runs K1 and matches its plain version on the CPU."""
+    """k=20 grid at K=11 (radius 2, h=20), batch 1, 2048 -> 2048 channels:
+    K1 takes the forward, but no plan of K2 or K3 takes the backward, one
+    shot or on the lap chain (their dW cells outgrow shared memory at
+    every tile).  A conv that needs a gradient raises before any launch;
+    one that needs none takes the one-shot K1."""
     from deepsphere_tpu_torch.ops.stencil import stencil_graph_conv_cface
 
-    n, K, B, Fin, Fout = 32, 11, 16, 8, 16
+    n, K, B, Fin, Fout = 32, 11, 1, 2048, 2048
     st = _stencil(n, 0.75, 20, k=20)
     assert st.radius == 2
     _, P_l = fs.cfp_geometry(n, st.n_steps)
+    x = torch.zeros((B, Fin, 12, n, P_l), device=dev)
+    kern = torch.zeros((Fin * K, Fout), device=dev, requires_grad=True)
+    with pytest.raises(ValueError, match="no plan of K2, K3 takes its lap "
+                       "chain"):
+        stencil_graph_conv_cface(st, x, kern, K, "cheby")
+    assert all(v == 0 for v in _cuda.launch_counts.values())
+    assert all(v == 0 for v in _cuda.route_counts.values())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert fs.cface_route(st, "cheby", K, B, Fin, Fout, sms,
+                          grad=False) == "fused"
+
+
+def _chain_launches(laps, fused_dw=None):
+    """Launches of a lap chain of ``laps`` laps: the forward, and with
+    ``fused_dw`` set its backward too (K2 a lap; or K1 on dy a lap, and no
+    K3: the term selector needs no gradient)."""
+    want = {"strips": laps, "stencil_conv": laps, "dxdw": 0, "grad": 0,
+            "bands": 0}
+    if fused_dw is True:
+        want.update(strips=2 * laps, dxdw=laps)
+    elif fused_dw is False:
+        want.update(strips=2 * laps, stencil_conv=2 * laps)
+    return want
+
+
+@pytest.mark.parametrize("fused_dw", [True, False])
+def test_lap_chain_matches_the_per_step_path(rng, dev, fused_dw):
+    """A k=40 (radius 3) Chebyshev K=4 conv at nside 16 on its shallow
+    stencil takes the lap chain on the card (counted once; K4 and K1 once
+    a lap; backward K2, or K1 on dy, once a lap): y and the gradients of a
+    fixed cotangent match the per-step path on the CPU."""
+    from deepsphere_tpu_torch.ops.stencil import stencil_graph_conv
+
+    config.set_fused_dw(fused_dw)
+    n, K, B, Fin, Fout = 16, 4, 2, 3, 2
+    st = _stencil(n, 0.75, 3, k=40)
+    assert st.radius == 3
+    x = torch.from_numpy(rng.normal(size=(B, 12 * n * n, Fin)).astype(
+        np.float32))
+    kern = torch.from_numpy((rng.normal(size=(Fin * K, Fout)) * 0.3).astype(
+        np.float32))
+    cot = torch.from_numpy(rng.normal(size=(B, 12 * n * n, Fout)).astype(
+        np.float32))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        _cuda.reset_launch_counts()
+        xd = x.to(d).requires_grad_()
+        kd = kern.to(d).requires_grad_()
+        y = stencil_graph_conv(st, xd, kd, K, "cheby")
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            assert _cuda.route_counts["lap_chain"] == 1
+            assert _cuda.launch_counts == _chain_launches(K - 1)
+        dx, dk = torch.autograd.grad(y, (xd, kd), cot.to(d))
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            assert _cuda.launch_counts == _chain_launches(K - 1, fused_dw)
+        else:
+            assert _cuda.route_counts["lap_chain"] == 0
+        out[d.type] = [t.detach().cpu() for t in (y, dx, dk)]
+    for got, want, tol in zip(out["cuda"], out["cpu"], (TOL, TOL, DW_TOL)):
+        _close(got, want, tol)
+
+
+@pytest.mark.parametrize("fused_dw", [True, False])
+def test_fault_shape_cface_conv_takes_the_chain(rng, dev, fused_dw):
+    """The shape of ROADMAP fault 3.2 (k=20 at K=11, h=20, nside 32, batch
+    16, 8 -> 16), which no one-shot K2 takes, runs in training on the lap
+    chain instead of raising: counted once, 10 laps of K4 and K1, and
+    their backward; y and the gradients of a fixed cotangent match the
+    same conv on the CPU (the one-shot conv's plain versions)."""
+    from deepsphere_tpu_torch.ops.stencil import stencil_graph_conv_cface
+
+    config.set_fused_dw(fused_dw)
+    n, K, B, Fin, Fout = 32, 11, 16, 8, 16
+    st = _stencil(n, 0.75, 20, k=20)
+    h = st.n_steps
+    shallow = _stencil(n, 0.75, 2, k=20)
+    tables_r = as_tensors(stencil_tables(shallow), dev)
+    _, P_l = fs.cfp_geometry(n, h)
     x = torch.from_numpy(rng.normal(size=(B, Fin, 12, n, P_l)).astype(
         np.float32))
+    x[..., :h] = 0.0
+    x[..., h + n:] = 0.0
     kern = torch.from_numpy((rng.normal(size=(Fin * K, Fout))
                              / np.sqrt(Fin * K)).astype(np.float32))
-    with pytest.raises(ValueError, match="no plan of K2"):
-        stencil_graph_conv_cface(st, x.to(dev), kern.to(dev).requires_grad_(),
-                                 K, "cheby")
-    assert all(v == 0 for v in _cuda.launch_counts.values())
-    assert _cuda.route_counts == {"per_step_cface": 0}
-    with torch.no_grad():
-        y = stencil_graph_conv_cface(st, x.to(dev), kern.to(dev), K, "cheby")
-    assert _cuda.launch_counts["stencil_conv"] == 1
-    _close(y.cpu(), stencil_graph_conv_cface(st, x, kern, K, "cheby"))
+    cot = torch.from_numpy(rng.normal(size=(B, Fout, 12, n, P_l)).astype(
+        np.float32))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        _cuda.reset_launch_counts()
+        xd = x.to(d).requires_grad_()
+        kd = kern.to(d).requires_grad_()
+        y = stencil_graph_conv_cface(st, xd, kd, K, "cheby",
+                                     chain=lambda: (shallow, tables_r))
+        dx, dk = torch.autograd.grad(y, (xd, kd), cot.to(d))
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            assert _cuda.route_counts["chain_cface"] == 1
+            assert _cuda.launch_counts == _chain_launches(K - 1, fused_dw)
+        else:
+            assert _cuda.route_counts["chain_cface"] == 0
+        out[d.type] = [t.detach().cpu()[..., h:h + n] if t.ndim == 5
+                       else t.detach().cpu() for t in (y, dx, dk)]
+    for got, want, tol in zip(out["cuda"], out["cpu"], (TOL, TOL, DW_TOL)):
+        _close(got, want, tol)
 
 
 def test_model_forward_matches_cpu(rng, dev):

@@ -281,8 +281,9 @@ def test_error_strings_match_jax():
 
 def test_port_imports_no_jax():
     """In a fresh interpreter where jax and flax cannot be imported, the
-    port imports, builds the quick_start model at nside 8 and runs one
-    CPU forward."""
+    port imports, builds the quick_start model and a model of the conv
+    family (Bernstein, pseudo-convs, a residual layer) at nside 8 and runs
+    one CPU forward of each."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -300,6 +301,17 @@ def test_port_imports_no_jax():
             hp.HealpyChebyshev(K=10, Fout=32, activation="relu", use_bn=True),
             hp.HealpyPool(p=1),
             hp.HealpyChebyshev(K=10, Fout=32, activation="relu"),
+            hp.Flatten(), hp.Dense(4)]).build((2, npix, 1), device="cpu")
+        y = m.predict(np.random.RandomState(0).normal(size=(2, npix, 1)))
+        assert y.shape == (2, 4) and np.isfinite(y).all()
+        # the conv family: Bernstein, residual layers, pseudo-convs
+        from deepsphere_tpu_torch.ops.stencil import lap_chain_conv
+        m = dt.HealpyGCNN(8, np.arange(npix), [
+            hp.HealpyBernstein(K=2, Fout=4, ref_quirks=True),
+            hp.HealpyPseudoConv(p=1, Fout=4),
+            hp.Healpy_ResidualLayer("CHEBY", {"K": 3}, activation="relu",
+                                    use_bn=True, norm_type="layer_norm"),
+            hp.HealpyPseudoConv_Transpose(p=1, Fout=1),
             hp.Flatten(), hp.Dense(4)]).build((2, npix, 1), device="cpu")
         y = m.predict(np.random.RandomState(0).normal(size=(2, npix, 1)))
         assert y.shape == (2, 4) and np.isfinite(y).all()
@@ -347,8 +359,10 @@ def test_k60_model_per_step_route_matches_the_fused_route(rng, monkeypatch):
     _cuda.reset_launch_counts()
     y_f, g_f = run()
     assert _cuda.route_counts["per_step_cface"] == 0
-    monkeypatch.setattr(tl, "stencil_graph_conv_cface",
-                        tstencil._cface_per_step)
+    def per_step(st, x5, kernel, n_terms, kind, tables=None, chain=None):
+        return tstencil._cface_per_step(st, x5, kernel, n_terms, kind, tables)
+
+    monkeypatch.setattr(tl, "stencil_graph_conv_cface", per_step)
     y_s, g_s = run()
     assert _cuda.route_counts["per_step_cface"] == 1
     assert all(v == 0 for v in _cuda.launch_counts.values())

@@ -163,7 +163,10 @@ def test_per_step_conv_rejects_partial_maps():
 # (its weight window alone outgrows a block's shared memory), so the conv of
 # a k=60 grid graph at K=5 takes the per-step path on the card; a radius-3
 # conv the kernels take stays on them; at radius <= 2, where the JAX
-# package runs its kernel, a refused plan raises (a gap of the kernels)
+# package runs its kernel, a refused plan takes the lap chain (one L~
+# application per launch at h = radius), and raises only where the chain's
+# plans refuse it too (2048 channels: K2's and K3's dW cells outgrow shared
+# memory at every tile)
 _H100_SMS = 132  # an H100 SXM's SMs
 
 # (label, nside, k, K, B, Fin, Fout, route)
@@ -174,7 +177,8 @@ _ROUTES = [
     ("quick_start conv 1", 64, 8, 10, 16, 1, 8, "fused"),
     ("quick_start conv 2", 32, 8, 10, 16, 8, 16, "fused"),
     ("quick_start conv 3", 16, 8, 10, 16, 16, 32, "fused"),
-    ("k=20 K=11 nside 32, 8 -> 16", 32, 20, 11, 16, 8, 16, "raises"),
+    ("k=20 K=11 nside 32, 8 -> 16", 32, 20, 11, 16, 8, 16, "chain"),
+    ("k=20 K=11 nside 32, 2048 -> 2048", 32, 20, 11, 1, 2048, 2048, "raises"),
 ]
 
 _TGRAPHS = {}
@@ -192,12 +196,13 @@ def test_cface_route_follows_the_plans(label, n, k, K, B, Fin, Fout, route):
     """The route is "fused" where K1 (forward and, channels swapped, the dx
     conv on dy), K2 and K3 all have a plan on an H100; "per_step" where
     one is refused at radius >= 3 and K > 2 (the JAX package's own
-    decline); elsewhere a refused plan raises, naming the kernels.  An
-    inference conv needs only K1's plan."""
+    decline); "chain" where one is refused at radius <= 2 and the lap
+    chain's plans take the shape; elsewhere it raises, naming the kernels.
+    An inference conv needs only K1's plan."""
     st = _deep_stencil(n, k, K)
     assert tfs.cfp_structural_available(st, "cheby", K), label
     if route == "raises":
-        with pytest.raises(ValueError, match="no plan of K2"):
+        with pytest.raises(ValueError, match="no plan of K2.*lap chain"):
             tfs.cface_route(st, "cheby", K, B, Fin, Fout, _H100_SMS)
         assert tfs.cface_route(st, "cheby", K, B, Fin, Fout, _H100_SMS,
                                grad=False) == "fused"
@@ -251,7 +256,8 @@ def test_cface_per_step_route_matches_jax():
     kt = _t(kern).requires_grad_()
     y = tstencil._cface_per_step(st, xt, kt, K, "cheby")
     dx, dk = torch.autograd.grad(y, (xt, kt), _t(cot))
-    assert _cuda.route_counts == {"per_step_cface": 1}
+    assert _cuda.route_counts == {"per_step_cface": 1, "chain_cface": 0,
+                                  "lap_chain": 0}
     assert all(v == 0 for v in _cuda.launch_counts.values())
     y = y.detach()
     assert (y[..., :h] == 0).all() and (y[..., h + n:] == 0).all()
