@@ -99,11 +99,38 @@ Phases, one result line each (with the elapsed seconds):
    that float32 resolves only to ~3e-3 of their own max); (c) a Bernstein
    conv with and without the reference quirk: no kernel, against the CPU.
    The float64 references of phases 9-10 are CPU copies planned in the
-   NEST layout (per-step convs), the parameters copied.
+   NEST layout (per-step convs), the parameters copied;
+11. smoothing: (a) ``bench.py``'s smooth stage (nside 1024, sigma 10', the
+   stencil method, one map, one channel: m = 5 repetitions of a radius-4
+   template, 81 taps), its operator built and cached in a second process
+   beside phases 3-10: the layer's forward launches K4 and K1 once a pass
+   (one template application a pass; route ``smooth_fused``), the map on
+   the kernels within 2e-5 of the plain per-step chain on the same CUDA
+   input, a constant map kept to 1e-6, the gradient of sum(w S^m x)
+   through the exact transpose backward (no launch) within 1e-5 of the
+   plain chain's VJP (the same autograd chain: 0 by construction), and at
+   nside 64 (the same sigma / spacing ratio) S^m x and (S^m)^T w within
+   1e-5 of m float64 scipy matvecs of the template's ELLPACK and of its
+   transpose; device times by graph replay of the chain, the layer and
+   one pass's K1 beside their bytes bound (the tap planes, x in, y out, a
+   pass) and the plain chain by CUDA events; the whole chain in one pass
+   (h = 20) is checked and timed where K1 has a plan for it;
+   (b) a polar cap at nside 64, 3 channels of per-channel repetitions,
+   both methods: the card against the CPU (1e-5);
+12. the reference's every-layer network (``tests/test_networks.py:28-43``)
+   at its nside 256, batch 4: pseudo-convs, a pool, Chebyshev, a ViT
+   (dense attention over 3,072 tokens at nside 64), monomial, Bernstein,
+   the edge-sparse transformer at nside 16, a residual layer, Dense(4);
+   4 requests through ``predict`` (K4 and K1 once per cface conv, logits
+   1e-4 of a float64 CPU copy planned in NEST), one ``train_on_batch`` on
+   each backward route against its float64 step (loss 1e-5, gradients
+   1e-3; a key bias's gradient, 0 but for rounding, over the tree's
+   largest entry), ms per step with the routes alternating, device ops
+   and device-busy share.
 
 It then prints the card line, one JSON line with every kernel's launches
 (the sum over the main paths, each counted from 0: quick_start training
-for K1-K4, the sharded training for K5, and phases 9-10, with the paths
+for K1-K4, the sharded training for K5, and phases 9-12, with the paths
 under ``paths``), error, times and bound, and finally
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
 non-zero and prints no result line.  It needs one card, never falls back to
@@ -132,6 +159,7 @@ import sys
 import time
 
 import numpy as np
+import scipy.sparse
 import torch
 
 TOL = 2e-5  # max|kernel - plain| / max|plain|, float32 sums in another order
@@ -630,6 +658,386 @@ def prebuild_k40(root):
     return subprocess.Popen([sys.executable, "-c", code])
 
 
+SMOOTH = (1024, 10.0)  # phase 11(a): nside, sigma (arcmin), bench.py:569-604
+
+
+def prebuild_smoothing(root):
+    """Build phase 11(a)'s smoothing operator (nside 1024, sigma 10', the
+    stencil method: the native template, then its stencil extraction) in
+    another process, into ``ROOT/.bench_cache``, with the seconds of the
+    build in ``smooth_build.json`` there.  Returns the process."""
+    n, sigma = SMOOTH
+    cache = os.path.join(root, ".bench_cache")
+    code = (
+        "import json, os, sys, time\n"
+        f"sys.path.insert(0, {root!r})\n"
+        "import numpy as np\n"
+        "from deepsphere_tpu_torch.nn.smoothing import SmoothingOperator\n"
+        "t = time.perf_counter()\n"
+        f"SmoothingOperator(nside={n}, indices=np.arange({12 * n * n}), "
+        f"sigma={sigma}, method='stencil', data_path={cache!r})\n"
+        "secs = time.perf_counter() - t\n"
+        f"json.dump(secs, open(os.path.join({cache!r}, 'smooth_build.json'), "
+        "'w'))\n")
+    return subprocess.Popen([sys.executable, "-c", code])
+
+
+def kitchen_sink_layers(hp_nn):
+    """The reference's every-layer network (``tests/test_networks.py:28-43``,
+    its widths)."""
+    return [
+        hp_nn.HealpyPseudoConv(p=1, Fout=4),
+        hp_nn.HealpyPool(p=1),
+        hp_nn.HealpyChebyshev(K=5, Fout=8),
+        hp_nn.Healpy_ViT(p=2, key_dim=8, num_heads=2, n_layers=2),
+        hp_nn.HealpyPseudoConv_Transpose(p=2, Fout=16),
+        hp_nn.HealpyPseudoConv(p=2, Fout=16),
+        hp_nn.HealpyMonomial(K=5, Fout=32),
+        hp_nn.HealpyBernstein(K=5, Fout=32),
+        hp_nn.Healpy_Transformer(key_dim=8, num_heads=4),
+        hp_nn.Healpy_ResidualLayer("CHEBY", layer_kwargs={"K": 5}),
+        hp_nn.Flatten(),
+        hp_nn.Dense(4),
+    ]
+
+
+def smoothing_and_attention(dev, card, rng, prebuild_s):
+    """Phases 11 and 12: smoothing at bench.py's configuration on K4 + K1
+    with its transpose backward, masked and ELLPACK smoothing, and the
+    kitchen-sink network served and trained at nside 256.  Returns the
+    launches of each main path and the times."""
+    import deepsphere_tpu_torch as dt
+    from deepsphere_tpu_torch import config
+    from deepsphere_tpu_torch.nn import healpy_layers as hp_nn
+    from deepsphere_tpu_torch.nn.smoothing import (
+        HealpySmoothing,
+        SmoothingOperator,
+        _stencil_decomposition,
+        _template_ellpack,
+        _with_apps,
+    )
+    from deepsphere_tpu_torch.ops import _cuda
+    from deepsphere_tpu_torch.ops import fused_stencil as fs
+    from deepsphere_tpu_torch.ops.smoothing import (
+        smooth_chain,
+        smooth_chain_plain,
+    )
+    from deepsphere_tpu_torch.ops.strips import build_strips
+    from deepsphere_tpu_torch.train.losses import resolve_loss
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cache = os.path.join(root, ".bench_cache")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    paths, times = {}, {}
+    none = {k: 0 for k in _cuda.launch_counts}
+
+    def add_path(name, *counts):
+        total = dict(none)
+        for c in counts:
+            for k, v in c.items():
+                total[k] += v
+        paths[name] = total
+
+    # 11(a) bench.py's smooth stage: nside 1024, sigma 10', one map, one
+    # channel, the stencil method (m repetitions of a radius-4 template)
+    n, sigma = SMOOTH
+    npix = 12 * n * n
+    t = time.perf_counter()
+    if prebuild_s.wait() != 0:
+        raise RuntimeError("building the smoothing operator failed")
+    with open(os.path.join(cache, "smooth_build.json")) as fh:
+        build_s = json.load(fh)
+    wait_s = time.perf_counter() - t
+    x = torch.from_numpy(rng.normal(size=(1, npix, 1)).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.normal(size=(1, npix, 1)).astype(np.float32)).to(dev)
+    t = time.perf_counter()
+    op = SmoothingOperator(nside=n, indices=np.arange(npix), sigma=sigma,
+                           method="stencil", data_path=cache)
+    st, m = op.stencil, op.stencil_reps
+    if (m, st.radius, len(st.offsets), st.n_steps, op.stencil_apps) != (
+            5, 4, 81, 4, 1):
+        raise AssertionError(f"the decomposition: m={m}, radius "
+                             f"{st.radius}, h={st.n_steps}")
+    layer = HealpySmoothing(op)
+    with torch.no_grad():
+        y, fwd, rt = counted(lambda: layer(x))
+    load_s = time.perf_counter() - t
+    if (fwd != {**none, "strips": m, "stencil_conv": m}
+            or rt["smooth_fused"] != 1):
+        raise AssertionError(f"a smoothing forward launched {fwd}, routes "
+                             f"{rt}")
+    tables = layer._tables(dev)
+    ct = {k: v for k, v in tables.items() if k not in ("n2f", "f2n")}
+    plane_bytes = tables["weights"].numel() * 4
+    xf = x[:, tables["n2f"]]
+    wf = w[:, tables["n2f"]]
+    # the kernels against the same chain's plain (per-step) version on the
+    # same CUDA input, and the layer (NEST) against the chain.  Both
+    # gradients are autograd through the per-step chain, so e_g is 0 by
+    # construction; the nside-64 check below holds S^T to scipy
+    xk = xf.clone().requires_grad_()
+    yk = smooth_chain(st, ct, xk, [m], 1)
+    (gk,), bwd, _ = counted(lambda: torch.autograd.grad((yk * wf).sum(), xk))
+    xp = xf.clone().requires_grad_()
+    yp = smooth_chain_plain(st, ct, xp, [m], 1)
+    (gp,) = torch.autograd.grad((yp * wf).sum(), xp)
+    e_y, e_g = rel_err(yk.detach(), yp.detach()), rel_err(gk, gp)
+    e_layer = rel_err(y, yk.detach()[:, tables["f2n"]])
+    if bwd != none or not (e_y <= TOL and e_g <= 1e-5 and e_layer <= TOL):
+        raise AssertionError(
+            f"rel err {e_y:.3e} (layer {e_layer:.3e}), gradient {e_g:.3e}; "
+            f"the backward launched {bwd}")
+    with torch.no_grad():
+        yc = layer(torch.full_like(x, 2.5))
+    e_const = (yc - 2.5).abs().max().item() / 2.5
+    if not e_const <= 1e-6:
+        raise AssertionError(f"a constant map moved by {e_const:.3e}")
+    # device times by graph replay: the chain from face-flat maps, the
+    # layer from NEST, one pass's K1 alone; the plain chain by events
+    with torch.no_grad():
+        ms_chain = graph_ms(lambda: smooth_chain(st, ct, xf, [m], 1), iters=5)
+        ms_layer = graph_ms(lambda: layer(x), iters=5)
+        xc = cface_embed_flat(xf, st)
+        wk3 = torch.zeros((2, 1, 1), device=dev)
+        wk3[1].fill_(1.0)
+        s_ = build_strips(st, xc, tables["strip_idx"])
+        ms_k1 = graph_ms(lambda: fs.run_stencil_kernel(
+            st, "mono", 2, xc, tables["weights"], s_, wk3, 1))
+        ms_plain = cuda_ms(lambda: smooth_chain_plain(st, ct, xf, [m], 1),
+                           iters=3, warmup=1)
+    k1b = k1_bound(st, 2, 1, 1, 1)
+    plan = fs._k1_plan(n, st.n_steps, 4, 81, 2, 1, 12, 1, 1, sms)
+    smooth = dict(passes=m, e_y=e_y, e_g=e_g, e_const=e_const,
+                  ms_chain=ms_chain, ms_layer=ms_layer, ms_k1=ms_k1,
+                  ms_plain=ms_plain, bound=m * k1b[0], by=k1b[1],
+                  k1_bound=k1b[0], plane_bytes=plane_bytes, load_s=load_s)
+    say("smoothing", f"nside {n}, sigma {sigma}' (h={st.n_steps}): m={m} "
+        f"repetitions of a radius-{st.radius} template, {len(st.offsets)} "
+        f"taps, {m} passes; tap planes {plane_bytes} bytes on the card "
+        f"({plane_bytes / 1e9:.3f} GB); host build {build_s:.2f} s in the "
+        f"side process, loaded in {load_s:.2f} s; a forward launched {fwd}, "
+        f"its backward {bwd}; rel err vs the plain chain {e_y:.2e} (layer "
+        f"{e_layer:.2e}), gradient {e_g:.2e} (the same VJP: 0 by "
+        f"construction); constant map {e_const:.2e}; graph replay: chain "
+        f"{ms_chain:.4f} ms from face-flat maps (bound {m * k1b[0]:.4f} ms, "
+        f"{k1b[1]}), layer {ms_layer:.4f} ms from NEST, one pass's K1 "
+        f"{ms_k1:.4f} ms (bound {k1b[0]:.4f} ms; plan {plan}); plain chain "
+        f"{ms_plain:.3f} ms (CUDA events) on {card}")
+    add_path("smoothing", fwd, bwd)
+    del layer, tables, xk, yk, gk, xp, gp, xc, s_
+    torch.cuda.empty_cache()
+    # the whole chain in one pass (h = 4 m), timed where K1 has a plan
+    deep = fs._k1_plan(n, 4 * m, 4, 81, m + 1, 1, 12, 1, 1, sms)
+    if deep is None:
+        smooth["ms_whole_chain"] = None
+        say("smoothing", f"the whole chain in one pass (h={4 * m}): no K1 "
+            f"plan on {sms} SMs, not timed")
+    else:
+        opd = _with_apps(op, m)
+        td = HealpySmoothing(opd)._tables(dev)
+        ctd = {k: v for k, v in td.items() if k not in ("n2f", "f2n")}
+        with torch.no_grad():
+            e_deep = rel_err(smooth_chain(opd.stencil, ctd, xf, [m], m),
+                             yp.detach())
+            ms_deep = graph_ms(lambda: smooth_chain(opd.stencil, ctd, xf,
+                                                    [m], m), iters=5)
+        if not e_deep <= TOL:
+            raise AssertionError(f"the whole chain in one pass: rel err "
+                                 f"{e_deep:.3e}")
+        smooth["ms_whole_chain"] = ms_deep
+        say("smoothing", f"the whole chain in one pass (h={4 * m}, plan "
+            f"{deep}): {ms_deep:.4f} ms by graph replay, rel err "
+            f"{e_deep:.2e} on {card}")
+        del opd, td, ctd
+    del yp, op, st, ct
+    torch.cuda.empty_cache()
+    say("smoothing", f"waited {wait_s:.2f} s for the side process")
+    times["smoothing"] = smooth
+
+    # S^m x and the gradient (S^m)^T w at nside 64 (the same sigma /
+    # spacing ratio: m = 5 of radius 4) on the card, against m float64
+    # matvecs of the template's ELLPACK and of its transpose (scipy)
+    n64 = 64
+    npix64 = 12 * n64 * n64
+    op64 = SmoothingOperator(nside=n64, indices=np.arange(npix64),
+                             sigma=sigma * n / n64, method="stencil")
+    m64, sig64, r64 = _stencil_decomposition(
+        op64.sigma_rad, dt.sphere.healpix.nside2resol(n64), 3)
+    if (op64.stencil_reps, op64.stencil.radius, m64, r64) != (5, 4, 5, 4):
+        raise AssertionError("the nside-64 operator's decomposition")
+    idx, val = _template_ellpack(n64, sig64, r64, 3, op64.indices)
+    T = scipy.sparse.csr_matrix(
+        (np.asarray(val, np.float64).ravel(),
+         (np.repeat(np.arange(npix64), idx.shape[1]), idx.ravel())),
+        shape=(npix64, npix64))
+    x64 = rng.normal(size=(2, npix64, 1))
+    w64 = rng.normal(size=(2, npix64, 1))
+    y_ref, g_ref, g_sym = x64[:, :, 0].T, w64[:, :, 0].T, w64[:, :, 0].T
+    for _ in range(m64):
+        y_ref, g_ref, g_sym = T @ y_ref, T.T @ g_ref, T @ g_sym
+    xd = torch.from_numpy(x64).to(dev, torch.float32).requires_grad_()
+    yd = HealpySmoothing(op64)(xd)
+    (gd,) = torch.autograd.grad(
+        (yd * torch.from_numpy(w64).to(dev, torch.float32)).sum(), xd)
+    e64 = [rel_err(a[:, :, 0].T.double().cpu(), torch.from_numpy(b))
+           for a, b in ((yd.detach(), y_ref), (gd, g_ref))]
+    e_sym = rel_err(torch.from_numpy(g_sym), torch.from_numpy(g_ref))
+    if not (e64[0] <= 1e-5 and e64[1] <= 1e-5 and e_sym > 1e-3):
+        raise AssertionError(f"nside 64 against float64 (scipy): y "
+                             f"{e64[0]:.3e}, gradient {e64[1]:.3e}; S^m w "
+                             f"differs from (S^m)^T w by {e_sym:.3e}")
+    say("smoothing", f"nside {n64}, sigma {sigma * n / n64}' (m=5, radius "
+        f"4): the card against float64 scipy matvecs of the template: y "
+        f"{e64[0]:.2e}, gradient against (S^m)^T w {e64[1]:.2e} (S^m w, a "
+        f"symmetric backward's, is {e_sym:.2e} away)")
+
+    # 11(b) a masked sky (a polar cap) and per-channel repetitions over 3
+    # channels, both methods: the card against the CPU
+    n = 64
+    vec = np.asarray(dt.sphere.healpix.pix2vec(n, np.arange(12 * n * n),
+                                                nest=True))
+    cap = np.where(vec[:, 2] > 0.2)[0]
+    res_am = np.degrees(dt.sphere.healpix.nside2resol(n)) * 60
+    xm = rng.normal(size=(2, len(cap), 3)).astype(np.float32)
+    masked_counts = []
+    for method, sig in (("stencil", [2.0 * res_am, 2.5 * res_am, 3.0 * res_am]),
+                        ("ellpack", [1.0 * res_am, 1.3 * res_am, 1.5 * res_am])):
+        op = SmoothingOperator(nside=n, indices=cap, sigma=sig, method=method)
+        out = []
+        for d in (dev, torch.device("cpu")):
+            xd = torch.from_numpy(xm).to(d).requires_grad_()
+            layer = HealpySmoothing(op)
+            yd, c, _ = counted(lambda: layer(xd))
+            (gd,) = torch.autograd.grad(torch.sin(yd).sum(), xd)
+            out.append((yd.detach().cpu(), gd.cpu(), c))
+        errs = [rel_err(a, b) for a, b in zip(out[0][:2], out[1][:2])]
+        c = out[0][2]
+        reps = op.per_channel_repetitions
+        passes = (int(op.stencil_reps * max(reps)) if method == "stencil"
+                  else 0)
+        if (c != {**none, "strips": passes, "stencil_conv": passes}
+                or not max(errs) <= 1e-5):
+            raise AssertionError(f"masked {method}: launched {c}, rel err "
+                                 f"y {errs[0]:.3e} gradient {errs[1]:.3e}")
+        masked_counts.append(c)
+        say("smoothing", f"masked {method}, nside {n}, {len(cap)} pixels, "
+            f"3 channels (repetitions {[int(r) for r in reps]}"
+            + (f" x m={op.stencil_reps}" if method == "stencil" else "")
+            + f"): launched {c}; against the CPU: y {errs[0]:.2e}, gradient "
+            f"{errs[1]:.2e}")
+    add_path("smoothing_masked", *masked_counts)
+
+    # 12. the kitchen-sink network at the reference's nside 256, batch 4
+    loss_name = "sparse_categorical_crossentropy_from_logits"
+    n = 256
+    npix = 12 * n * n
+    t = time.perf_counter()
+    model = dt.HealpyGCNN(n, np.arange(npix), kitchen_sink_layers(hp_nn))
+    model.build((4, npix, 1), seed=71, device=dev)
+    plan = [type(l).__name__ for l in model.layers.values()]
+    n_cface = sum(1 for l in model.layers.values()
+                  if getattr(l, "layout", None) == "cface"
+                  and hasattr(l, "graph")
+                  for _ in range(2 if type(l).__name__ == "ResidualLayer"
+                                 else 1))
+    if n_cface != 4:
+        raise AssertionError(f"the kitchen sink's plan {plan}")
+    xs = rng.normal(size=(16, npix, 1)).astype(np.float32)
+    ys = rng.randint(0, 4, size=16)
+    logits, srv, srv_rt = counted(lambda: model.predict(xs, batch_size=4))
+    if srv != {**none, "strips": 16, "stencil_conv": 16} or any(srv_rt.values()):
+        raise AssertionError(f"the kitchen sink served with {srv}, routes "
+                             f"{srv_rt}")
+    t64 = time.perf_counter()
+    cpu64 = nest_reference(dt, model, n, kitchen_sink_layers(hp_nn))
+    with torch.no_grad():
+        ev64 = cpu64.eval()(torch.from_numpy(xs[:4].astype(np.float64)))
+    rel = float((torch.from_numpy(logits[:4]).double() - ev64).abs().max()
+                / ev64.abs().max())
+    cpu64.train()
+    out64 = cpu64(torch.from_numpy(xs[:4].astype(np.float64)))
+    loss64 = resolve_loss(loss_name)(torch.from_numpy(ys[:4]), out64)
+    loss64.backward()
+    g64 = grads_of(cpu64)
+    loss64 = float(loss64.detach())
+    cpu_s = time.perf_counter() - t64
+    del cpu64, out64
+    if not (logits.shape == (16, 4) and np.isfinite(logits).all()
+            and rel <= 1e-4):
+        raise AssertionError(f"the kitchen sink's logits {logits.shape} rel "
+                             f"{rel:.3e} from float64")
+    want_step = {True: {**none, "strips": 8, "stencil_conv": 4, "dxdw": 4},
+                 False: {**none, "strips": 8, "stencil_conv": 8, "grad": 4}}
+    steps = {}
+    try:
+        for fused in (True, False):
+            config.set_fused_dw(fused)
+            m_ = copy.deepcopy(model)
+            m_.compile(optimizer=1e-3, loss=loss_name)
+            logs, c, r = counted(
+                lambda: m_._trainer.train_on_batch(xs[:4], ys[:4]))
+            loss_rel = abs(logs["loss"] - loss64) / abs(loss64)
+            # a key projection's bias shifts every logit of a query alike,
+            # which the softmax cancels: its gradient is 0 but for
+            # rounding, and is held over the tree's largest entry
+            g = grads_of(m_)
+            g_err = tree_errs(g, g64)
+            g_tree = tree_errs(g, g64, scale=tree_max(g64))
+            bad = {k: e for k, e in held(g_err, GRAD_TOL).items()
+                   if not (k.endswith("wk/bias") and g_tree[k] <= GRAD_TOL)}
+            if (c != want_step[fused] or any(r.values())
+                    or not loss_rel <= 1e-5 or bad):
+                raise AssertionError(
+                    f"fused_dw={fused}: a kitchen-sink step launched {c} "
+                    f"(routes {r}), loss rel {loss_rel:.3e}, gradients "
+                    f"above the limit {bad}")
+            steps[fused] = (m_, c, loss_rel, max(g_tree.values()),
+                            max(e for k, e in g_err.items()
+                                if not k.endswith("wk/bias")))
+    finally:
+        config.set_fused_dw(True)
+    add_path("kitchen_sink", srv, steps[True][1], steps[False][1])
+    ks_ms, _ = time_routes(config, {f: steps[f][0]._trainer for f in steps},
+                           xs, ys, steps=6, warmup=2, batch=4)
+    tr = steps[True][0]._trainer
+    ks_ops, ks_busy, ks_top, _ = device_profile(
+        lambda i: tr.train_on_batch(xs[4 * i:4 * i + 4], ys[4 * i:4 * i + 4]),
+        3, top=6)
+    xb = torch.from_numpy(xs[:4]).to(dev)
+    model.eval()
+    with torch.inference_mode():
+        ks_fwd = cuda_ms(lambda: model(xb), iters=10, warmup=2)
+    say("kitchen sink", f"nside {n}, batch 4 ({time.perf_counter() - t:.2f} "
+        f"s with the float64 CPU step, {cpu_s:.1f} s of it): plan {plan}; 4 "
+        f"requests launched {srv}, logits rel {rel:.2e} from float64; "
+        f"{ks_fwd:.3f} ms per forward of 4 maps; train step K2 route "
+        f"{ks_ms[True]:.3f} ms (launches {steps[True][1]}, loss rel "
+        f"{steps[True][2]:.2e}, gradients {steps[True][4]:.2e} of each "
+        f"leaf's max, {steps[True][3]:.2e} of the tree's), K1+K3 route "
+        f"{ks_ms[False]:.3f} ms (launches {steps[False][1]}, loss rel "
+        f"{steps[False][2]:.2e}, gradients {steps[False][4]:.2e} / "
+        f"{steps[False][3]:.2e}); profile of the K2-route step: "
+        f"{ks_ops:.0f} device ops, {ks_busy:.3f} ms device-busy = "
+        f"{ks_busy / ks_ms[True]:.1%} of the step; top: "
+        + "; ".join(f"{nm[:50]} x{c:.0f} {t_:.3f} ms" for nm, c, t_ in ks_top)
+        + f" on {card}")
+    times["kitchen_sink"] = {"fwd_ms": ks_fwd, "step_ms": ks_ms,
+                             "device_ops": ks_ops, "busy_ms": ks_busy}
+    del model, steps, tr
+    torch.cuda.empty_cache()
+    return paths, times
+
+
+def cface_embed_flat(xf, st):
+    """(B, npix, C) face-flat -> (B*C, 12, n, P_l), the fused conv's
+    input."""
+    from deepsphere_tpu_torch.ops.stencil import cface_embed
+
+    B, _, C = xf.shape
+    return cface_embed(xf, st.nside, st.n_steps).reshape(
+        B * C, 12, st.nside, -1).contiguous()
+
+
 def chain_and_family(dev, card, rng, prebuild):
     """Phases 9 and 10: the lap chain (a k=40 conv in NEST, and fault 3.2's
     shape inside a classifier) and the conv family at full width (the
@@ -1116,6 +1524,8 @@ def main():
     # 2. build (phase 9's k=40 graph builds beside it and phases 3-8)
     prebuild = prebuild_k40(os.path.dirname(os.path.abspath(__file__)))
     atexit.register(lambda: (prebuild.kill(), prebuild.wait()))
+    prebuild_s = prebuild_smoothing(os.path.dirname(os.path.abspath(__file__)))
+    atexit.register(lambda: (prebuild_s.kill(), prebuild_s.wait()))
     path, secs, log = _cuda.build()
     _cuda.lib()
     ptxas = [ln.strip() for ln in log.splitlines()
@@ -1810,7 +2220,8 @@ def main():
     loss_rel = abs(logs["loss"] - logs_c["loss"]) / abs(logs_c["loss"])
     g_err = tree_errs(grads_of(model), grads_of(cpu))
     none = {k: 0 for k in _cuda.launch_counts}
-    per_step_once = {"per_step_cface": 1, "chain_cface": 0, "lap_chain": 0}
+    per_step_once = {"per_step_cface": 1, "chain_cface": 0, "lap_chain": 0,
+                     "smooth_fused": 0, "smooth_per_step": 0}
     if (fwd_counts != (none, per_step_once)
             or step_counts != (none, per_step_once)):
         raise AssertionError(f"the k=60 model: a forward counted {fwd_counts}"
@@ -1838,6 +2249,10 @@ def main():
     # 9-10. the lap chain and the conv family
     path_launches, chain_times, family = chain_and_family(dev, card, rng,
                                                           prebuild)
+    # 11-12. smoothing, and the kitchen-sink network with both attentions
+    more_paths, slice_times = smoothing_and_attention(dev, card, rng,
+                                                      prebuild_s)
+    path_launches.update(more_paths)
 
     # main-path kernel times: the quick_start convs' three shapes summed
     path_launches["quick_start_train"] = train_launches
@@ -1864,8 +2279,9 @@ def main():
 
     # launches: each kernel's counts on the main paths, each counted from 0
     # (quick_start training for K1-K4, the sharded training for K5, the lap
-    # chain, the chain-routed cface conv, the autoencoder and the residual
-    # stack), their sum under "launches"
+    # chain, the chain-routed cface conv, the autoencoder, the residual
+    # stack, the smoothing at bench.py's configuration and masked, and the
+    # kitchen sink), their sum under "launches"
     kernels = [
         entry("strips", "cuda", "deepsphere_tpu_torch/csrc/strips.cu",
               "deepsphere_tpu/ops/pallas_strips.py:183"),
@@ -1880,7 +2296,8 @@ def main():
               "deepsphere_tpu/ops/stencil.py:82"),
     ]
     say("paths", f"launches by path: {path_launches}; lap chain times "
-        f"{chain_times}; family {family}")
+        f"{chain_times}; family {family}; smoothing and kitchen sink "
+        f"{slice_times}")
     for kname, rows in results.items():
         for r in rows:
             if r[0].startswith("headline"):

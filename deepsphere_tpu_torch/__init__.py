@@ -5,13 +5,14 @@ TPU (Pallas) kernels rewritten by hand as CUDA kernels for Hopper
 (``sm_90a``).  The JAX package ``deepsphere_tpu`` stays beside it as the
 reference; this package never imports jax.
 
-What runs today: the ``HealpyGCNN`` (Chebyshev/monomial graph convs,
-pooling, dense head) in inference and in training (``compile``/``fit``,
-:mod:`.train`), on the CPU through plain PyTorch and on an H100 through the
-hand-written kernels in ``csrc/``: the fused stencil conv, its two backward
-kernels, the halo-strip gather and the edge-band cut; and DP x face-sharded
-over a device mesh (:mod:`.parallel`).  See ROADMAP.md for what is still to
-port.
+What runs today: the ``HealpyGCNN`` (the graph conv family, pooling,
+pseudo-convs, residual layers, Gaussian smoothing, the graph ViT and the
+edge-sparse transformer, dense heads) in inference and in training
+(``compile``/``fit``, :mod:`.train`), on the CPU through plain PyTorch and
+on an H100 through the hand-written kernels in ``csrc/``: the fused
+stencil conv, its two backward kernels, the halo-strip gather and the
+edge-band cut; and DP x face-sharded over a device mesh (:mod:`.parallel`).
+See ROADMAP.md for what is still to port.
 """
 
 from . import config  # noqa: F401  (pins float32 matmuls and convs)

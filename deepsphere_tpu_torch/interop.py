@@ -13,6 +13,15 @@ arrays and copies them into the matching port modules:
 * a pseudo-conv's ``kernel`` ((4^p*Fin, Fout), or (4^p, Fin, Fout) for the
   transpose, NEST tap order in every layout) and ``bias`` (Fout,);
 * a ``Dense`` kernel (in, out) is transposed into ``nn.Linear.weight``;
+* the attention layers (``GraphViT``, ``GraphTransformer``,
+  ``MultiHeadAttention``, ``AddPositionEmbs``) name their parameters as the
+  flax modules do (``wq``/``wk``/``wv``/``dense`` kernels (in, out) and
+  biases, ``layer_norm1``/``layer_norm2`` scales and biases,
+  ``pos_encoder.pos_embedding``, ``embed_kernel``/``embed_bias``,
+  ``embed``, ``mha_{i}``), so their trees map onto ``named_parameters``
+  one to one;
+* smoothing has no parameters (its tables stay out of ``state_dict``, as
+  the convs' do);
 * model-level keys ``layers_layer_{i}`` name the port's ``layer_{i}``.
 
 The port's parameters must exist first (``HealpyGCNN.build`` or one
@@ -39,9 +48,19 @@ from .nn.layers import (
     _GraphPolyConv,
     _PseudoConvBase,
 )
+from .nn.transformers import (
+    AddPositionEmbs,
+    GraphTransformer,
+    GraphViT,
+    MultiHeadAttention,
+)
 
+# layers whose parameters map onto the flax tree by name
+_NAMED_LAYERS = (GraphViT, GraphTransformer, MultiHeadAttention,
+                 AddPositionEmbs)
 # the layers that hold parameters
-_PARAM_LAYERS = (_GraphPolyConv, ResidualLayer, _PseudoConvBase, Dense)
+_PARAM_LAYERS = (_GraphPolyConv, ResidualLayer, _PseudoConvBase, Dense,
+                 *_NAMED_LAYERS)
 
 __all__ = ["load_jax_variables", "export_jax_variables"]
 
@@ -83,8 +102,54 @@ def _load_norm(bn, params, stats, what):
         _expect(stats, (), what)
 
 
+def _flat_tree(tree, pre=""):
+    """Nested dict -> {"a.b.c": leaf}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, f"{pre}{k}."))
+        else:
+            out[pre + k] = v
+    return out
+
+
+def _nested(flat):
+    """{"a.b.c": leaf} -> nested dict."""
+    out = {}
+    for key, v in flat.items():
+        *path, leaf = key.split(".")
+        d = out
+        for p in path:
+            d = d.setdefault(p, {})
+        d[leaf] = v
+    return out
+
+
+def _named(module, what):
+    """``named_parameters`` of a layer whose parameters all exist."""
+    if any(p is None for m in module.modules()
+           for p in m._parameters.values()):
+        raise ValueError(f"{what}: build the model (or run one forward) first")
+    return dict(module.named_parameters())
+
+
+def _load_named(module, params, stats, what):
+    """A layer whose ``named_parameters`` are the flax tree's paths."""
+    _expect(stats, (), what)
+    flat = _flat_tree(params)
+    named = _named(module, what)
+    missing, extra = set(named) - set(flat), set(flat) - set(named)
+    if missing or extra:
+        raise KeyError(f"{what}: missing {sorted(missing)}, unexpected "
+                       f"{sorted(extra)}")
+    for k, p in named.items():
+        _copy(p, flat[k], f"{what}.{k}")
+
+
 def _load_layer(module, params, stats, what):
-    if isinstance(module, ResidualLayer):
+    if isinstance(module, _NAMED_LAYERS):
+        _load_named(module, params, stats, what)
+    elif isinstance(module, ResidualLayer):
         names = ("layer1", "layer2") + (("bn1", "bn2") if module.use_bn
                                         else ())
         _expect(params, names, what)
@@ -171,7 +236,10 @@ def _np(t, grads):
 def _export_layer(module, grads):
     """(params, batch_stats) of one port layer, JAX keys, numpy."""
     params, stats = {}, {}
-    if isinstance(module, ResidualLayer):
+    if isinstance(module, _NAMED_LAYERS):
+        named = _named(module, type(module).__name__)
+        params = _nested({k: _np(p, grads) for k, p in named.items()})
+    elif isinstance(module, ResidualLayer):
         for nm in ("layer1", "layer2"):
             p, st = _export_layer(getattr(module, nm), grads)
             params[nm] = p

@@ -39,6 +39,7 @@ from ..nn.healpy_layers import (
     HealpyPseudoConv_Transpose,
     _DeferredLayer,
 )
+from ..nn.transformers import GraphViT
 from ..sphere import healpix as hp
 from ..sphere.indexing import check_indices_consistent, transform_indices
 
@@ -58,6 +59,10 @@ def _layer_display_name(layer, counters):
         "HealpyPool": "healpy_pool",
         "HealpyPseudoConv": "healpy_pseudo_conv",
         "HealpyPseudoConv_Transpose": "healpy_pseudo_conv__transpose",
+        "GraphViT": "graph_vit",
+        "Healpy_ViT": "graph_vit",
+        "GraphTransformer": "graph_transformer",
+        "HealpySmoothing": "healpy_smoothing",
         "Flatten": "flatten",
         "Dense": "dense",
     }.get(cls, cls.lower())
@@ -72,9 +77,10 @@ class HealpyGCNN(nn.Module):
     :param nside: nside of the input maps
     :param indices: 1d array of NEST pixel ids covered by the input
     :param layers: list of layer specs — deferred graph layers
-        (``HealpyChebyshev`` & co.), resolution layers (``HealpyPool``,
-        ``HealpyPseudoConv``, ``HealpyPseudoConv_Transpose``), or any
-        ``nn.Module``
+        (``HealpyChebyshev`` & co., ``Healpy_Transformer``, a deferred
+        ``HealpySmoothing``), resolution layers (``HealpyPool``,
+        ``HealpyPseudoConv``, ``HealpyPseudoConv_Transpose``,
+        ``Healpy_ViT``), or any ``nn.Module``
     :param n_neighbors: graph degree; 8 (default), 20, 40 or 60
     :param max_batch_size, initial_Fin: accepted for API parity with the
         reference (no matmul splitting is needed)
@@ -84,7 +90,8 @@ class HealpyGCNN(nn.Module):
         DP x pixel sharding over a device mesh.  Every rank feeds its data
         rank's rows; the cface convs run face-sharded over the pixel axis
         (when it divides the 12 faces), the other graph convs on the
-        halo-sharded ELLPACK
+        halo-sharded ELLPACK, and a transformer's edge attention runs
+        pixel-sharded where the pixel count divides over the pixel axis
     :param remat: rematerialization is not ported yet; True raises
         ``NotImplementedError``
     :param graph_method: "auto" (grid/ring graph where a template exists),
@@ -136,7 +143,7 @@ class HealpyGCNN(nn.Module):
         # resolution scan
         self.reduction_fac = 1.0
         for layer in self.layers_in:
-            if isinstance(layer, (HealpyPool, HealpyPseudoConv)):
+            if isinstance(layer, (HealpyPool, HealpyPseudoConv, GraphViT)):
                 self.reduction_fac *= 2**layer.p
             if isinstance(layer, HealpyPseudoConv_Transpose):
                 self.reduction_fac /= 2**layer.p
@@ -176,14 +183,26 @@ class HealpyGCNN(nn.Module):
         current_nside = self.nside_in
         current_indices = self.indices_in
         for layer in self.layers_in:
-            if isinstance(layer, _DeferredLayer):
+            if isinstance(layer, _DeferredLayer) and layer.needs == "res":
+                # resolution-only layers (a deferred HealpySmoothing): the
+                # current nside and indices, no graph Laplacian
+                self.layers_use.append(layer._get_layer_res(
+                    current_nside, current_indices,
+                    cache_dir=self._graph_cache_dir))
+            elif isinstance(layer, _DeferredLayer):
                 graph = self._get_graph(current_nside, current_indices)
                 extra = {}
                 if shard_cfg is not None and layer.needs == "L":
                     extra["shard_cfg"] = shard_cfg
+                elif (shard_cfg is not None and layer.needs == "A"
+                      and graph.n_pixels % shard_cfg.n_pixel_shards == 0):
+                    # the transformer's edge attention, pixel-sharded
+                    # (parallel.attention_sharded); replicated where the
+                    # pixel count does not divide over the pixel axis
+                    extra["shard_cfg"] = shard_cfg
                 self.layers_use.append(layer._get_layer(graph, **extra))
             elif isinstance(layer, (HealpyPool, HealpyPseudoConv,
-                                    HealpyPseudoConv_Transpose)):
+                                    HealpyPseudoConv_Transpose, GraphViT)):
                 if isinstance(layer, HealpyPseudoConv_Transpose):
                     new_nside = int(current_nside * 2**layer.p)
                 else:

@@ -1,7 +1,7 @@
 """Layers of the PyTorch port: graph convolutions, pooling, layout converters.
 
-Counterpart of the JAX package's ``deepsphere_tpu.nn.layers`` (its graph
-conv family; attention and smoothing are not ported yet):
+Counterpart of the JAX package's ``deepsphere_tpu.nn.layers`` (attention
+lives in :mod:`.transformers`, smoothing in :mod:`.smoothing`):
 
 * ``ChebyshevConv`` / ``MonomialConv`` / ``BernsteinConv`` — graph
   polynomial convolutions over a

@@ -1,7 +1,9 @@
-from . import layout, spmv, stencil
+from . import attention, layout, smoothing, spmv, stencil
 from .spmv import chebyshev_basis, ellpack_spmv, graph_conv, monomial_basis
 
 __all__ = [
+    "attention",
+    "smoothing",
     "layout",
     "spmv",
     "stencil",

@@ -20,7 +20,9 @@ path went through the kernels.  Beside them, :data:`route_counts` counts
 the routes chosen from a shape that launch none of these kernels (the
 cface conv's per-step route, ``ops/stencil.py::_cface_per_step``) or that
 choose which launches run (the lap chain: ``lap_chain`` for each conv that
-takes it, ``chain_cface`` for a cface conv on it).
+takes it, ``chain_cface`` for a cface conv on it; the smoothing chain:
+``smooth_fused`` on the fused conv, ``smooth_per_step`` where its stencil
+does not fit the fused conv).
 """
 
 from __future__ import annotations
@@ -45,7 +47,8 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 launch_counts = {"strips": 0, "stencil_conv": 0, "dxdw": 0, "grad": 0,
                  "bands": 0}
 #: route name -> times taken since the last :func:`reset_launch_counts`
-route_counts = {"per_step_cface": 0, "chain_cface": 0, "lap_chain": 0}
+route_counts = {"per_step_cface": 0, "chain_cface": 0, "lap_chain": 0,
+                "smooth_fused": 0, "smooth_per_step": 0}
 
 _lib = None
 

@@ -424,7 +424,9 @@ def test_k60_model_takes_the_per_step_route(rng, dev):
         if d.type == "cuda":
             assert all(v == 0 for v in _cuda.launch_counts.values())
             assert _cuda.route_counts == {"per_step_cface": 1,
-                                          "chain_cface": 0, "lap_chain": 0}
+                                          "chain_cface": 0, "lap_chain": 0,
+                                          "smooth_fused": 0,
+                                          "smooth_per_step": 0}
     (y_c, g_c), (y_p, g_p) = out["cuda"], out["cpu"]
     _close(y_c, y_p, 1e-4)
     for name in g_p:
@@ -605,3 +607,140 @@ def test_train_step_matches_cpu(rng, dev, fused_dw):
         for nm in ("mean", "var"):
             _close(torch.from_numpy(s[key]["bn"][nm]),
                    torch.from_numpy(s_c[key]["bn"][nm]), 1e-5)
+
+
+def _smoothing_op(nside, mult, apps=1):
+    from deepsphere_tpu_torch.nn.smoothing import SmoothingOperator, _with_apps
+    from deepsphere_tpu_torch.sphere import healpix as hp
+
+    sigma = np.degrees(hp.nside2resol(nside)) * 60 * mult
+    op = SmoothingOperator(nside=nside, indices=np.arange(12 * nside * nside),
+                           sigma=sigma, method="stencil")
+    return op if apps == 1 else _with_apps(op, apps)
+
+
+@pytest.mark.parametrize("nside,mult,C,apps", [(32, 3.0, 2, 1),
+                                               (32, 3.0, 1, 2),
+                                               (64, 2.0, 3, 1)])
+def test_smoothing_chain_on_the_kernels_matches_plain(rng, dev, nside, mult,
+                                                      C, apps):
+    """The smoothing chain of a CUDA input on the kernels (K4, then K1,
+    once a pass; no K2 or K3) against the plain per-step chain on the same
+    CUDA input; its backward launches nothing and equals the plain chain's
+    VJP (S^T)."""
+    from deepsphere_tpu_torch.ops.smoothing import smooth_chain, smooth_chain_plain
+
+    op = _smoothing_op(nside, mult, apps)
+    st = op.stencil
+    assert st.radius == 4 and op.stencil_reps > apps
+    tables = as_tensors(stencil_tables(st), dev)
+    npix = 12 * nside * nside
+    xf = torch.from_numpy(rng.normal(size=(2, npix, C)).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.normal(size=(2, npix, C)).astype(np.float32)).to(dev)
+    rem = np.arange(C) + op.stencil_reps  # per-channel powers
+    passes = -(-int(rem.max()) // apps)
+    x1 = xf.clone().requires_grad_()
+    _cuda.reset_launch_counts()
+    y = smooth_chain(st, tables, x1, rem, apps)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts == {"strips": passes, "stencil_conv": passes,
+                                   "dxdw": 0, "grad": 0, "bands": 0}
+    assert _cuda.route_counts["smooth_fused"] == 1
+    (g,) = torch.autograd.grad((y * w).sum(), x1)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts == {"strips": passes, "stencil_conv": passes,
+                                   "dxdw": 0, "grad": 0, "bands": 0}
+    x2 = xf.clone().requires_grad_()
+    y_p = smooth_chain_plain(st, tables, x2, rem, apps)
+    (g_p,) = torch.autograd.grad((y_p * w).sum(), x2)
+    _close(y.detach(), y_p.detach())
+    _close(g, g_p)
+
+
+def test_smoothing_layer_on_the_card_matches_cpu(rng, dev):
+    """A masked, per-channel smoothing layer (stencil and ELLPACK) built on
+    the CPU, moved to the card: output and input gradient against the
+    CPU."""
+    from deepsphere_tpu_torch.nn.smoothing import HealpySmoothing, SmoothingOperator
+    from deepsphere_tpu_torch.sphere import healpix as hp
+
+    nside = 32
+    vec = np.asarray(hp.pix2vec(nside, np.arange(12 * nside * nside),
+                                nest=True))
+    ind = np.where(vec[:, 2] > 0.2)[0]
+    res = np.degrees(hp.nside2resol(nside)) * 60
+    x = torch.from_numpy(rng.normal(size=(2, len(ind), 3)).astype(np.float32))
+    for method, sigma in (("stencil", [res * 2, res * 2.5, res * 3]),
+                          ("ellpack", [res, res * 1.3, res * 1.5])):
+        op = SmoothingOperator(nside=nside, indices=ind, sigma=sigma,
+                               method=method)
+        out = {}
+        for d in (torch.device("cpu"), dev):
+            xd = x.to(d).requires_grad_()
+            y = HealpySmoothing(op)(xd)
+            (g,) = torch.autograd.grad(torch.sin(y).sum(), xd)
+            out[d.type] = (y.detach().cpu(), g.cpu())
+        for got, want in zip(out["cuda"], out["cpu"]):
+            _close(got, want, 1e-5)
+
+
+def test_smoothing_raises_before_launch_where_k1_has_no_plan(dev):
+    """One application a pass at radius 4, nside 8, one map: K1 takes
+    65,535 x 32 channels (its grid's z extent is 65,535 blocks of 32
+    output channels) and not one more, so a CUDA input of 2,097,121
+    channels raises before any launch."""
+    from deepsphere_tpu_torch.nn.smoothing import HealpySmoothing
+
+    op = _smoothing_op(8, 3.0)
+    st = op.stencil
+    assert (st.radius, st.n_steps, op.stencil_apps) == (4, 4, 1)
+    C = 65535 * 32 + 1
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for c, ok in ((C - 1, True), (C, False)):
+        plan = fs._k1_plan(8, 4, 4, len(st.offsets), 2, 1, 12, c, c, sms)
+        assert (plan is not None) == ok, (c, plan)
+    x = torch.zeros((1, 12 * 8 * 8, C), device=dev)
+    _cuda.reset_launch_counts()
+    with pytest.raises(ValueError, match="no K1 plan"):
+        HealpySmoothing(op)(x)
+    assert not any(_cuda.launch_counts.values())
+
+
+def test_attention_model_on_the_card_matches_cpu(rng, dev):
+    """A model with both attention layers (a ViT over 16-pixel patches and
+    the edge-sparse transformer) built on the card, every parameter there:
+    logits and one train step's loss and gradients against a CPU copy."""
+    nside = 16
+    npix = 12 * nside * nside
+    model = dt.HealpyGCNN(nside, np.arange(npix), [
+        hp_nn.HealpyChebyshev(K=3, Fout=4),
+        hp_nn.Healpy_ViT(p=2, key_dim=4, num_heads=2, n_layers=2),
+        hp_nn.HealpyPseudoConv_Transpose(p=2, Fout=4),
+        hp_nn.Healpy_Transformer(key_dim=4, num_heads=2),
+        hp_nn.Flatten(), hp_nn.Dense(3)]).build((2, npix, 1), seed=3,
+                                                device=dev)
+    assert all(p.device.type == "cuda" for p in model.parameters())
+    cpu = copy.deepcopy(model).to("cpu")
+    x = rng.normal(size=(2, npix, 1)).astype(np.float32)
+    y = rng.randint(0, 3, size=2)
+    _close(torch.from_numpy(model.predict(x)),
+           torch.from_numpy(cpu.predict(x)), 1e-4)
+    logs = []
+    for m in (model, cpu):
+        m.compile(optimizer=1e-3,
+                  loss="sparse_categorical_crossentropy_from_logits")
+        logs.append(m._trainer.train_on_batch(x, y))
+    assert abs(logs[0]["loss"] - logs[1]["loss"]) <= 1e-5 * abs(logs[1]["loss"])
+    g, g_c = (export_jax_variables(m, grads=True) for m in (model, cpu))
+    scale = max(float(np.abs(v).max()) for sub in g_c.values()
+                for v in _leaf_arrays(sub))
+    for got, want in zip(_leaf_arrays(g), _leaf_arrays(g_c)):
+        assert np.abs(got - want).max() <= 1e-4 * scale
+
+
+def _leaf_arrays(tree):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _leaf_arrays(tree[k])
+        else:
+            yield np.asarray(tree[k])

@@ -257,7 +257,8 @@ def test_cface_per_step_route_matches_jax():
     y = tstencil._cface_per_step(st, xt, kt, K, "cheby")
     dx, dk = torch.autograd.grad(y, (xt, kt), _t(cot))
     assert _cuda.route_counts == {"per_step_cface": 1, "chain_cface": 0,
-                                  "lap_chain": 0}
+                                  "lap_chain": 0, "smooth_fused": 0,
+                                  "smooth_per_step": 0}
     assert all(v == 0 for v in _cuda.launch_counts.values())
     y = y.detach()
     assert (y[..., :h] == 0).all() and (y[..., h + n:] == 0).all()
