@@ -126,12 +126,25 @@ Phases, one result line each (with the elapsed seconds):
    each backward route against its float64 step (loss 1e-5, gradients
    1e-3; a key bias's gradient, 0 but for rounding, over the tree's
    largest entry), ms per step with the routes alternating, device ops
-   and device-busy share.
+   and device-busy share;
+13. export and serve: phase 4's quick_start classifier and phase 10(a)'s
+   autoencoder, each exported on the card with a polymorphic batch
+   (``save_exported``, its bytes reported) and replayed by a fresh
+   process (``--replay``) that loads it through ``serve.load_exported``
+   with every graph builder patched to raise and answers 16 and 5 maps
+   (the autoencoder 8 and 3): the graph's ``stencil_conv`` and ``strips``
+   nodes and each request's launches one per cface conv, the logits within
+   1e-5 of the live model's ``predict`` on the card, the replayed forward
+   timed with CUDA events beside the eager one; (b) the host cost of the
+   ops' dispatch in one process: K4 through its op against its CUDA
+   implementation called directly, and the quick_start train step with the
+   ops against with their implementations called directly, in turns.
 
 It then prints the card line, one JSON line with every kernel's launches
 (the sum over the main paths, each counted from 0: quick_start training
-for K1-K4, the sharded training for K5, and phases 9-12, with the paths
-under ``paths``), error, times and bound, and finally
+for K1-K4, the sharded training for K5, phases 9-12, and the replays of
+phase 13 under ``export``, with the paths under ``paths``), error, times
+and bound, and finally
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
 non-zero and prints no result line.  It needs one card, never falls back to
 the CPU, and imports no JAX.
@@ -140,6 +153,9 @@ Two other modes measure only:
 
     python3 chip_smoke.py --kernel-times ROOT
     python3 chip_smoke.py --compare PARENT [OUT.json]
+
+and ``--replay ARTIFACT X.npy OUT_DIR B...`` is phase 13's serving
+process.
 
 ``--kernel-times`` times K1-K5 and the ``index_select`` of K4's and K5's
 maps at the four phase-3 shapes, and the quick_start train step on both
@@ -1474,6 +1490,251 @@ def chain_and_family(dev, card, rng, prebuild):
     return path_launches, chain_times, family
 
 
+def serving_model(dt, hp_nn):
+    """Phase 4's model: the quick_start classifier at nside 64, full width,
+    built on the card from seed 7, with random BN statistics (seed 8)."""
+    nside = 64
+    model = dt.HealpyGCNN(nside=nside, indices=np.arange(12 * nside * nside),
+                          layers=quick_start_layers(hp_nn))
+    model.build((16, 12 * nside * nside, 1), seed=7)  # on the card
+    bn_rng = np.random.RandomState(8)
+    for layer in model.layers.values():
+        if getattr(layer, "bn", None) is not None:
+            F = layer.bn.mean.shape[0]
+            layer.bn.mean.copy_(torch.from_numpy(
+                bn_rng.normal(scale=0.1, size=F).astype(np.float32)))
+            layer.bn.var.copy_(torch.from_numpy(
+                bn_rng.uniform(0.5, 2.0, size=F).astype(np.float32)))
+    return model
+
+
+def replay(artifact, x_path, out_dir, *batches):
+    """``--replay ARTIFACT X.npy OUT_DIR B...``: phase 13's serving
+    process.  Loads the artifact through ``serve.load_exported`` with every
+    graph builder and stencil extraction patched to raise, answers one
+    request of each batch B from the maps in X.npy (in order), writes each
+    answer to OUT_DIR/y<i>.npy, times a forward of the first batch with
+    CUDA events after a warm-up, and prints one JSON line: the graph's op
+    counts, the input shape, each request's launches, the ms."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import deepsphere_tpu_torch.graph as g
+    import deepsphere_tpu_torch.graph.laplacian as lap
+    import deepsphere_tpu_torch.graph.stencil as gst
+    from deepsphere_tpu_torch import serve
+    from deepsphere_tpu_torch.ops import _cuda
+
+    def refuse(*a, **k):
+        raise AssertionError("the serving process built a graph")
+
+    for mod in (g, lap):
+        mod.build_sphere_graph = refuse
+    gst.face_stencil = refuse
+    lap.SphereGraph.face_stencil = refuse
+    lap.SphereGraph.deep_stencil = refuse
+    t = time.perf_counter()
+    em = serve.load_exported(artifact)
+    load_s = time.perf_counter() - t
+    x = np.load(x_path)
+    out = {"op_counts": em.op_counts(),
+           "input_shape": [str(d) for d in em.input_shape],
+           "device": str(em.device), "load_s": load_s, "launches": []}
+    start = 0
+    for i, b in enumerate(int(b) for b in batches):
+        _cuda.reset_launch_counts()
+        y = em(x[start:start + b])
+        torch.cuda.synchronize()
+        out["launches"].append(dict(_cuda.launch_counts))
+        np.save(os.path.join(out_dir, f"y{i}.npy"), y.cpu().numpy())
+        start += b
+    xb = torch.from_numpy(x[:int(batches[0])]).cuda()
+    out["fwd_ms"] = cuda_ms(lambda: em(xb), iters=20, warmup=3)
+    print(json.dumps(out), flush=True)
+
+
+def export_phase(dt, hp_nn, rng, card, serve_ms, ae_fwd_ms):
+    """13. Export and serve: the quick_start classifier (phase 4's model)
+    and the autoencoder of phase 10(a), each exported on the card with a
+    polymorphic batch, saved, and replayed in a fresh process
+    (:func:`replay`).  Returns the replays' launches, summed."""
+    import shutil
+    import tempfile
+
+    here = os.path.abspath(__file__)
+    total = {"strips": 0, "stencil_conv": 0, "dxdw": 0, "grad": 0,
+             "bands": 0}
+    times = {}
+    tmp = tempfile.mkdtemp(prefix="ds_export_")
+    try:
+        nside = 64
+        npix = 12 * nside * nside
+        cases = [
+            ("quick_start", lambda: serving_model(dt, hp_nn), (16, 5),
+             serve_ms),
+            ("autoencoder", lambda: dt.HealpyGCNN(
+                nside, np.arange(npix),
+                autoencoder_layers(hp_nn, nside, 16)).build(
+                    (8, npix, 1), seed=41), (8, 3), ae_fwd_ms),
+        ]
+        for name, make, batches, eager_ms in cases:
+            t = time.perf_counter()
+            model = make()
+            n_cf = sum(getattr(m, "layout", None) == "cface"
+                       and hasattr(m, "graph") for m in model.layers.values())
+            x = rng.normal(size=(sum(batches), npix, 1)).astype(np.float32)
+            live, start = [], 0
+            for b in batches:  # the live model on the card, one request each
+                live.append(model.predict(x[start:start + b], batch_size=b))
+                start += b
+            xb = torch.from_numpy(x[:batches[0]]).cuda()
+            model.eval()
+            with torch.inference_mode():
+                live_ms = cuda_ms(lambda: model(xb), iters=20, warmup=3)
+            path = os.path.join(tmp, f"{name}.pt2")
+            t_exp = time.perf_counter()
+            nbytes = model.save_exported(path)
+            export_s = time.perf_counter() - t_exp
+            del model
+            torch.cuda.empty_cache()
+            x_path = os.path.join(tmp, f"{name}_x.npy")
+            np.save(x_path, x)
+            t_rep = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, here, "--replay", path, x_path, tmp,
+                 *map(str, batches)],
+                capture_output=True, text=True, timeout=600)
+            if res.returncode != 0:
+                raise AssertionError(f"{name}: the replay failed:\n"
+                                     f"{res.stdout[-3000:]}\n"
+                                     f"{res.stderr[-6000:]}")
+            rep = json.loads(res.stdout.strip().splitlines()[-1])
+            replay_s = time.perf_counter() - t_rep
+            want = {"strips": n_cf, "stencil_conv": n_cf, "dxdw": 0,
+                    "grad": 0, "bands": 0}
+            errs = []
+            for i, y_live in enumerate(live):
+                y = np.load(os.path.join(tmp, f"y{i}.npy"))
+                errs.append(float(np.abs(y - y_live).max()
+                                  / np.abs(y_live).max()))
+            if (n_cf < 3 or rep["op_counts"] != {"strips": n_cf,
+                                                 "stencil_conv": n_cf}
+                    or rep["launches"] != [want] * len(batches)
+                    or rep["input_shape"] != ["b", str(npix), "1"]
+                    or not max(errs) <= 1e-5):
+                raise AssertionError(
+                    f"{name}: replay {rep}, logits rel {errs} (tol 1e-5), "
+                    f"{n_cf} cface convs")
+            for k in total:
+                total[k] += sum(c[k] for c in rep["launches"])
+            times[name] = {"replay_fwd_ms": rep["fwd_ms"],
+                           "live_fwd_ms": live_ms, "bytes": nbytes}
+            say("export", f"{name}: {n_cf} cface convs; exported on the card "
+                f"in {export_s:.2f} s, {nbytes} bytes; a fresh process "
+                f"({replay_s:.1f} s, load {rep['load_s']:.2f} s, no graph "
+                f"build) answered {' and '.join(map(str, batches))} maps: "
+                f"graph ops {rep['op_counts']}, launches a request "
+                f"{rep['launches'][0]}, logits rel {max(errs):.2e} from the "
+                f"live model; {rep['fwd_ms']:.3f} ms per replayed forward of "
+                f"{batches[0]} maps, {live_ms:.3f} eager here, "
+                f"{eager_ms:.3f} in phase {4 if name == 'quick_start' else '10(a)'}"
+                f" ({time.perf_counter() - t:.1f} s) on {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total, times
+
+
+def dispatch_cost(dt, hp_nn, card):
+    """13(b). The host cost of the kernels' custom-op dispatch, in one
+    process (the host drifts between processes): host µs per eager call of
+    K4 at quick_start conv 3's shape through its op and through its CUDA
+    implementation called directly (``CustomOpDef._init_fn``), 5 rounds of
+    2,000 calls in turns; and the quick_start train step (K2 route) with
+    the wrappers calling the ops and calling the implementations directly,
+    12 rounds in turns (median ms each)."""
+    import contextlib
+    from types import SimpleNamespace
+
+    from deepsphere_tpu_torch.graph import build_sphere_graph
+    from deepsphere_tpu_torch.ops import fused_stencil as fs
+    from deepsphere_tpu_torch.ops import library
+    from deepsphere_tpu_torch.ops.stencil import as_tensors, stencil_tables
+
+    ops = torch.ops.deepsphere
+    direct = SimpleNamespace(**{
+        nm: getattr(library, nm)._init_fn
+        for nm in ("strips", "stencil_conv", "stencil_dxdw", "stencil_grad",
+                   "bands")})
+
+    @contextlib.contextmanager
+    def calling(namespace):
+        torch.ops.__dict__["deepsphere"] = namespace
+        try:
+            yield
+        finally:
+            torch.ops.__dict__["deepsphere"] = ops
+
+    def host_us(fn, n=2000):
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        el = time.perf_counter() - t
+        torch.cuda.synchronize()
+        return el / n * 1e6
+
+    st = build_sphere_graph(16, k=8, method="grid").deep_stencil(0.75, 10)
+    idx = as_tensors(stencil_tables(st), "cuda")["strip_idx"]
+    _, P_l = fs.cfp_geometry(16, st.n_steps)
+    xc = torch.randn(16 * 16, 12, 16, P_l, device="cuda")
+    faces = list(range(12))
+    per_call = {"op": [], "direct": []}
+    for r in range(5):
+        for nm, ns in ((("op", ops), ("direct", direct)) if r % 2 == 0
+                       else (("direct", direct), ("op", ops))):
+            per_call[nm].append(host_us(
+                lambda: ns.strips(xc, idx, 16, st.n_steps, faces)))
+    nside = 64
+    npix = 12 * nside * nside
+    model = dt.HealpyGCNN(nside, np.arange(npix),
+                          quick_start_layers(hp_nn)).build((16, npix, 1),
+                                                           seed=11)
+    model.compile(optimizer=1e-3,
+                  loss="sparse_categorical_crossentropy_from_logits")
+    data = np.random.RandomState(12)
+    xt = data.normal(size=(64, npix, 1)).astype(np.float32)
+    yt = data.randint(0, 4, size=64)
+
+    def step(i):
+        j = 16 * (i % 4)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model._trainer.train_on_batch(xt[j:j + 16], yt[j:j + 16])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    for i in range(4):
+        step(i)
+    steps = {"op": [], "direct": []}
+    for r in range(12):
+        for nm, ns in ((("op", ops), ("direct", direct)) if r % 2 == 0
+                       else (("direct", direct), ("op", ops))):
+            with calling(ns):
+                steps[nm].append(step(r))
+    med = {k: float(np.median(v)) for k, v in per_call.items()}
+    step_med = {k: float(np.median(v)) for k, v in steps.items()}
+    q = {k: [float(x) for x in np.percentile(v, [25, 75])]
+         for k, v in steps.items()}
+    say("dispatch", f"K4 at nside 16, 256 channels: {med['op']:.2f} µs a "
+        f"call through its op, {med['direct']:.2f} calling its CUDA "
+        f"implementation directly (host, median of 5 x 2,000 calls in "
+        f"turns); the quick_start train step (K2 route, 12 op calls) "
+        f"{step_med['op']:.3f} ms with the ops, {step_med['direct']:.3f} ms "
+        f"calling the implementations (medians of 12 in turns; quartiles "
+        f"{q['op']} / {q['direct']}) on {card}")
+    return {"per_call_us": per_call, "step_ms": steps}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -1695,20 +1956,11 @@ def main():
     npix = 12 * nside * nside
 
     t = time.perf_counter()
-    model = dt.HealpyGCNN(nside=nside, indices=np.arange(npix),
-                          layers=quick_start_layers(hp_nn))
-    model.build((16, npix, 1), seed=7)  # on the card
-    bn_rng = np.random.RandomState(8)
-    cface_convs = []
-    for key, layer in model.layers.items():
-        if getattr(layer, "bn", None) is not None:
-            F = layer.bn.mean.shape[0]
-            layer.bn.mean.copy_(torch.from_numpy(
-                bn_rng.normal(scale=0.1, size=F).astype(np.float32)))
-            layer.bn.var.copy_(torch.from_numpy(
-                bn_rng.uniform(0.5, 2.0, size=F).astype(np.float32)))
-        if getattr(layer, "layout", None) == "cface" and hasattr(layer, "graph"):
-            cface_convs.append((key, layer._stencil()))
+    model = serving_model(dt, hp_nn)
+    cface_convs = [(key, layer._stencil())
+                   for key, layer in model.layers.items()
+                   if getattr(layer, "layout", None) == "cface"
+                   and hasattr(layer, "graph")]
     if next(model.parameters()).device.type != "cuda":
         raise AssertionError("build did not place the model on the card")
     plan = [type(m).__name__ for m in model.layers.values()]
@@ -1749,6 +2001,7 @@ def main():
         f"launches {launches}; max rel vs CPU {rel:.2e} over 1 request (CPU "
         f"took {cpu_s:.1f} s); {fwd_ms:.3f} ms per forward of 16 maps "
         f"({16e3 / fwd_ms:.1f} maps/s) on {card}")
+    serve_ms = fwd_ms
     del model, cpu_model
 
     # 5. training: the quick_start classifier at nside 64, batch 16
@@ -2253,6 +2506,10 @@ def main():
     more_paths, slice_times = smoothing_and_attention(dev, card, rng,
                                                       prebuild_s)
     path_launches.update(more_paths)
+    # 13. export and serve through torch.export artifacts
+    path_launches["export"], export_times = export_phase(
+        dt, hp_nn, rng, card, serve_ms, family["ae_fwd_ms"])
+    export_times["dispatch"] = dispatch_cost(dt, hp_nn, card)
 
     # main-path kernel times: the quick_start convs' three shapes summed
     path_launches["quick_start_train"] = train_launches
@@ -2297,7 +2554,7 @@ def main():
     ]
     say("paths", f"launches by path: {path_launches}; lap chain times "
         f"{chain_times}; family {family}; smoothing and kitchen sink "
-        f"{slice_times}")
+        f"{slice_times}; export {export_times}")
     for kname, rows in results.items():
         for r in rows:
             if r[0].startswith("headline"):
@@ -2319,6 +2576,8 @@ if __name__ == "__main__":
             kernel_times(sys.argv[2])
         elif sys.argv[1] == "--compare":
             compare(sys.argv[2], sys.argv[3] if len(sys.argv) > 3 else None)
+        elif sys.argv[1] == "--replay":
+            replay(*sys.argv[2:])
         else:
             raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
     else:

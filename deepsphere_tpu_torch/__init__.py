@@ -11,8 +11,10 @@ edge-sparse transformer, dense heads) in inference and in training
 (``compile``/``fit``, :mod:`.train`), on the CPU through plain PyTorch and
 on an H100 through the hand-written kernels in ``csrc/``: the fused
 stencil conv, its two backward kernels, the halo-strip gather and the
-edge-band cut; and DP x face-sharded over a device mesh (:mod:`.parallel`).
-See ROADMAP.md for what is still to port.
+edge-band cut, registered as ``torch.library`` custom ops; DP x
+face-sharded over a device mesh (:mod:`.parallel`); and served from
+``torch.export`` artifacts (:mod:`.serve`).  See ROADMAP.md for what is
+still to port.
 """
 
 from . import config  # noqa: F401  (pins float32 matmuls and convs)
@@ -23,5 +25,5 @@ __version__ = "0.1.0"
 
 __all__ = ["HealpyGCNN", "logger", "__version__"]
 
-from . import graph, models, nn, ops, parallel, sphere, train, utils  # noqa: E402
+from . import graph, models, nn, ops, parallel, serve, sphere, train, utils  # noqa: E402
 from .nn import healpy_layers  # noqa: E402

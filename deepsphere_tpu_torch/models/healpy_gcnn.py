@@ -21,11 +21,14 @@ keys, so :func:`deepsphere_tpu_torch.interop.load_jax_variables` can load a
 JAX model's variables and :func:`~deepsphere_tpu_torch.interop.export_jax_variables`
 write them back; ``layer_names`` holds the JAX package's display names
 (``chebyshev``, ``gcnn__residual_layer``, ...).  A sharded model
-(``shard_cfg``) has the same parameter tree as an unsharded one.  Export
-comes later (ROADMAP.md, queue 1).
+(``shard_cfg``) has the same parameter tree as an unsharded one.
+:meth:`HealpyGCNN.export_inference` / :meth:`HealpyGCNN.save_exported` write
+a ``torch.export`` artifact (:mod:`deepsphere_tpu_torch.serve`).
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -42,6 +45,7 @@ from ..nn.healpy_layers import (
 from ..nn.transformers import GraphViT
 from ..sphere import healpix as hp
 from ..sphere.indexing import check_indices_consistent, transform_indices
+from ..utils.summary import count_params, format_summary
 
 __all__ = ["HealpyGCNN"]
 
@@ -467,6 +471,66 @@ class HealpyGCNN(nn.Module):
         self._built_input_shape = tuple(input_shape)
         return self
 
+    def get_layer(self, name=None, index=None):
+        """Layer instance by display name or position."""
+        if index is not None:
+            return self.layers_use[index]
+        if name is not None:
+            if name not in self.layer_names:
+                raise ValueError(f"No such layer: {name}. Layers: {self.layer_names}")
+            return self.layers_use[self.layer_names.index(name)]
+        raise ValueError("Provide a layer name or index.")
+
+    def param_key(self, index):
+        """The key of the user layer at ``index`` in :attr:`layers` (its
+        entries sit under ``layers.<key>.`` in the ``state_dict``): the JAX
+        package's ``layers_layer_{index}`` without its prefix, stable across
+        layout plans (the layout converters take other names)."""
+        return f"layer_{index}"
+
+    def summary(self, input_shape=None, line_length=None, print_fn=print):
+        """Print a Keras-style table: each user layer's display name, type,
+        output shape and parameter count, and the total of parameters and
+        batch statistics (the graph tables are not counted).  The output
+        shapes come from forward hooks on one eval forward of zeros of
+        ``input_shape`` (default: the built shape) on the model's device;
+        an unbuilt model is summarised through a copy built on the CPU."""
+        if input_shape is None:
+            if self._built_input_shape is None:
+                raise ValueError("Call build(input_shape) first or pass input_shape.")
+            input_shape = self._built_input_shape
+        model = self
+        if self._built_input_shape is None:
+            model = copy.deepcopy(self).build(input_shape, device="cpu")
+        shapes = model._layer_output_shapes(input_shape)
+        rows = []
+        for i, (name, layer) in enumerate(zip(model.layer_names,
+                                              model.layers_use)):
+            nparams = sum(p.numel() for p in layer.parameters())
+            rows.append((name, type(layer).__name__,
+                         shapes.get(model.param_key(i), "?"), nparams))
+        print_fn(format_summary("HealpyGCNN", rows, count_params(model)))
+
+    def _layer_output_shapes(self, input_shape):
+        """Map :meth:`param_key` -> output shape, from forward hooks on one
+        eval forward of zeros on the model's device."""
+        shapes = {}
+        hooks = [self.layers[key].register_forward_hook(
+            lambda mod, args, out, key=key: shapes.__setitem__(
+                key, tuple(out.shape)))
+            for key in (self.param_key(i) for i in range(len(self.layers_use)))]
+        dev = next(iter(self.state_dict().values())).device
+        was_training = self.training
+        self.eval()
+        try:
+            with torch.no_grad():
+                self(torch.zeros(tuple(input_shape), device=dev))
+        finally:
+            self.train(was_training)
+            for hk in hooks:
+                hk.remove()
+        return shapes
+
     def _predict(self, x, batch_size=16):
         if self._built_input_shape is None:
             raise ValueError("Build the model first (model.build(input_shape)).")
@@ -546,3 +610,24 @@ class HealpyGCNN(nn.Module):
         dev = next(self.parameters()).device
         self.load_state_dict(torch.load(path, map_location=dev), strict=True)
         return self
+
+    # ------------------------------------------------------------------
+    # serving export (torch.export artifact)
+    # ------------------------------------------------------------------
+
+    def export_inference(self, *, batch_size=None):
+        """Trace inference to a ``torch.export.ExportedProgram`` with the
+        weights and graph tables held as constants — see
+        :mod:`deepsphere_tpu_torch.serve`."""
+        from ..serve import export_inference
+
+        return export_inference(self, batch_size=batch_size)
+
+    def save_exported(self, path, *, batch_size=None):
+        """Write an inference artifact (``torch.export``) to ``path``; load
+        it with :func:`deepsphere_tpu_torch.serve.load_exported` (needs
+        torch and this package's kernel ops, no graph build).  Returns the
+        byte count."""
+        from ..serve import save_exported
+
+        return save_exported(path, self, batch_size=batch_size)

@@ -43,10 +43,13 @@ from torch import nn
 
 from ..ops import spmv
 from ..ops.layout import face_to_nest, nest_to_face, nside_of_axis
+from ..ops.fused_stencil import cface_route
 from ..ops.stencil import (
     as_tensors,
     cface_embed,
     cface_extract,
+    check_lap_chain,
+    conv_route,
     stencil_graph_conv,
     stencil_graph_conv_cface,
     stencil_tables,
@@ -361,6 +364,9 @@ class _GraphPolyConv(_Layer):
         self.bn = None
         self._table_keys = ()
         self._chain_keys = ()
+        # the route an exported forward holds (``serve.export``), checked
+        # for every batch it serves before tracing; None: chosen per call
+        self._held_route = None
 
     def _default_std(self, Fin, Fout):
         raise NotImplementedError
@@ -472,6 +478,30 @@ class _GraphPolyConv(_Layer):
             self.register_buffer(f"tab_{k}", v, persistent=False)
         self._table_keys = tuple(tables)
 
+    def batch_route(self, x_shape, sms):
+        """The route this conv's forward takes for a CUDA input of
+        ``x_shape`` (batch first) on a card of ``sms`` SMs, in inference,
+        from the shape alone (pure Python): the cface conv's
+        :func:`..ops.fused_stencil.cface_route`, or a nest/face conv's
+        :func:`..ops.stencil.conv_route` (the lap chain checked against the
+        kernels' plans); None where no route depends on the batch (the
+        ELLPACK and sharded convs).  Raises where no route takes the
+        shape."""
+        if self.shard_cfg is not None:
+            return None
+        B, n_terms = x_shape[0], self.n_terms
+        Fin, Fout = self.kernel.shape[0] // n_terms, self.kernel.shape[1]
+        st = self._stencil()
+        if self.layout == "cface":
+            return cface_route(st, self.basis_kind, n_terms, B, Fin, Fout,
+                               sms, grad=False)
+        if st is None:
+            return None
+        route = conv_route(st, self.basis_kind, n_terms, True)
+        if route == "chain":
+            check_lap_chain(st, B, Fin, sms, grad=False)
+        return route
+
     def _sharded_ellpack(self):
         return shard_ellpack_cached(self.graph, self.shard_cfg.n_pixel_shards,
                                     self._scale)
@@ -497,7 +527,8 @@ class _GraphPolyConv(_Layer):
         elif st is not None:
             y = stencil_graph_conv(st, x, self.kernel, n_terms,
                                    self.basis_kind, tables=tables,
-                                   layout=self.layout)
+                                   layout=self.layout,
+                                   route=self._held_route)
         else:
             basis_impl = self._basis_fn()
             basis = lambda x2d, nt: basis_impl(tables["idx"], tables["val"],
@@ -522,7 +553,8 @@ class _GraphPolyConv(_Layer):
             y = stencil_graph_conv_cface(st, x, self.kernel, self.n_terms,
                                          self.basis_kind,
                                          tables=self._tables(),
-                                         chain=self._chain)
+                                         chain=self._chain,
+                                         route=self._held_route)
         if self.use_bn:
             y = self.bn(y)
         if self.use_bias:

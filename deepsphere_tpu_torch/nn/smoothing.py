@@ -34,7 +34,7 @@ import torch
 from torch import nn
 
 from .._logger import logger
-from ..ops.smoothing import smooth_chain
+from ..ops.smoothing import smooth_chain, smooth_route
 from ..ops.spmv import ellpack_spmv
 from ..ops.stencil import as_tensors, stencil_tables
 from ..sphere import healpix as hp
@@ -447,6 +447,21 @@ class HealpySmoothing(nn.Module):
         self.operator = operator
         self.mask = mask
         self._table_keys = ()
+        # the route an exported forward holds (``serve.export``), checked
+        # for every batch it serves before tracing; None: chosen per call
+        self._held_route = None
+
+    def batch_route(self, x_shape, sms):
+        """The route of the stencil chain for a CUDA input of ``x_shape``
+        (B, M, C) on a card of ``sms`` SMs, from the shape alone
+        (:func:`..ops.smoothing.smooth_route`); None for the ELLPACK
+        method, which has no route.  Raises where K1 has no plan."""
+        op = self.operator
+        if not op.do_smoothing or op.stencil is None:
+            return None
+        B, _, C = x_shape
+        return smooth_route(op.stencil, B, C, int(op.stencil_apps), "cuda",
+                            sms=sms)
 
     def _tables(self, device):
         if not self._table_keys:
@@ -482,7 +497,7 @@ class HealpySmoothing(nn.Module):
 
         tables = self._tables(x.device)
         if op.stencil is not None:
-            y = self._apply_stencil(op, x, reps, tables)
+            y = self._apply_stencil(op, x, reps, tables, self._held_route)
         else:
             idx = tables["idx"]
             val = tables["val"].to(x.dtype)
@@ -510,7 +525,7 @@ class HealpySmoothing(nn.Module):
         return y
 
     @staticmethod
-    def _apply_stencil(op, x, reps, tables):
+    def _apply_stencil(op, x, reps, tables, route=None):
         """m (x per-channel) repetitions of the template in face layout:
         the masked sky embedded by a gather (zero rows outside), the power
         chain on the fused conv (:func:`..ops.smoothing.smooth_chain`),
@@ -530,7 +545,7 @@ class HealpySmoothing(nn.Module):
                        if k not in ("mask_ind", "mask_inv", "n2f", "f2n")}
         xf = x2d[tables["n2f"]].reshape(npix, B, C).permute(1, 0, 2)
         yf = smooth_chain(st, conv_tables, xf, remaining,
-                          int(op.stencil_apps))
+                          int(op.stencil_apps), route=route)
         y2d = yf.permute(1, 0, 2).reshape(npix, B * C)[tables["f2n"]]
         if M != npix:
             y2d = y2d[tables["mask_ind"]]

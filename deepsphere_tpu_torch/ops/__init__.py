@@ -1,8 +1,10 @@
 from . import attention, layout, smoothing, spmv, stencil
+from . import library  # registers the kernels' custom ops (deepsphere::*)
 from .spmv import chebyshev_basis, ellpack_spmv, graph_conv, monomial_basis
 
 __all__ = [
     "attention",
+    "library",
     "smoothing",
     "layout",
     "spmv",

@@ -14,9 +14,11 @@ shared library in the package's ``_build/`` directory, named by a hash of
 the sources and flags, and loaded with ``ctypes``.  Nothing here runs at import: the CPU tests
 import every module of the port on a machine without ``nvcc``.
 
-Every kernel wrapper adds one to its entry of :data:`launch_counts` where
-it launches its kernel, and nowhere else, so a run can show that its main
-path went through the kernels.  Beside them, :data:`route_counts` counts
+The kernels are reached through their custom ops (:mod:`.library`): each
+op's CUDA implementation adds one to its entry of :data:`launch_counts`
+where it launches its kernel, and nowhere else, so a run (a replayed
+``torch.export`` artifact too) can show that its main path went through
+the kernels.  Beside them, :data:`route_counts` counts
 the routes chosen from a shape that launch none of these kernels (the
 cface conv's per-step route, ``ops/stencil.py::_cface_per_step``) or that
 choose which launches run (the lap chain: ``lap_chain`` for each conv that

@@ -1,5 +1,6 @@
-"""The fused K-term polynomial stencil conv, forward and backward: CUDA
-kernels and their plain versions.
+"""The fused K-term polynomial stencil conv, forward and backward: the
+kernels' wrappers, launch plans and plain versions (the kernels themselves
+are the custom ops of :mod:`.library`).
 
 Counterpart of the JAX package's ``deepsphere_tpu.ops.pallas_stencil``.
 Three kernels over (face, tile) blocks: K1 in its own template
@@ -49,7 +50,6 @@ import torch
 
 from .. import config
 from ..graph.stencil import FaceStencil, stencil_offsets
-from . import _cuda
 from .strips import build_strips, strip_arrays
 
 __all__ = [
@@ -409,161 +409,28 @@ def run_dxdw_plain(st, kind, n_terms, dy, wext, strips, wk3t, xr, mask, B):
 
 
 # ---------------------------------------------------------------------------
-# CUDA launches
+# the kernels, through their custom ops (``library.py``)
 # ---------------------------------------------------------------------------
 
 
-def _check_tensors(what, dev, want):
-    for name, (t, shape) in want.items():
-        if (t.device != dev or t.dtype != torch.float32
-                or not t.is_contiguous() or tuple(t.shape) != shape):
-            raise ValueError(f"{what}: {name} must be a contiguous float32 "
-                             f"{shape} tensor on {dev}")
+def _check_stencil(what, st, kind, t):
+    """The wrappers' checks on the stencil: the kernels compile their taps
+    in the order of :func:`..graph.stencil.stencil_offsets`, take the
+    Chebyshev and monomial bases, and run on the CPU or a CUDA card."""
+    from .library import check_device
 
-
-def _stream():
-    """The current stream of the current device (the launches run inside
-    ``torch.cuda.device`` of their tensors)."""
-    return torch.cuda.current_stream().cuda_stream
-
-
-def _stencil_cuda(st, kind, xc, wext, strips, wk3, B):
-    """Launch the fused conv kernel (``csrc/stencil_conv.cu``) on
-    :func:`_k1_plan`'s plan for this card."""
-    n, h, r = st.nside, st.n_steps, st.radius
-    R, P_l = cfp_geometry(n, h)
-    K, Fin, Fout = wk3.shape
-    F = xc.shape[1]
-    dev = xc.device
-    nplanes = len(st.offsets)
-    if list(st.offsets) != stencil_offsets(r):
-        raise ValueError("stencil kernel: its taps are compiled in the order "
-                         f"of stencil_offsets({r}), not {st.offsets}")
-    if not 1 <= F <= 12:
-        raise ValueError(f"stencil kernel: {F} faces (1..12)")
-    if kind not in ("cheby", "mono"):
-        raise ValueError(f"unknown basis kind: {kind}")
-    top, bot, ls = strips
-    C = B * Fin
-    _check_tensors("stencil kernel", dev, {
-        "xc": (xc, (C, F, n, P_l)), "wk3": (wk3, (K, Fin, Fout)),
-        "top": (top, (C, F, R, P_l)), "bot": (bot, (C, F, R, P_l)),
-        "ls": (ls, (C, F, n, 128)),
-        "wext": (wext, (nplanes, F, n + 2 * R, P_l)),
-    })
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = _k1_plan(n, h, r, nplanes, K, B, F, Fin, Fout, sms)
-    if plan is None:
-        raise ValueError(f"stencil kernel does not take n={n} h={h} r={r} "
-                         f"K={K} B={B} Fout={Fout}: no tile fits shared "
-                         "memory or the grid")
-    out = torch.empty((B * Fout, F, n, P_l), dtype=xc.dtype, device=dev)
-    with torch.cuda.device(dev):
-        rc = _cuda.lib().ds_stencil_conv(
-            xc.data_ptr(), top.data_ptr(), bot.data_ptr(), ls.data_ptr(),
-            wext.data_ptr(), wk3.data_ptr(), out.data_ptr(),
-            0 if kind == "cheby" else 1, K, r, nplanes, B, F, Fin, Fout, n, h,
-            R, P_l, plan.T, plan.G, plan.GB, plan.FC, _stream(),
-        )
-    _cuda.check(rc, "ds_stencil_conv")
-    _cuda.launch_counts["stencil_conv"] += 1
-    return out
-
-
-def _bwd_cuda(what, st, kind, K, src, strips, wext, oth, B, Crec, Cch, dx):
-    """Checks and plan shared by K2 (``dx``) and K3: the recursion over the
-    B*Crec channels of ``src`` through ``strips``, the fold over the B*Cch
-    channels of ``oth``.
-
-    :return: (partial, dw, ints): the scratch of per-block dW sums (each block writes its own column, a second
-        launch reduces the rows in a fixed order: no float atomics, so two
-        calls give bitwise-equal dW), dW, and the C entry points' ints
-        (kind, K, radius, nplanes, B, F, Crec, Cch, n, h, Rs, P, T, G, GB,
-        FC)
-    """
-    n, h, r = st.nside, st.n_steps, st.radius
-    if list(st.offsets) != stencil_offsets(r):
+    if list(st.offsets) != stencil_offsets(st.radius):
         raise ValueError(f"{what}: its taps are compiled in the order of "
-                         f"stencil_offsets({r}), not {st.offsets}")
-    R, P_l = cfp_geometry(n, h)
-    nplanes = len(st.offsets)
-    F = src.shape[1]
-    dev = src.device
-    if not 1 <= F <= 12:
-        raise ValueError(f"{what}: {F} faces (1..12)")
+                         f"stencil_offsets({st.radius}), not {st.offsets}")
     if kind not in ("cheby", "mono"):
         raise ValueError(f"unknown basis kind: {kind}")
-    top, bot, ls = strips
-    C = B * Crec
-    _check_tensors(what, dev, {
-        "src": (src, (C, F, n, P_l)), "oth": (oth, (B * Cch, F, n, P_l)),
-        "top": (top, (C, F, R, P_l)), "bot": (bot, (C, F, R, P_l)),
-        "ls": (ls, (C, F, n, 128)),
-        "wext": (wext, (nplanes, F, n + 2 * R, P_l)),
-    })
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    p = _bwd_plan(n, h, r, nplanes, K, B, F, Crec, Cch, dx, sms)
-    if p is None:
-        raise ValueError(f"{what} does not take n={n} h={h} r={r} K={K} B={B}"
-                         f" channels {Crec} x {Cch}: no tile fits shared "
-                         "memory or the grid")
-    ncol = -(-B // p.GB) * F * (n // p.T) ** 2
-    partial = torch.empty((K * Crec * Cch, ncol), dtype=torch.float32,
-                          device=dev)
-    dw = torch.empty((K * Crec * Cch,), dtype=torch.float32, device=dev)
-    ints = (0 if kind == "cheby" else 1, K, r, nplanes, B, F, Crec, Cch, n,
-            h, R, P_l, p.T, p.G, p.GB, p.FC)
-    return partial, dw, ints
-
-
-def _grad_cuda(st, kind, K, xc, wext, strips, dy, B):
-    """Launch the dW kernel (``csrc/stencil_grad.cu``) on :func:`_bwd_plan`'s
-    plan for this card."""
-    Fin, Fout = xc.shape[0] // B, dy.shape[0] // B
-    partial, dw, ints = _bwd_cuda("grad kernel", st, kind, K, xc, strips,
-                                  wext, dy, B, Fin, Fout, False)
-    top, bot, ls = strips
-    with torch.cuda.device(xc.device):
-        rc = _cuda.lib().ds_stencil_grad(
-            xc.data_ptr(), top.data_ptr(), bot.data_ptr(), ls.data_ptr(),
-            wext.data_ptr(), dy.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-            *ints, _stream(),
-        )
-    _cuda.check(rc, "ds_stencil_grad")
-    _cuda.launch_counts["grad"] += 1
-    return dw.reshape(K * Fin, Fout)
-
-
-def _dxdw_cuda(st, kind, dy, wext, strips, wk3t, xr, mask, B):
-    """Launch the fused backward kernel (``csrc/stencil_dxdw.cu``) on
-    :func:`_bwd_plan`'s plan for this card."""
-    n = st.nside
-    _, P_l = cfp_geometry(n, st.n_steps)
-    K, Fc, Fx = wk3t.shape
-    F = dy.shape[1]
-    dev = dy.device
-    partial, dw, ints = _bwd_cuda("dxdw kernel", st, kind, K, dy, strips,
-                                  wext, xr, B, Fc, Fx, True)
-    want = {"wk3t": (wk3t, (K, Fc, Fx))}
-    if mask is not None:
-        want["mask"] = (mask, (F, n, P_l))
-    _check_tensors("dxdw kernel", dev, want)
-    dx = torch.empty((B * Fx, F, n, P_l), dtype=torch.float32, device=dev)
-    top, bot, ls = strips
-    with torch.cuda.device(dev):
-        rc = _cuda.lib().ds_stencil_dxdw(
-            dy.data_ptr(), top.data_ptr(), bot.data_ptr(), ls.data_ptr(),
-            wext.data_ptr(), wk3t.data_ptr(), xr.data_ptr(),
-            0 if mask is None else mask.data_ptr(), dx.data_ptr(),
-            partial.data_ptr(), dw.data_ptr(), *ints, _stream(),
-        )
-    _cuda.check(rc, "ds_stencil_dxdw")
-    _cuda.launch_counts["dxdw"] += 1
-    return dx, dw.reshape(K * Fx, Fc)
+    check_device(what, t)
 
 
 def run_stencil_kernel(st, kind, n_terms, xc, wext, strips, wk3, B):
-    """The raw fused conv (before the corner correction).
+    """The raw fused conv (before the corner correction), through the
+    ``stencil_conv`` op: K1 for a CUDA tensor, :func:`run_stencil_plain`
+    for a CPU tensor.
 
     :param xc: (B*Fin, F, n, P_l) activations (interior lanes read), F the
         faces of the arrays (12, or a face shard's)
@@ -579,15 +446,14 @@ def run_stencil_kernel(st, kind, n_terms, xc, wext, strips, wk3, B):
     """
     if wk3.shape[0] != n_terms:
         raise ValueError(f"wk3 has {wk3.shape[0]} terms, expected {n_terms}")
-    if xc.is_cuda:
-        return _stencil_cuda(st, kind, xc, wext, strips, wk3, B)
-    if xc.device.type != "cpu":
-        raise ValueError(f"no stencil conv implementation for device {xc.device}")
-    return run_stencil_plain(st, kind, n_terms, xc, wext, strips, wk3, B)
+    _check_stencil("stencil conv", st, kind, xc)
+    return torch.ops.deepsphere.stencil_conv(
+        xc, *strips, wext, wk3, st.nside, st.n_steps, st.radius, B, kind)
 
 
 def run_grad_kernel(st, kind, n_terms, xc, wext, strips, dy, B):
-    """The raw dW of the two-kernel backward (K3).
+    """The raw dW of the two-kernel backward, through the ``stencil_grad``
+    op: K3 for a CUDA tensor, :func:`run_grad_plain` for a CPU tensor.
 
     dW[k, fi, fo] = sum_b sum of T_k(L~) x[b, fi] * dy[b, fo] over the
     interior lanes, the recursion run on ``xc`` through its strips.  The
@@ -600,15 +466,16 @@ def run_grad_kernel(st, kind, n_terms, xc, wext, strips, dy, B):
         kernel's taps are compile-time, so ``st.offsets`` must be
         :func:`..graph.stencil.stencil_offsets` of its radius
     """
-    if xc.is_cuda:
-        return _grad_cuda(st, kind, n_terms, xc, wext, strips, dy, B)
-    if xc.device.type != "cpu":
-        raise ValueError(f"no grad kernel implementation for device {xc.device}")
-    return run_grad_plain(st, kind, n_terms, xc, wext, strips, dy, B)
+    _check_stencil("grad kernel", st, kind, xc)
+    return torch.ops.deepsphere.stencil_grad(
+        xc, *strips, wext, dy, st.nside, st.n_steps, st.radius, n_terms, B,
+        kind)
 
 
 def run_dxdw_kernel(st, kind, n_terms, dy, wext, strips, wk3t, xr, mask, B):
-    """The raw fused backward (K2): dx and dW in one pass over dy.
+    """The raw fused backward, through the ``stencil_dxdw`` op: K2 for a
+    CUDA tensor, :func:`run_dxdw_plain` for a CPU tensor; dx and dW in one
+    pass over dy.
 
     Channel roles are the forward's swapped: the recursion runs on ``dy``
     through its strips, with ``wk3t`` = (K, Fout, Fin).  L~ is symmetric,
@@ -629,12 +496,10 @@ def run_dxdw_kernel(st, kind, n_terms, dy, wext, strips, wk3t, xr, mask, B):
     """
     if wk3t.shape[0] != n_terms:
         raise ValueError(f"wk3t has {wk3t.shape[0]} terms, expected {n_terms}")
-    if dy.is_cuda:
-        return _dxdw_cuda(st, kind, dy, wext, strips, wk3t, xr, mask, B)
-    if dy.device.type != "cpu":
-        raise ValueError(f"no dxdw kernel implementation for device {dy.device}")
-    return run_dxdw_plain(st, kind, n_terms, dy, wext, strips, wk3t, xr, mask,
-                          B)
+    _check_stencil("dxdw kernel", st, kind, dy)
+    return torch.ops.deepsphere.stencil_dxdw(
+        dy, *strips, wext, wk3t, xr, mask, st.nside, st.n_steps, st.radius,
+        B, kind)
 
 
 # ---------------------------------------------------------------------------

@@ -54,19 +54,22 @@ def _passes(remaining, apps):
     return out
 
 
-def smooth_route(st, B, C, apps, device):
+def smooth_route(st, B, C, apps, device, sms=None):
     """The route of the chain of a (B, M, C) input on ``device``:
     ``"fused"`` where the stencil fits the fused conv and the cface layout
     (``cfp_structural_available``), ``"per_step"`` where it does not (the
     JAX package runs no kernel there either).  A CUDA input whose K1 plan
-    is refused raises, before any launch."""
+    on a card of ``sms`` SMs (default: the device's) is refused raises,
+    before any launch."""
     from .fused_stencil import _k1_plan, cfp_structural_available
 
     if not cfp_structural_available(st, "mono", apps + 1):
         return "per_step"
     if torch.device(device).type == "cuda":
         n, h, r = st.nside, st.n_steps, st.radius
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        if sms is None:
+            sms = torch.cuda.get_device_properties(
+                device).multi_processor_count
         if _k1_plan(n, h, r, len(st.offsets), apps + 1, B, 12, C, C,
                     sms) is None:
             raise ValueError(
@@ -129,7 +132,7 @@ class _SmoothChain(torch.autograd.Function):
         return dx, None, None, None, None
 
 
-def smooth_chain(st, tables, xf, remaining, apps):
+def smooth_chain(st, tables, xf, remaining, apps, route=None):
     """S^{remaining[c]} applied to channel c of ``xf``.
 
     :param st: the template's stencil, depth ``st.n_steps`` = radius * apps
@@ -138,13 +141,17 @@ def smooth_chain(st, tables, xf, remaining, apps):
     :param xf: (B, npix, C) face-flat maps
     :param remaining: (C,) powers, each >= 0
     :param apps: applications a pass fuses
+    :param route: the route, held by the caller, who has checked it for
+        this batch (an exported forward: ``HealpySmoothing.batch_route``);
+        None chooses it here
     :return: (B, npix, C); its gradient is the exact transpose chain
     """
     B, _, C = xf.shape
     passes = _passes(remaining, apps)
     if not passes:
         return xf
-    route = smooth_route(st, B, C, apps, xf.device)
+    if route is None:
+        route = smooth_route(st, B, C, apps, xf.device)
     _cuda.route_counts[f"smooth_{route}"] += 1
     if route == "per_step":
         return _per_step_chain(st, tables, xf, passes, apps)

@@ -59,6 +59,7 @@ __all__ = [
     "stencil_graph_conv",
     "stencil_graph_conv_cface",
     "conv_route",
+    "check_lap_chain",
     "lap_chain_available",
     "lap_chain_conv",
     "cface_embed",
@@ -201,37 +202,17 @@ def unpack_edge_bands(packed, n, h):
                  for p, s in zip(parts, shapes))
 
 
-def _bands_cuda(xc, n, h):
-    """Launch the band kernel (``csrc/bands.cu``)."""
-    if xc.dtype != torch.float32 or not xc.is_contiguous() or xc.ndim != 4:
-        raise ValueError("band kernel needs a contiguous float32 (C, F, n, P) xc")
-    C, F, rows, P = xc.shape
-    if rows != n or not 1 <= h <= n or 2 * h + n > P:
-        raise ValueError(f"band kernel: xc {tuple(xc.shape)} does not hold "
-                         f"n={n} rows and h={h} halo lanes")
-    if C > 65535:
-        raise ValueError(f"band kernel takes 1..65535 channels, got {C}")
-    out = torch.empty((F, C, 4 * h * n), dtype=xc.dtype, device=xc.device)
-    with torch.cuda.device(xc.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _cuda.lib().ds_bands(xc.data_ptr(), out.data_ptr(), C, F, n, h,
-                                  P, h, stream)
-    _cuda.check(rc, "ds_bands")
-    _cuda.launch_counts["bands"] += 1
-    return out
-
-
 def pack_edge_bands(xc, n, h):
     """The four h-deep edge bands of every face of ``xc`` (C, F, n, P_l),
     cface layout (face col y at lane y + h), packed face-major into one
     (F, C, 4*h*n) buffer: per (face, channel) the first rows, last rows,
-    first columns and last columns, each raster-ordered.  The CUDA kernel
-    (K5) for a CUDA tensor, :func:`pack_edge_bands_plain` for a CPU one."""
-    if xc.is_cuda:
-        return _bands_cuda(xc, n, h)
-    if xc.device.type != "cpu":
-        raise ValueError(f"no band implementation for device {xc.device}")
-    return pack_edge_bands_plain(xc, n, h)
+    first columns and last columns, each raster-ordered.  Through the
+    ``bands`` op: the CUDA kernel (K5) for a CUDA tensor,
+    :func:`pack_edge_bands_plain` for a CPU one."""
+    from .library import check_device
+
+    check_device("band", xc)
+    return torch.ops.deepsphere.bands(xc, n, h)
 
 
 def stencil_tables(st: FaceStencil):
@@ -307,6 +288,12 @@ def as_tensors(tables, device=None):
             a = a.astype(np.float32)
         else:
             a = a.astype(np.int32 if k in _INT32_TABLES else np.int64)
+        if a.size == 0:
+            # made by torch: an empty tensor over numpy memory keeps a
+            # storage pointer that torch.export.save cannot package
+            out[k] = torch.empty(a.shape, dtype=torch.from_numpy(a).dtype,
+                                 device=device)
+            continue
         out[k] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return out
 
@@ -396,7 +383,7 @@ def conv_route(st: FaceStencil, kind, n_terms, cuda):
 
 
 def stencil_graph_conv(st: FaceStencil, x, kernel, n_terms, kind, tables=None,
-                       layout="nest"):
+                       layout="nest", route=None):
     """Polynomial graph conv on the face layout, on the route that
     :func:`conv_route` gives: the lap chain, or one stencil step per term.
 
@@ -409,12 +396,18 @@ def stencil_graph_conv(st: FaceStencil, x, kernel, n_terms, kind, tables=None,
         (device) arrays; ``None`` builds them on the spot
     :param layout: ordering of the pixel axis — "nest" (converted at entry
         and exit) or "face" (face-flat [f, x, y])
+    :param route: the route, held by the caller, who has checked it for
+        this batch (an exported forward: ``layers._GraphPolyConv.batch_route``);
+        None chooses it here
     :return: (B, M, Fout)
     """
-    if conv_route(st, kind, n_terms, x.is_cuda) == "chain":
+    held = route is not None
+    if not held:
+        route = conv_route(st, kind, n_terms, x.is_cuda)
+    if route == "chain":
         _cuda.route_counts["lap_chain"] += 1
         return lap_chain_conv(st, x, kernel, n_terms, kind, tables=tables,
-                              layout=layout)
+                              layout=layout, planned=held)
     return _per_step(st, x, kernel, n_terms, kind, tables, layout)
 
 
@@ -473,8 +466,22 @@ def lap_chain_available(st: FaceStencil, kind, n_terms):
     return cfp_structural_available(st, "mono", 2)
 
 
+def check_lap_chain(st: FaceStencil, B, Fin, sms, grad):
+    """Raise where the kernels' plans on a card of ``sms`` SMs refuse a lap
+    of :func:`lap_chain_conv` over B x Fin channels (``grad``: its backward's
+    too)."""
+    from .fused_stencil import chain_refused
+
+    refused = chain_refused(st.nside, st.radius, len(st.offsets), B, Fin,
+                            sms, grad)
+    if refused:
+        raise ValueError(
+            f"lap chain: no plan of {', '.join(refused)} takes n={st.nside} "
+            f"r={st.radius} B={B} channels {Fin} on {sms} SMs")
+
+
 def lap_chain_conv(st: FaceStencil, x, kernel, n_terms, kind, tables=None,
-                   layout="nest"):
+                   layout="nest", planned=False):
     """Polynomial graph conv as a chain of single-lap fused convs.
 
     One L~ application per fused launch on the shallow stencil
@@ -490,9 +497,12 @@ def lap_chain_conv(st: FaceStencil, x, kernel, n_terms, kind, tables=None,
 
     Same contract as :func:`stencil_graph_conv` (x: (B, M, Fin) ->
     (B, M, Fout)); requires :func:`lap_chain_available`.  A CUDA input
-    whose laps the kernels' plans refuse raises before any launch.
+    whose laps the kernels' plans refuse raises before any launch, unless
+    the caller has ``planned`` the laps for this batch
+    (:func:`check_lap_chain`; an exported forward, whose batch is
+    symbolic while it is traced).
     """
-    from .fused_stencil import chain_refused, fused_stencil_conv_cfp
+    from .fused_stencil import fused_stencil_conv_cfp
     from .spmv import chebyshev_terms, monomial_terms
 
     B, M, Fin = x.shape
@@ -503,15 +513,10 @@ def lap_chain_conv(st: FaceStencil, x, kernel, n_terms, kind, tables=None,
     if not lap_chain_available(st, kind, n_terms):
         raise ValueError(f"the lap chain does not take a {kind} conv of "
                          f"{n_terms} terms on a depth-{h} stencil")
-    if x.is_cuda:
+    if x.is_cuda and not planned:
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        grad = torch.is_grad_enabled() and x.requires_grad
-        refused = chain_refused(n, st.radius, len(st.offsets), B, Fin, sms,
-                                grad)
-        if refused:
-            raise ValueError(
-                f"lap chain: no plan of {', '.join(refused)} takes n={n} "
-                f"r={st.radius} B={B} channels {Fin} on {sms} SMs")
+        check_lap_chain(st, B, Fin, sms,
+                        torch.is_grad_enabled() and x.requires_grad)
     Fout = kernel.shape[-1]
     tables = _tables_for(tables, st, x.device)
 
@@ -537,7 +542,7 @@ def lap_chain_conv(st: FaceStencil, x, kernel, n_terms, kind, tables=None,
 
 
 def stencil_graph_conv_cface(st: FaceStencil, x5, kernel, n_terms, kind,
-                             tables=None, chain=None):
+                             tables=None, chain=None, route=None):
     """Polynomial graph conv in the channels-first padded layout.
 
     A CUDA input takes the route that :func:`.fused_stencil.cface_route`
@@ -550,6 +555,10 @@ def stencil_graph_conv_cface(st: FaceStencil, x5, kernel, n_terms, kind,
         Laplacian (``n_steps`` == its radius) and its tables on the device
         of ``x5``, called only where the route is the lap chain (the layer
         builds them then, not before); without it a chain route raises
+    :param route: the route, held by the caller, who has checked it for
+        this batch (an exported forward, whose batch is symbolic while it
+        is traced: ``layers._GraphPolyConv.batch_route``); None chooses it
+        here for a CUDA input
     :return: (B, Fout, 12, n, P_l); lanes outside the interior are 0
     """
     from .fused_stencil import (
@@ -567,18 +576,19 @@ def stencil_graph_conv_cface(st: FaceStencil, x5, kernel, n_terms, kind,
             f"({st.nside}, {P_exp})"
         )
     Fout = kernel.shape[-1]
-    if x5.is_cuda:
+    held = route is not None
+    if x5.is_cuda and not held:
         sms = torch.cuda.get_device_properties(x5.device).multi_processor_count
         grad = torch.is_grad_enabled() and (x5.requires_grad
                                             or kernel.requires_grad)
         route = cface_route(st, kind, n_terms, B, Fin, Fout, sms, grad)
-        if route == "per_step":
-            return _cface_per_step(st, x5, kernel, n_terms, kind, tables)
-        if route == "chain":
-            if chain is None:
-                raise ValueError("the cface conv's route is the lap chain, "
-                                 "which needs the shallow stencil (chain=)")
-            return _cface_chain(*chain(), x5, kernel, n_terms, kind, h)
+    if route == "per_step":
+        return _cface_per_step(st, x5, kernel, n_terms, kind, tables)
+    if route == "chain":
+        if chain is None:
+            raise ValueError("the cface conv's route is the lap chain, "
+                             "which needs the shallow stencil (chain=)")
+        return _cface_chain(*chain(), x5, kernel, n_terms, kind, h, held)
     tables = _tables_for(tables, st, x5.device)
     y = fused_stencil_conv_cfp(
         st, tables, x5.reshape(B * Fin, 12, n, P_l), kernel, n_terms, kind, B,
@@ -586,14 +596,15 @@ def stencil_graph_conv_cface(st: FaceStencil, x5, kernel, n_terms, kind,
     return y.reshape(B, Fout, 12, n, P_l).to(x5.dtype)
 
 
-def _cface_chain(st_r, tables_r, x5, kernel, n_terms, kind, h):
+def _cface_chain(st_r, tables_r, x5, kernel, n_terms, kind, h,
+                 planned=False):
     """The cface conv's lap-chain route: the interior lanes of the depth-h
     layout through :func:`lap_chain_conv` on the shallow stencil ``st_r``
     (face layout), padded again to depth h (counted in
     ``_cuda.route_counts["chain_cface"]``)."""
     _cuda.route_counts["chain_cface"] += 1
     yf = lap_chain_conv(st_r, cface_extract(x5, h), kernel, n_terms, kind,
-                        tables=tables_r, layout="face")
+                        tables=tables_r, layout="face", planned=planned)
     return cface_embed(yf, st_r.nside, h)
 
 

@@ -1,4 +1,6 @@
-"""The fused conv's halo-strip arrays: CUDA gather kernel and plain version.
+"""The fused conv's halo-strip arrays: the plain version, the gather
+kernel's source maps, and the wrappers of the ``strips`` op (K4,
+:mod:`.library`).
 
 Counterpart of the JAX package's ``deepsphere_tpu.ops.pallas_strips``
 (the TPU builder kernel ``_builder_kernel``) and of ``_strip_arrays`` in
@@ -33,7 +35,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import _cuda
 from .stencil import edge_strips, unpack_edge_bands
 
 __all__ = ["strip_arrays", "strip_index_map", "build_strips",
@@ -115,68 +116,30 @@ def band_strip_index_map(st, faces):
     return cache[faces]
 
 
-def _check_source(src):
-    if src.dtype != torch.float32 or not src.is_contiguous():
-        raise ValueError("strips kernel needs a contiguous float32 source")
-
-
-# channels per block of the strip kernel (``kCC`` in ``csrc/strips.cu``)
-_STRIPS_CC = 2
-
-
-def _gather_strips(st, src, index, C, F, slab):
-    """Launch the strip gather kernel (``csrc/strips.cu``): strips of F
-    faces and C channels, ``out[c, e] = src[c*slab + index[e]]`` (0 where
-    the index is -1), in one allocation; the caller has checked ``src``
-    (:func:`_check_source`).  The kernel reads ``index`` in 16-byte
-    groups, so it must start 16-byte aligned."""
-    n, h = st.nside, st.n_steps
-    R, P_l = _geometry(st)
-    e_tb, e_ls = F * R * P_l, F * n * 128
-    if (index.dtype != torch.int32 or index.device != src.device
-            or index.numel() != 2 * e_tb + e_ls or not index.is_contiguous()):
-        raise ValueError("strip index map does not match this conv")
-    if index.data_ptr() % 16:
-        raise ValueError("strip index map must start 16-byte aligned")
-    if -(-C // _STRIPS_CC) > 65535:
-        raise ValueError(f"strips kernel: {C} channels are too many for the grid")
-    out = torch.empty(C * (2 * e_tb + e_ls), dtype=src.dtype, device=src.device)
-    top = out[:C * e_tb].view(C, F, R, P_l)
-    bot = out[C * e_tb:2 * C * e_tb].view(C, F, R, P_l)
-    ls = out[2 * C * e_tb:].view(C, F, n, 128)
-    vec = int(src.data_ptr() % 16 == 0 and slab % 4 == 0)
-    lib = _cuda.lib()
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.ds_strips(src.data_ptr(), index.data_ptr(), out.data_ptr(),
-                           C, slab, F, n, h, R, P_l, vec, stream)
-    _cuda.check(rc, "ds_strips")
-    _cuda.launch_counts["strips"] += 1
-    return top, bot, ls
-
-
-def _strips_cuda(st, xc, index):
-    """The strips of all 12 faces of ``xc`` through the gather kernel."""
+def _strip_views(st, flat, C, F):
+    """(top, bot, ls) views of the flat strip buffer of :func:`..library.strips`
+    (one allocation: top and bot (C, F, R, P_l), then ls (C, F, n, 128))."""
     n = st.nside
-    _, P_l = _geometry(st)
-    C = xc.shape[0]
-    _check_source(xc)
-    if tuple(xc.shape) != (C, 12, n, P_l):
-        raise ValueError(f"xc shape {tuple(xc.shape)} != {(C, 12, n, P_l)}")
-    if index is None:
-        index = torch.from_numpy(strip_index_map(st)).to(xc.device)
-    return _gather_strips(st, xc, index, C, 12, 12 * n * P_l)
+    R, P_l = _geometry(st)
+    e_tb = C * F * R * P_l
+    return (flat[:e_tb].view(C, F, R, P_l),
+            flat[e_tb:2 * e_tb].view(C, F, R, P_l),
+            flat[2 * e_tb:].view(C, F, n, 128))
 
 
 def build_strips(st, xc, index=None):
-    """(top, bot, ls) of ``xc`` (C, 12, n, P_l): the CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor.  ``index``: the device copy
-    of :func:`strip_index_map` (``tables["strip_idx"]``), else built here."""
-    if xc.is_cuda:
-        return _strips_cuda(st, xc, index)
-    if xc.device.type != "cpu":
-        raise ValueError(f"no strips implementation for device {xc.device}")
-    return strip_arrays(st, xc)
+    """(top, bot, ls) of ``xc`` (C, 12, n, P_l) through the ``strips`` op:
+    the CUDA kernel for a CUDA tensor, the plain version for a CPU tensor.
+    ``index``: the device copy of :func:`strip_index_map`
+    (``tables["strip_idx"]``), else built here."""
+    from .library import check_device
+
+    check_device("strips", xc)
+    if index is None:
+        index = torch.from_numpy(strip_index_map(st)).to(xc.device)
+    flat = torch.ops.deepsphere.strips(xc, index, st.nside, st.n_steps,
+                                       list(range(12)))
+    return _strip_views(st, flat, xc.shape[0], 12)
 
 
 def band_source_map(m, C, L):
@@ -205,18 +168,18 @@ def _band_source_map(st, faces, C, device, index=None):
 
 def build_band_strips(st, bands, faces, index=None):
     """(top, bot, ls) of ``faces`` (C, F, ...) from the packed all-gathered
-    edge bands ``bands`` (12, C, 4*h*n): the gather kernel (K4's) for a CUDA
-    tensor, the plain version for a CPU tensor.  ``index``: the device copy
-    of :func:`band_strip_index_map` for these faces (any integer type),
-    else built here."""
+    edge bands ``bands`` (12, C, 4*h*n) through the ``strips`` op: the
+    gather kernel (K4's) for a CUDA tensor, the plain version for a CPU
+    tensor.  ``index``: the device copy of :func:`band_strip_index_map` for
+    these faces (any integer type), else built here."""
+    from .library import check_device
+
     n, h = st.nside, st.n_steps
-    C, L = bands.shape[1], bands.shape[2]
+    C = bands.shape[1]
     if tuple(bands.shape) != (12, C, 4 * h * n):
         raise ValueError(f"bands {tuple(bands.shape)} != (12, C, {4 * h * n})")
-    if bands.is_cuda:
-        _check_source(bands)
-        m = _band_source_map(st, faces, C, bands.device, index)
-        return _gather_strips(st, bands, m, C, len(faces), L)
-    if bands.device.type != "cpu":
-        raise ValueError(f"no strips implementation for device {bands.device}")
-    return strip_arrays(st, None, faces, unpack_edge_bands(bands, n, h))
+    check_device("strips", bands)
+    faces = [int(f) for f in faces]
+    m = _band_source_map(st, faces, C, bands.device, index)
+    flat = torch.ops.deepsphere.strips(bands, m, n, h, faces)
+    return _strip_views(st, flat, C, len(faces))

@@ -1,3 +1,4 @@
 from .activations import resolve_activation
+from .summary import count_params, format_summary
 
-__all__ = ["resolve_activation"]
+__all__ = ["resolve_activation", "count_params", "format_summary"]

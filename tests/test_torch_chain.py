@@ -267,7 +267,8 @@ def test_fault_shape_model_chain_route_matches_the_fused_route(rng,
     assert not any(n.startswith("chain_") for c in convs
                    for n, _ in c.named_buffers())
 
-    def chain_route(st, x5, kernel, n_terms, kind, tables=None, chain=None):
+    def chain_route(st, x5, kernel, n_terms, kind, tables=None, chain=None,
+                    route=None):
         return tstencil._cface_chain(*chain(), x5, kernel, n_terms, kind,
                                      st.n_steps)
 

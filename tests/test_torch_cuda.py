@@ -458,6 +458,52 @@ def test_cface_conv_raises_before_launch_where_a_kernel_has_no_plan(rng,
                           grad=False) == "fused"
 
 
+def test_exported_quick_start_replays_on_the_card(rng, dev, tmp_path):
+    """The quick_start classifier at nside 32 (its convs at nside 32 and
+    16 in cface; at nside 8 and 4 a K=10 halo is deeper than the face),
+    exported on the card with a polymorphic batch, saved and loaded: its
+    graph holds one K1 and one K4 op per cface conv, a replayed forward
+    launches exactly those, and its logits match the live model's
+    ``predict`` to 1e-5 of their max (the same kernels on the same
+    plans)."""
+    from deepsphere_tpu_torch import serve
+
+    nside = 32
+    npix = 12 * nside * nside
+    layers = [
+        hp_nn.HealpyChebyshev(K=10, Fout=8, activation="relu", use_bn=True),
+        hp_nn.HealpyPool(p=1),
+        hp_nn.HealpyChebyshev(K=10, Fout=16, activation="relu", use_bn=True),
+        hp_nn.HealpyPool(p=1),
+        hp_nn.HealpyChebyshev(K=10, Fout=32, activation="relu", use_bn=True),
+        hp_nn.HealpyPool(p=1),
+        hp_nn.HealpyChebyshev(K=10, Fout=32, activation="relu"),
+        hp_nn.Flatten(),
+        hp_nn.Dense(4),
+    ]
+    model = dt.HealpyGCNN(nside, np.arange(npix), layers).build(
+        (16, npix, 1), seed=5)
+    n_cf = sum(getattr(m, "layout", None) == "cface" and hasattr(m, "graph")
+               for m in model.layers.values())
+    assert n_cf == 2
+    x = rng.normal(size=(6, npix, 1)).astype(np.float32)
+    want = model.predict(x)
+    path = tmp_path / "quick_start.pt2"
+    assert model.save_exported(path) == path.stat().st_size
+    em = serve.load_exported(path)
+    assert em.device.type == "cuda" and em.input_shape == ("b", npix, 1)
+    assert em.op_counts() == {"strips": n_cf, "stencil_conv": n_cf}
+    _cuda.reset_launch_counts()
+    got = em(x[:5]).cpu().numpy()
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts == {"strips": n_cf, "stencil_conv": n_cf,
+                                   "dxdw": 0, "grad": 0, "bands": 0}
+    assert not any(_cuda.route_counts.values())
+    assert np.abs(got - want[:5]).max() <= 1e-5 * np.abs(want).max()
+    got = em.predict(x, batch_size=4)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
 def _chain_launches(laps, fused_dw=None):
     """Launches of a lap chain of ``laps`` laps: the forward, and with
     ``fused_dw`` set its backward too (K2 a lap; or K1 on dy a lap, and no

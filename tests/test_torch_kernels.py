@@ -26,7 +26,7 @@ import deepsphere_tpu.ops.pallas_stencil as jps
 import deepsphere_tpu.ops.stencil as jstencil
 import deepsphere_tpu_torch.graph as tgraph
 from deepsphere_tpu_torch.graph.stencil import stencil_offsets
-from deepsphere_tpu_torch.ops import _cuda
+from deepsphere_tpu_torch.ops import _cuda, library
 from deepsphere_tpu_torch.ops import fused_stencil as tfs
 from deepsphere_tpu_torch.ops import strips as tstrips
 from deepsphere_tpu_torch.ops.stencil import as_tensors, stencil_tables
@@ -184,7 +184,7 @@ def test_strip_gather_rejects_an_unaligned_map():
     _, P_l = tfs.cfp_geometry(n, h)
     x = torch.zeros(1, 12, n, P_l)
     with pytest.raises(ValueError, match="aligned"):
-        tstrips._gather_strips(st, x, shifted, 1, 12, 12 * n * P_l)
+        library._gather_strips(n, h, x, shifted, 1, 12, 12 * n * P_l)
     assert _cuda.launch_counts["strips"] == 0
 
 
@@ -319,7 +319,8 @@ def test_k1_wrapper_rejects_other_tap_orders():
                          offsets=offs[1:] + offs[:1])
     x = torch.zeros(1, 12, 8, 128)
     with pytest.raises(ValueError, match="stencil_offsets"):
-        tfs._stencil_cuda(st, "cheby", x, None, None, torch.zeros(3, 1, 1), 1)
+        tfs.run_stencil_kernel(st, "cheby", 3, x, None, None,
+                               torch.zeros(3, 1, 1), 1)
 
 
 def test_raw_conv_reads_only_the_interior(rng):
@@ -551,7 +552,7 @@ def test_bwd_wrappers_reject_other_tap_orders(kernel):
     x = torch.zeros(1, 12, 8, 128)
     with pytest.raises(ValueError, match="stencil_offsets"):
         if kernel == "dxdw":
-            tfs._dxdw_cuda(st, "cheby", x, None, (None,) * 3,
-                           torch.zeros(3, 1, 1), x, None, 1)
+            tfs.run_dxdw_kernel(st, "cheby", 3, x, None, (None,) * 3,
+                                torch.zeros(3, 1, 1), x, None, 1)
         else:
-            tfs._grad_cuda(st, "cheby", 3, x, None, (None,) * 3, x, 1)
+            tfs.run_grad_kernel(st, "cheby", 3, x, None, (None,) * 3, x, 1)

@@ -359,7 +359,8 @@ def test_k60_model_per_step_route_matches_the_fused_route(rng, monkeypatch):
     _cuda.reset_launch_counts()
     y_f, g_f = run()
     assert _cuda.route_counts["per_step_cface"] == 0
-    def per_step(st, x5, kernel, n_terms, kind, tables=None, chain=None):
+    def per_step(st, x5, kernel, n_terms, kind, tables=None, chain=None,
+                 route=None):
         return tstencil._cface_per_step(st, x5, kernel, n_terms, kind, tables)
 
     monkeypatch.setattr(tl, "stencil_graph_conv_cface", per_step)
@@ -370,3 +371,88 @@ def test_k60_model_per_step_route_matches_the_fused_route(rng, monkeypatch):
     assert g_s.keys() == g_f.keys()
     for name in g_f:
         _close(g_s[name], g_f[name])
+
+
+def _quick_start_narrow(m):
+    """The quick_start classifier at nside 16, narrowed (K=5, 4/8 channels),
+    its two convs in one cface segment."""
+    return [
+        m.HealpyChebyshev(K=5, Fout=4, activation="relu", use_bn=True),
+        m.HealpyPool(p=1),
+        m.HealpyChebyshev(K=5, Fout=8, activation="relu", use_bn=True),
+        m.HealpyPool(p=1),
+        m.Flatten(),
+        m.Dense(4),
+    ]
+
+
+def _kitchen_sink(m):
+    """Every layer family (``tests/test_networks.py:28-43``)."""
+    return [
+        m.HealpyPseudoConv(p=1, Fout=4),
+        m.HealpyPool(p=1),
+        m.HealpyChebyshev(K=5, Fout=8),
+        m.Healpy_ViT(p=2, key_dim=8, num_heads=2, n_layers=2),
+        m.HealpyPseudoConv_Transpose(p=2, Fout=16),
+        m.HealpyPseudoConv(p=2, Fout=16),
+        m.HealpyMonomial(K=5, Fout=32),
+        m.HealpyBernstein(K=5, Fout=32),
+        m.Healpy_Transformer(key_dim=8, num_heads=4),
+        m.Healpy_ResidualLayer("CHEBY", layer_kwargs={"K": 5}),
+        m.Flatten(),
+        m.Dense(4),
+    ]
+
+
+@pytest.mark.parametrize("layers", [_quick_start_narrow, _kitchen_sink],
+                         ids=["quick_start", "kitchen_sink"])
+def test_summary_matches_jax(layers):
+    """At the JAX suite's nside 16: ``summary()`` prints the JAX model's
+    table line for line (display names, types, output shapes in the
+    planned layouts, per-layer parameter counts, and the total of
+    parameters and batch statistics without the graph tables), built or
+    (through ``input_shape``) not."""
+    n = 16
+    npix = 12 * n * n
+    shape = (2, npix, 1)
+    jm = ds.HealpyGCNN(n, np.arange(npix), layers(jhp))
+    jm.build(shape)
+    want = []
+    jm.summary(print_fn=want.append)
+    got = []
+    tm = dt.HealpyGCNN(n, np.arange(npix), layers(thp))
+    tm.summary(input_shape=shape, print_fn=got.append)
+    assert got[0].splitlines() == want[0].splitlines()
+    assert tm._built_input_shape is None  # summarised through a copy
+    tm.build(shape, device="cpu")
+    got = []
+    tm.summary(print_fn=got.append)
+    assert got[0].splitlines() == want[0].splitlines()
+
+
+def test_get_layer_and_param_key_match_jax():
+    n = 8
+    npix = 12 * n * n
+    layers = lambda m: [m.HealpyChebyshev(K=3, Fout=2, use_bn=True),
+                        m.HealpyPool(p=1), m.Flatten(), m.Dense(3)]
+    jm = ds.HealpyGCNN(n, np.arange(npix), layers(jhp))
+    tm = dt.HealpyGCNN(n, np.arange(npix), layers(thp)).build(
+        (1, npix, 1), device="cpu")
+    for i, name in enumerate(jm.layer_names):
+        assert tm.get_layer(name=name) is tm.get_layer(index=i)
+        assert (type(tm.get_layer(name=name)).__name__
+                == type(jm.get_layer(name=name)).__name__)
+        # the JAX key without its "layers_" prefix, the user layer's
+        # module in the (cface-planned) module dict
+        assert "layers_" + tm.param_key(i) == jm.param_key(i)
+        assert tm.layers[tm.param_key(i)] is tm.get_layer(index=i)
+    assert tm.get_layer(name="chebyshev").layout == "cface"
+    assert "layers." + tm.param_key(0) + ".kernel" in tm.state_dict()
+
+    def err(m, **kw):
+        with pytest.raises(ValueError) as e:
+            m.get_layer(**kw)
+        return str(e.value)
+
+    assert err(tm, name="conv") == err(jm, name="conv")
+    assert err(tm) == err(jm) == "Provide a layer name or index."
