@@ -138,12 +138,37 @@ Phases, one result line each (with the elapsed seconds):
    timed with CUDA events beside the eager one; (b) the host cost of the
    ops' dispatch in one process: K4 through its op against its CUDA
    implementation called directly, and the quick_start train step with the
-   ops against with their implementations called directly, in turns.
+   ops against with their implementations called directly, in turns;
+14. the TF2 user's path on the reference's kNN graph: (a) the kNN graphs
+   of nside 64 at k=8 and k=20 built on the host (``scipy``'s cKDTree;
+   sklearn is never imported), with their seconds; (b) quick_start at full
+   width on the k=8 kNN graph (``graph_method="knn"``, batch 16), its
+   weights loaded from a reference checkpoint's group tree made from
+   seeded numpy (``train.import_ref._import_tree``: the walk of
+   ``import_keras_h5`` without the file), each conv's route printed (conv
+   1 in cface on the kNN deep stencil, h=18, its corner correction
+   recomputing rows from the ball; convs 2-4 per step), 4 requests of 16
+   maps (one K4 and one K1 a request) against a CPU copy loaded from the
+   same tree (1e-4), one ``train_on_batch`` on each backward route against
+   a float64 CPU step (loss 1e-5, gradients 1e-3, BN 1e-5), ms per step
+   with the routes alternating, and a profiler window of 3 steps written
+   by ``utils.profiling.trace`` (every layer's scope and the kernels'
+   launches in the trace; the device-busy share); (c) the same model with
+   ``remat=True``, one step on each route: loss, gradients and BN
+   statistics within 1e-6 of the plain step's on the card, one more
+   forward's K4 and K1 a step, the peak memory of both settings and their
+   ms per step; (d) one Chebyshev K=10 conv on the k=20 kNN graph (radius
+   3), batch 16, 8 -> 16, NEST: the lap chain counted, forward and forward
+   + backward with a fixed cotangent on both routes against the per-step
+   path on the card (y and dx 2e-5, dW 1e-4); (e) conv 1's filters
+   localized on the card against the CPU model's (1e-5).
 
 It then prints the card line, one JSON line with every kernel's launches
 (the sum over the main paths, each counted from 0: quick_start training
-for K1-K4, the sharded training for K5, phases 9-12, and the replays of
-phase 13 under ``export``, with the paths under ``paths``), error, times
+for K1-K4, the sharded training for K5, phases 9-12, the replays of
+phase 13 under ``export``, and phase 14's kNN serving, steps and chain
+under ``knn`` and its remat steps under ``remat``, with the paths under
+``paths``), error, times
 and bound, and finally
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
 non-zero and prints no result line.  It needs one card, never falls back to
@@ -247,9 +272,13 @@ def device_profile(fn, steps, top=0, host=0):
         for i in range(steps):
             fn(i)
         torch.cuda.synchronize()
+    # the model's layer scopes (``record_function``) are mirrored onto the
+    # device's timeline as ranges around its kernels: not device work
+    scopes = {e.name for e in prof.events() if e.is_user_annotation}
     by_name = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and e.name not in scopes):
             d = by_name.setdefault(e.name, [0, 0.0])
             d[0] += 1
             d[1] += e.time_range.elapsed_us() / 1e3
@@ -1735,6 +1764,350 @@ def dispatch_cost(dt, hp_nn, card):
     return {"per_call_us": per_call, "step_ms": steps}
 
 
+def reference_tree(model, seed):
+    """A Keras-3 ``.weights.h5`` group tree, as the importer reads one
+    (``train.import_ref._read_tree``: nested dicts, ``vars`` lists), for
+    ``model``'s convs (kernel, ``bn`` moving mean and variance) and dense
+    head, from seeded numpy, with the empty groups Keras writes for the
+    pools and ``Flatten``: what a TF2 user's checkpoint of quick_start
+    holds."""
+    from deepsphere_tpu_torch.interop import export_jax_variables
+    from deepsphere_tpu_torch.train.import_ref import _BASE_NAME
+
+    r = np.random.RandomState(seed)
+    v = export_jax_variables(model)
+    tree, seen = {}, {}
+    for i, layer in enumerate(model.layers_use):
+        cls = type(layer).__name__
+        base = _BASE_NAME.get(cls) or {"HealpyPool": "healpy_pool",
+                                       "Flatten": "flatten"}[cls]
+        n = seen.get(base, 0)
+        seen[base] = n + 1
+        key = f"layers_{model.param_key(i)}"
+        p, st = v["params"].get(key, {}), v["batch_stats"].get(key, {})
+        group = {"vars": []}
+        if cls == "ChebyshevConv":
+            kern = p["kernel"]
+            group["vars"] = [(r.normal(size=kern.shape) / np.sqrt(
+                kern.shape[0])).astype(np.float32)]
+            if st:
+                F = st["bn"]["mean"].shape
+                group["bn"] = {"vars": [
+                    r.normal(scale=0.1, size=F).astype(np.float32),
+                    r.uniform(0.5, 2.0, size=F).astype(np.float32)]}
+        elif cls == "Dense":
+            d = p["dense"]
+            group["vars"] = [(r.normal(size=d["kernel"].shape) / np.sqrt(
+                d["kernel"].shape[0])).astype(np.float32),
+                r.normal(scale=0.1, size=d["bias"].shape).astype(np.float32)]
+        tree[base if n == 0 else f"{base}_{n}"] = group
+    return tree
+
+
+def knn_phase(dev, card, rng):
+    """14. The TF2 user's path: kNN graphs built without sklearn, a
+    reference checkpoint's tree imported into quick_start on the kNN graph,
+    served and trained on the card, with remat, a profiler window and the
+    filters; and the k=20 kNN conv on the lap chain.  Returns the launches
+    of the kNN and remat paths and the phase's numbers."""
+    import tempfile
+
+    import deepsphere_tpu_torch as dt
+    from deepsphere_tpu_torch import config
+    from deepsphere_tpu_torch.graph import build_sphere_graph
+    from deepsphere_tpu_torch.nn import healpy_layers as hp_nn
+    from deepsphere_tpu_torch.ops import _cuda
+    from deepsphere_tpu_torch.ops import fused_stencil as fs
+    from deepsphere_tpu_torch.ops import stencil as tst
+    from deepsphere_tpu_torch.ops.stencil import (
+        as_tensors,
+        stencil_graph_conv,
+        stencil_tables,
+    )
+    from deepsphere_tpu_torch.train import import_ref
+    from deepsphere_tpu_torch.train.losses import resolve_loss
+    from deepsphere_tpu_torch.utils.profiling import trace
+
+    loss_name = "sparse_categorical_crossentropy_from_logits"
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    nside = 64
+    npix = 12 * nside * nside
+    zero = {k: 0 for k in _cuda.launch_counts}
+    out = {}
+
+    # (a) the reference's kNN graphs on the card's host, with no sklearn
+    graphs, graph_s = {}, {}
+    for k in (8, 20):
+        t = time.perf_counter()
+        graphs[k] = build_sphere_graph(nside, k=k, method="knn")
+        graph_s[k] = time.perf_counter() - t
+    if "sklearn" in sys.modules:
+        raise AssertionError("building a kNN graph imported sklearn")
+    say("knn", f"kNN graphs at nside {nside} built without sklearn: k=8 in "
+        f"{graph_s[8]:.2f} s, k=20 in {graph_s[20]:.2f} s (kernel widths "
+        f"{graphs[8].kernel_width:.6f}, {graphs[20].kernel_width:.6f})")
+    out["graph_s"] = graph_s
+
+    # (b) quick_start on the kNN graph (k=8), its weights from a reference
+    # checkpoint's tree, served and trained on the card
+    t = time.perf_counter()
+    model = dt.HealpyGCNN(nside, np.arange(npix), quick_start_layers(hp_nn),
+                          n_neighbors=8, graph_method="knn")
+    model.build((16, npix, 1), seed=41)
+    cpu = copy.deepcopy(model).to("cpu")
+    tree = reference_tree(model, 42)
+    import_ref._import_tree(tree, model)
+    import_ref._import_tree(tree, cpu)
+    build_s = time.perf_counter() - t
+    convs = [(key, m) for key, m in model.layers.items()
+             if hasattr(m, "graph") and hasattr(m, "n_terms")]
+    routes = []
+    for (key, m), fin in zip(convs, (1, 8, 16, 32)):
+        st = m._stencil()
+        if m.layout == "cface":
+            rt = fs.cface_route(st, "cheby", 10, 16, fin, m.kernel.shape[1],
+                                sms)
+        else:
+            rt = tst.conv_route(st, "cheby", 10, True)
+        routes.append((key, m.layout, st.radius, st.n_steps,
+                       int(np.asarray(st.corr_out_face).shape[0]), rt))
+    if routes[0][1] != "cface" or routes[0][5] != "fused":
+        raise AssertionError(f"kNN conv 1 did not plan the fused cface "
+                             f"route: {routes}")
+    x = rng.normal(size=(4 * 16, npix, 1)).astype(np.float32)
+    logits, srv, srv_rt = counted(lambda: model.predict(x, batch_size=16))
+    want = {**zero, "strips": 4, "stencil_conv": 4}
+    if srv != want or any(srv_rt.values()):
+        raise AssertionError(f"kNN serving launched {srv}, routes {srv_rt}; "
+                             f"expected {want}")
+    ref = cpu.predict(x[:16], batch_size=16)
+    rel = float(np.abs(logits[:16] - ref).max() / np.abs(ref).max())
+    if not (logits.shape == (64, 4) and np.all(np.isfinite(logits))
+            and rel <= 1e-4):
+        raise AssertionError(f"kNN logits {logits.shape} rel {rel:.3e} from "
+                             "the CPU")
+    xb = torch.from_numpy(x[:16]).to(dev)
+    model.eval()
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: model(xb), iters=20, warmup=3)
+    say("knn", f"quick_start on the k=8 kNN graph, nside {nside}, full width:"
+        f" built and imported from a reference tree ({sorted(tree)}) in "
+        f"{build_s:.2f} s; conv routes (key, layout, radius, h, corrected "
+        f"rows, route) {routes}; 4 requests x 16 maps launched {srv} (conv 1:"
+        f" one K4 + one K1 a request; convs 2-4 per step, no kernel), logits "
+        f"rel {rel:.2e} from the CPU; {fwd_ms:.3f} ms per forward of 16 maps "
+        f"on {card}")
+    out.update(routes=routes, serve_ms=fwd_ms)
+
+    # one train step on each backward route against a float64 CPU step
+    data = np.random.RandomState(43)
+    xt = data.normal(size=(64, npix, 1)).astype(np.float32)
+    yt = data.randint(0, 4, size=64)
+    t64 = time.perf_counter()
+    cpu64 = nest_reference(dt, model, nside, quick_start_layers(hp_nn),
+                           n_neighbors=8, graph_method="knn")
+    cpu64.train()
+    out64 = cpu64(torch.from_numpy(xt[:16].astype(np.float64)))
+    loss64 = resolve_loss(loss_name)(torch.from_numpy(yt[:16]), out64)
+    loss64.backward()
+    g64, s64, loss64 = grads_of(cpu64), stats_of(cpu64), float(loss64.detach())
+    cpu_s = time.perf_counter() - t64
+    del cpu64, out64
+    # conv 1 is the one cface conv; its input needs no gradient
+    want_step = {True: {**zero, "strips": 2, "stencil_conv": 1, "dxdw": 1},
+                 False: {**zero, "strips": 1, "stencil_conv": 1, "grad": 1}}
+    init = copy.deepcopy(model)
+
+    def step(fused, remat):
+        """One train step of a copy of ``init`` on a route: (model, logs,
+        launches, peak bytes over the bytes held before the step)."""
+        config.set_fused_dw(fused)
+        m = copy.deepcopy(init)
+        m.remat = remat
+        m.compile(optimizer=1e-3, loss=loss_name)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        logs, c, r = counted(lambda: m._trainer.train_on_batch(xt[:16],
+                                                               yt[:16]))
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        if any(r.values()):
+            raise AssertionError(f"the kNN step took the routes {r}")
+        return m, logs, c, peak
+
+    steps, remats = {}, {}
+    try:
+        for fused in (True, False):
+            m, logs, c, peak = step(fused, False)
+            g, st_ = grads_of(m), stats_of(m)
+            loss_rel = abs(logs["loss"] - loss64) / abs(loss64)
+            g_err, s_err = tree_errs(g, g64), tree_errs(st_, s64)
+            bad = {**held(g_err, GRAD_TOL), **held(s_err, BN_TOL)}
+            if c != want_step[fused] or not loss_rel <= 1e-5 or bad:
+                raise AssertionError(
+                    f"kNN step fused_dw={fused}: launched {c} (expected "
+                    f"{want_step[fused]}), loss rel {loss_rel:.3e}, errors "
+                    f"above {GRAD_TOL} / {BN_TOL}: {bad}")
+            steps[fused] = (m, c, loss_rel, max(g_err.values()),
+                            max(s_err.values()), peak, logs, g, st_)
+            # (c) the same model with remat: each layer recomputed in the
+            # backward, the forward's kernels launched again, the running
+            # statistics updated once
+            mr, logs_r, c_r, peak_r = step(fused, True)
+            e_loss = abs(logs_r["loss"] - logs["loss"]) / abs(logs["loss"])
+            e_g = max(tree_errs(grads_of(mr), g).values())
+            e_s = max(tree_errs(stats_of(mr), st_).values())
+            extra = {k: c_r[k] - c[k] for k in c}
+            if extra != {**zero, "strips": 1, "stencil_conv": 1} or not (
+                    e_loss <= 1e-6 and e_g <= 1e-6 and e_s <= 1e-6):
+                raise AssertionError(
+                    f"remat step fused_dw={fused}: launched {c_r} against "
+                    f"{c}, loss {e_loss:.3e}, gradients {e_g:.3e}, BN "
+                    f"{e_s:.3e} from the plain step")
+            remats[fused] = (mr, c_r, e_loss, e_g, e_s, peak_r)
+    finally:
+        config.set_fused_dw(True)
+    step_ms, _ = time_routes(config, {f: steps[f][0]._trainer
+                                      for f in (True, False)}, xt, yt)
+    remat_ms, _ = time_routes(config, {f: remats[f][0]._trainer
+                                       for f in (True, False)}, xt, yt)
+    # a profiler window of 3 K2-route steps, written as a trace
+    tr = steps[True][0]._trainer
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp) as prof:
+            for i in range(3):
+                tr.train_on_batch(xt[16 * i:16 * i + 16], yt[16 * i:16 * i + 16])
+        trace_mb = os.path.getsize(prof.trace_path) / 1e6
+        with open(prof.trace_path) as f:
+            events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
+    scopes = [f"{type(m).__name__}_{key}" for key, m in model.layers.items()]
+    missing = [sc for sc in scopes if sc not in names]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    ours = {nm: sum(nm in e["name"] for e in kern) for nm in (
+        "strips_kernel", "stencil_conv_kernel", "stencil_bwd_kernel")}
+    if missing or not all(ours.values()):
+        raise AssertionError(f"the trace lacks the layer scopes {missing} or "
+                             f"the kernels' launches {ours}")
+    busy = sum(e.get("dur", 0) for e in events if e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")) / 1e3 / 3
+    # host ms a step inside each layer's scope (its forward; the backward
+    # runs outside the scopes), the largest first
+    layer_ms = {sc: sum(e.get("dur", 0) for e in events
+                        if e.get("name") == sc) / 1e3 / 3 for sc in scopes}
+    top_layers = sorted(layer_ms.items(), key=lambda kv: -kv[1])[:5]
+    say("knn", f"one train_on_batch of 16 maps (float64 CPU step "
+        f"{cpu_s:.1f} s): K2 route launched {steps[True][1]}, loss rel "
+        f"{steps[True][2]:.2e}, gradients {steps[True][3]:.2e}, BN "
+        f"{steps[True][4]:.2e}; K1+K3 route launched {steps[False][1]}, loss "
+        f"rel {steps[False][2]:.2e}, gradients {steps[False][3]:.2e}, BN "
+        f"{steps[False][4]:.2e}; ms per step (median of 10, routes "
+        f"alternating): K2 {step_ms[True]:.3f}, K1+K3 {step_ms[False]:.3f}; "
+        f"trace of 3 K2-route steps ({trace_mb:.1f} MB): all {len(scopes)} "
+        f"layer scopes, kernel events {ours}, device busy {busy:.3f} ms per "
+        f"step = {busy / step_ms[True]:.1%} of the unprofiled step; host ms "
+        f"a step in the largest layer scopes (forward) "
+        + ", ".join(f"{sc} {ms:.3f}" for sc, ms in top_layers)
+        + f" on {card}")
+    say("remat", f"remat=True: K2 route launched {remats[True][1]}, K1+K3 "
+        f"{remats[False][1]} (the forward's K4 and K1 once more a step); "
+        f"against the plain step on the card: loss "
+        f"{max(remats[f][2] for f in remats):.2e}, gradients "
+        f"{max(remats[f][3] for f in remats):.2e}, BN "
+        f"{max(remats[f][4] for f in remats):.2e}; peak bytes over the "
+        f"model's during a step: plain K2 {steps[True][5]:,} / K1+K3 "
+        f"{steps[False][5]:,}, remat K2 {remats[True][5]:,} / K1+K3 "
+        f"{remats[False][5]:,}; ms per step: remat K2 {remat_ms[True]:.3f}, "
+        f"K1+K3 {remat_ms[False]:.3f} against {step_ms[True]:.3f} / "
+        f"{step_ms[False]:.3f} on {card}")
+    out.update(step_ms=step_ms, remat_ms=remat_ms, busy_ms=busy,
+               layer_ms=dict(top_layers),
+               peak={"plain": {f: steps[f][5] for f in steps},
+                     "remat": {f: remats[f][5] for f in remats}})
+    knn_paths = [srv, steps[True][1], steps[False][1]]
+    remat_paths = [remats[True][1], remats[False][1]]
+    del steps, remats, init, tr
+
+    # (d) the k=20 kNN graph's Chebyshev K=10 conv, 8 -> 16 channels, batch
+    # 16, NEST: the radius-3 capture window, one L~ application a launch
+    K, B, Fin, Fout = 10, 16, 8, 16
+    st20 = graphs[20].face_stencil(0.75)
+    tab20 = as_tensors(stencil_tables(st20), dev)
+    if (st20.radius, st20.n_steps) != (3, 3) or tst.conv_route(
+            st20, "cheby", K, True) != "chain":
+        raise AssertionError("the k=20 kNN conv does not take the lap chain")
+    x20 = torch.from_numpy(rng.normal(size=(B, npix, Fin)).astype(np.float32)).to(dev)
+    k20 = torch.from_numpy((rng.normal(size=(Fin * K, Fout))
+                            / np.sqrt(Fin * K)).astype(np.float32)).to(dev)
+    cot20 = torch.from_numpy(rng.normal(size=(B, npix, Fout)).astype(np.float32)).to(dev)
+    chain = lambda a, w: stencil_graph_conv(st20, a, w, K, "cheby",
+                                            tables=tab20, layout="nest")
+    plain = lambda a, w: tst._per_step(st20, a, w, K, "cheby", tab20, "nest")
+    with torch.no_grad():
+        y_c, fwd20, rt20 = counted(lambda: chain(x20, k20))
+        y_p = plain(x20, k20)
+    e20 = rel_err(y_c, y_p)
+    if fwd20 != chain_launches(K - 1) or rt20["lap_chain"] != 1 or not (
+            e20 <= TOL):
+        raise AssertionError(f"k=20 kNN chain forward launched {fwd20}, "
+                             f"routes {rt20}, rel err {e20:.3e}")
+    xl = x20.clone().requires_grad_()
+    kl = k20.clone().requires_grad_()
+    dx_p, dk_p = torch.autograd.grad(plain(xl, kl), (xl, kl), cot20)
+    bwd20 = {}
+    try:
+        for fused in (True, False):
+            config.set_fused_dw(fused)
+            (dx_c, dk_c), c, r = counted(lambda: torch.autograd.grad(
+                chain(xl, kl), (xl, kl), cot20))
+            e_dx, e_dk = rel_err(dx_c, dx_p), rel_err(dk_c, dk_p)
+            if c != chain_launches(K - 1, fused) or r["lap_chain"] != 1 or \
+                    not (e_dx <= TOL and e_dk <= DW_TOL):
+                raise AssertionError(
+                    f"k=20 kNN chain fwd + bwd fused_dw={fused}: launched "
+                    f"{c}, routes {r}, dx rel {e_dx:.3e}, dW rel {e_dk:.3e}")
+            bwd20[fused] = (c, e_dx, e_dk)
+    finally:
+        config.set_fused_dw(True)
+    with torch.no_grad():
+        ms_chain = cuda_ms(lambda: chain(x20, k20), iters=5, warmup=1)
+        ms_plain = cuda_ms(lambda: plain(x20, k20), iters=5, warmup=1)
+    say("knn chain", f"k=20 kNN graph nside {nside}, Chebyshev K={K}, B={B}, "
+        f"{Fin} -> {Fout}, NEST: route chain, a forward launched {fwd20}, "
+        f"rel err vs the per-step path {e20:.2e}; fwd + bwd K2 route launched "
+        f"{bwd20[True][0]} (dx {bwd20[True][1]:.2e}, dW {bwd20[True][2]:.2e}),"
+        f" K1+K3 route {bwd20[False][0]} (dx {bwd20[False][1]:.2e}, dW "
+        f"{bwd20[False][2]:.2e}); forward {ms_chain:.3f} ms on the chain, "
+        f"{ms_plain:.3f} ms per step (CUDA events) on {card}")
+    out.update(chain_ms=ms_chain, chain_plain_ms=ms_plain)
+    knn_paths += [fwd20, bwd20[True][0], bwd20[False][0]]
+    del x20, k20, cot20, xl, kl, dx_p, dk_p, y_c, y_p, tab20
+
+    # (e) the trained filters of conv 1 on the card against the CPU model's
+    pix = [0, 100, 1000]
+    banks = model.get_filters(0)
+    if banks[0].device.type != "cuda":
+        raise AssertionError(f"the filter bank lives on {banks[0].device}")
+    loc = banks[0].localize(pix)
+    loc_cpu = cpu.get_filters(0)[0].localize(pix)
+    e_loc = float(np.abs(loc - loc_cpu).max() / np.abs(loc_cpu).max())
+    if loc.shape != (3, 1, 8, npix) or not e_loc <= 1e-5:
+        raise AssertionError(f"localized filters {loc.shape} rel {e_loc:.3e} "
+                             "from the CPU")
+    say("filters", f"get_filters(0)[0].localize({pix}) on the card: "
+        f"{loc.shape}, rel {e_loc:.2e} from the CPU model's")
+
+    def total(counts):
+        s = dict(zero)
+        for c in counts:
+            for k, v in c.items():
+                s[k] += v
+        return s
+
+    del model, cpu
+    return {"knn": total(knn_paths), "remat": total(remat_paths)}, out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -2510,6 +2883,10 @@ def main():
     path_launches["export"], export_times = export_phase(
         dt, hp_nn, rng, card, serve_ms, family["ae_fwd_ms"])
     export_times["dispatch"] = dispatch_cost(dt, hp_nn, card)
+    # 14. the reference's kNN graph, a TF2 checkpoint's weights, remat,
+    # the profiler's layer scopes and the filters
+    knn_paths, knn_times = knn_phase(dev, card, rng)
+    path_launches.update(knn_paths)
 
     # main-path kernel times: the quick_start convs' three shapes summed
     path_launches["quick_start_train"] = train_launches
@@ -2554,7 +2931,7 @@ def main():
     ]
     say("paths", f"launches by path: {path_launches}; lap chain times "
         f"{chain_times}; family {family}; smoothing and kitchen sink "
-        f"{slice_times}; export {export_times}")
+        f"{slice_times}; export {export_times}; knn {knn_times}")
     for kname, rows in results.items():
         for r in rows:
             if r[0].startswith("headline"):

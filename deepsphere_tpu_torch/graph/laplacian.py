@@ -3,7 +3,7 @@
 TPU-native replacement for the reference's external graph backend, the pygsp
 fork's ``SphereHealpix(subdivisions, indexes, nest, k, lap_type)`` consumed at
 ``deepsphere-cosmo-tf2 src/deepsphere/healpy_networks.py:110-118``.  All of this is
-host-side precompute (numpy/scipy/sklearn); the result is a set of static,
+host-side precompute (numpy/scipy); the result is a set of static,
 TPU-friendly padded arrays:
 
 * ``ell_idx`` (M, W) int32 and ``ell_val`` (M, W) float32 — the rescaled
@@ -215,10 +215,37 @@ def _grid_ring_adjacency(nside, indices, k, kernel_width=None,
     return W, kernel_width
 
 
+def _knn_neighbours(coords, k, margin=8):
+    """Each point's ``k`` nearest other points, by chord distance.
+
+    ``scipy.spatial.cKDTree`` gives the same float64 distances as sklearn's
+    ``NearestNeighbors``, which the JAX package uses.  HEALPix's symmetries
+    make the k-th and (k+1)-th distances tie exactly in some rows; there
+    sklearn's pick follows its tree traversal, and this one keeps the lower
+    pixel index.  So ``k + 1 + margin`` candidates are sorted by (distance,
+    index), the margin widened until the last candidate lies beyond the
+    k-th distance of every row.
+
+    :return: (distances (n, k) float64, indices (n, k) int64), self excluded
+    """
+    from scipy.spatial import cKDTree
+
+    n = coords.shape[0]
+    tree = cKDTree(coords)
+    while True:
+        kq = min(k + 1 + margin, n)
+        d, idx = tree.query(coords, k=kq)
+        d, idx = d.reshape(n, kq), idx.reshape(n, kq).astype(np.int64)
+        if kq == n or np.all(d[:, -1] > d[:, k]):
+            break
+        margin = max(2 * margin, 8)
+    order = np.lexsort((idx, d), axis=1)[:, 1:k + 1]  # self first, dropped
+    return np.take_along_axis(d, order, axis=1), np.take_along_axis(
+        idx, order, axis=1)
+
+
 def _knn_adjacency(coords, k, kernel_width=None, width_ratio=None):
     """Gaussian-weighted symmetric kNN adjacency from 3D unit vectors."""
-    from sklearn.neighbors import NearestNeighbors
-
     n = coords.shape[0]
     k_eff = min(k, n - 1)
     if k_eff < k:
@@ -226,10 +253,7 @@ def _knn_adjacency(coords, k, kernel_width=None, width_ratio=None):
             f"WARNING: graph has only {n} vertices; kNN degree reduced "
             f"from k={k} to {k_eff} (check nside/indices if unexpected)"
         )
-    nn = NearestNeighbors(n_neighbors=k_eff + 1).fit(coords)
-    dist, idx = nn.kneighbors(coords)
-    dist = dist[:, 1:]  # drop self
-    idx = idx[:, 1:]
+    dist, idx = _knn_neighbours(np.asarray(coords, dtype=np.float64), k_eff)
 
     if kernel_width is None:
         kernel_width = float(np.mean(dist)) * (width_ratio or 1.0)

@@ -28,11 +28,13 @@ a ``torch.export`` artifact (:mod:`deepsphere_tpu_torch.serve`).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._logger import logger
 from ..graph import build_sphere_graph
@@ -42,12 +44,19 @@ from ..nn.healpy_layers import (
     HealpyPseudoConv_Transpose,
     _DeferredLayer,
 )
+from ..nn.layers import frozen_running_stats
 from ..nn.transformers import GraphViT
 from ..sphere import healpix as hp
 from ..sphere.indexing import check_indices_consistent, transform_indices
 from ..utils.summary import count_params, format_summary
 
 __all__ = ["HealpyGCNN"]
+
+
+def _remat_contexts():
+    """A checkpointed layer's contexts: its forward as it is; its
+    recompute in the backward with the running statistics frozen."""
+    return contextlib.nullcontext(), frozen_running_stats()
 
 
 def _layer_display_name(layer, counters):
@@ -96,8 +105,12 @@ class HealpyGCNN(nn.Module):
         (when it divides the 12 faces), the other graph convs on the
         halo-sharded ELLPACK, and a transformer's edge attention runs
         pixel-sharded where the pixel count divides over the pixel axis
-    :param remat: rematerialization is not ported yet; True raises
-        ``NotImplementedError``
+    :param remat: checkpoint every layer in training
+        (``torch.utils.checkpoint``, non-reentrant): the backward recomputes
+        each layer's activations instead of storing them — one extra
+        forward of work for O(1) activation memory, the trade for training
+        deep stacks at large nside.  Batch norms update their running
+        statistics once a step (not again in the recompute)
     :param graph_method: "auto" (grid/ring graph where a template exists),
         "grid" or "knn"
     :param internal_layout: "auto" (cface/face planning) or "nest"
@@ -128,15 +141,12 @@ class HealpyGCNN(nn.Module):
                 f"The requested number of neighbors {n_neighbors} is nor supported. "
                 f"Choose either 8, 20, 40 or 60."
             )
-        if remat:
-            raise NotImplementedError(
-                "remat: rematerialization is not ported yet")
-
         self.nside_in = nside
         self.indices_in = np.asarray(indices, dtype=np.int64)
         self.layers_in = list(layers)
         self.n_neighbors = n_neighbors
         self.shard_cfg = shard_cfg
+        self.remat = bool(remat)
         self.max_batch_size = max_batch_size
         self._graph_cache_dir = graph_cache_dir
         self._kernel_width = kernel_width
@@ -439,8 +449,23 @@ class HealpyGCNN(nn.Module):
         return self.graphs[key]
 
     def forward(self, x):
+        """The layers in order.  Each runs under a ``torch.profiler``
+        scope named ``{class}_{key}`` (the JAX package's ``named_scope``
+        names) while a profiler records, so per-layer costs show in its
+        traces; with ``remat`` a training forward under autograd
+        checkpoints each layer."""
+        remat = self.remat and self.training and torch.is_grad_enabled()
+        scoped = torch.autograd._profiler_enabled()
         for key in self.order:
-            x = self.layers[key](x)
+            layer = self.layers[key]
+            with (torch.profiler.record_function(
+                    f"{type(layer).__name__}_{key}") if scoped
+                  else contextlib.nullcontext()):
+                if remat:
+                    x = checkpoint(layer, x, use_reentrant=False,
+                                   context_fn=_remat_contexts)
+                else:
+                    x = layer(x)
         return x
 
     def build(self, input_shape, seed=0, device=None):
@@ -531,6 +556,140 @@ class HealpyGCNN(nn.Module):
                 hk.remove()
         return shapes
 
+    # ------------------------------------------------------------------
+    # filter extraction + visualization
+    # (parity with healpy_networks.py:190-385; pygsp replaced by
+    #  viz.SphericalFilterBank over the layer's own graph)
+    # ------------------------------------------------------------------
+
+    def _resolve_conv_layer(self, layer):
+        """Layer spec (index or display name) -> (index, layer instance)."""
+        if isinstance(layer, int):
+            idx = layer
+        elif isinstance(layer, str):
+            if layer not in self.layer_names:
+                raise ValueError(f"No such layer: {layer}. Layers: {self.layer_names}")
+            idx = self.layer_names.index(layer)
+        else:
+            raise ValueError("layer should be either string or int.")
+        return idx, self.layers_use[idx]
+
+    @staticmethod
+    def _coeffs_from_kernel(kernel, K, ind_in=None, ind_out=None):
+        """(Fin*K, Fout) kernel -> (K, Fout, Fin) coefficients — the reshape
+        and slicing semantics of ``_get_filter_coeffs``
+        (healpy_networks.py:190-212)."""
+        kernel = np.asarray(kernel)
+        Fout = kernel.shape[-1]
+        coeffs = kernel.reshape((-1, K, Fout)).transpose([1, 2, 0])
+        if ind_in is not None:
+            coeffs = coeffs[:, :, np.atleast_1d(ind_in)]
+        if ind_out is not None:
+            coeffs = coeffs[:, np.atleast_1d(ind_out), :]
+        return coeffs
+
+    def get_filters(self, layer, ind_in=None, ind_out=None, return_weights=False):
+        """Trained filters of a Chebyshev (or residual-of-Chebyshev) layer as
+        :class:`~deepsphere_tpu_torch.viz.SphericalFilterBank` objects on
+        the model's device (the ``get_gsp_filters`` analogue,
+        healpy_networks.py:214-289).
+
+        :param layer: layer index or display name
+        :param return_weights: return the raw (K, Fout, Fin) coeff arrays
+        :return: list of filter banks (two for a residual layer)
+        """
+        from ..nn.layers import ChebyshevConv, ResidualLayer
+        from ..viz import SphericalFilterBank
+
+        if self._built_input_shape is None:
+            raise ValueError("Build the model first (model.build(input_shape)).")
+        idx, lyr = self._resolve_conv_layer(layer)
+
+        if isinstance(lyr, ResidualLayer):
+            if lyr.layer_type != "CHEBY":
+                raise ValueError(
+                    f"The requested layer ({layer}) is a residual layer of type "
+                    f"{lyr.layer_type}; only CHEBY residual layers are supported..."
+                )
+            K = dict(lyr.layer_kwargs or {}).get("K")
+            kernels = [lyr.layer1.kernel, lyr.layer2.kernel]
+            graph = lyr.graph
+        elif isinstance(lyr, ChebyshevConv):
+            K = lyr.K
+            kernels = [lyr.kernel]
+            graph = lyr.graph
+        else:
+            raise ValueError(
+                f"The requested layer ({layer}) is of type {type(lyr).__name__}, "
+                f"but only ChebyshevConv or ResidualLayer layers (with CHEBY "
+                f"sublayers) are supported..."
+            )
+
+        weights = [self._coeffs_from_kernel(k.detach().cpu().numpy(), K,
+                                            ind_in, ind_out)
+                   for k in kernels]
+        if return_weights:
+            return weights
+        dev = kernels[0].device
+        return [SphericalFilterBank(graph, w, kind="cheby", device=dev)
+                for w in weights]
+
+    # pygsp-era name kept for drop-in compatibility
+    get_gsp_filters = get_filters
+
+    def plot_chebyshev_coeffs(self, layer, ind_in=None, ind_out=None, ax=None,
+                              title="Chebyshev coefficients - layer {}"):
+        """Scatter the Chebyshev coefficients of a layer
+        (healpy_networks.py:291-310)."""
+        import matplotlib.pyplot as plt
+
+        weights = self.get_filters(layer, ind_in, ind_out, return_weights=True)
+        if ax is None:
+            ax = plt.gca()
+        for weight in weights:
+            K, Fout, Fin = weight.shape
+            ax.plot(weight.reshape((K, Fin * Fout)), ".")
+            ax.set_title(title.format(layer))
+        return ax
+
+    def plot_filters_spectral(self, layer, ind_in=None, ind_out=None, ax=None, **kwargs):
+        """Spectral response of a layer's filters
+        (healpy_networks.py:312-329)."""
+        import matplotlib.pyplot as plt
+
+        banks = self.get_filters(layer, ind_in=ind_in, ind_out=ind_out)
+        if ax is None:
+            ax = plt.gca()
+        for bank in banks:
+            x = np.linspace(-bank.scale, bank.scale, 200)
+            resp = bank.evaluate(x)  # (Fout, Fin, n_x)
+            # plot in the unrescaled eigenvalue domain [0, lmax]
+            lam = (x / bank.scale + 1.0) * bank.graph.lmax / 2.0
+            for fo in range(resp.shape[0]):
+                for fi in range(resp.shape[1]):
+                    ax.plot(lam, resp[fo, fi], **kwargs)
+            ax.set_xlabel(r"$\lambda$")
+            ax.set_ylabel(r"$\hat{g}(\lambda)$")
+        return ax
+
+    def plot_filters_section(self, layer, ind_in=None, ind_out=None, **kwargs):
+        """Equator cross-sections of a layer's localized filters
+        (healpy_networks.py:331-357)."""
+        from ..viz import plot_filters_section as _pfs
+
+        banks = self.get_filters(layer, ind_in=ind_in, ind_out=ind_out)
+        order = banks[0].K
+        return [_pfs(bank, order=order, **kwargs) for bank in banks]
+
+    def plot_filters_gnomonic(self, layer, ind_in=None, ind_out=None, **kwargs):
+        """Gnomonic views of a layer's localized filters
+        (healpy_networks.py:359-385)."""
+        from ..viz import plot_filters_gnomonic as _pfg
+
+        banks = self.get_filters(layer, ind_in=ind_in, ind_out=ind_out)
+        order = banks[0].K
+        return [_pfg(bank, order=order, **kwargs) for bank in banks]
+
     def _predict(self, x, batch_size=16):
         if self._built_input_shape is None:
             raise ValueError("Build the model first (model.build(input_shape)).")
@@ -610,6 +769,16 @@ class HealpyGCNN(nn.Module):
         dev = next(self.parameters()).device
         self.load_state_dict(torch.load(path, map_location=dev), strict=True)
         return self
+
+    def load_weights_from_reference(self, path):
+        """Import a checkpoint written by the TF2 reference's
+        ``HealpyGCNN.save_weights('*.weights.h5')`` — the reference's
+        deployment unit (``tests/test_healpy_networks.py:133-152``) — into
+        this (built) model, on its device.  See
+        :func:`deepsphere_tpu_torch.train.import_keras_h5` (needs h5py)."""
+        from ..train.import_ref import import_keras_h5
+
+        return import_keras_h5(path, self)
 
     # ------------------------------------------------------------------
     # serving export (torch.export artifact)

@@ -34,6 +34,7 @@ through :func:`deepsphere_tpu_torch.interop.load_jax_variables`.
 
 from __future__ import annotations
 
+import contextlib
 from typing import ClassVar
 
 import numpy as np
@@ -207,6 +208,23 @@ def _normalize(module, x, mean, var, shape):
     return y
 
 
+# >0 while checkpointed layers recompute their forward in the backward
+_RECOMPUTING = [0]
+
+
+@contextlib.contextmanager
+def frozen_running_stats():
+    """Batch norms normalise with the batch's statistics as in training but
+    leave their running statistics alone: the recompute of a checkpointed
+    layer (``HealpyGCNN(remat=True)``), whose forward updated them once,
+    as flax's ``nn.remat`` does."""
+    _RECOMPUTING[0] += 1
+    try:
+        yield
+    finally:
+        _RECOMPUTING[0] -= 1
+
+
 class _BatchNorm(nn.Module):
     """flax ``nn.BatchNorm`` semantics on (..., F): running = momentum x
     running + (1 - momentum) x batch, biased batch variance E[x^2] - E[x]^2
@@ -254,10 +272,11 @@ class _BatchNorm(nn.Module):
     def forward(self, x):
         if self.training:
             mean, var = self._stats(x)
-            with torch.no_grad():
-                m = self.momentum
-                self.mean.mul_(m).add_((1 - m) * mean)
-                self.var.mul_(m).add_((1 - m) * var)
+            if not _RECOMPUTING[0]:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.mean.mul_(m).add_((1 - m) * mean)
+                    self.var.mul_(m).add_((1 - m) * var)
         else:
             mean, var = self.mean, self.var
         shape = self._shape(x)

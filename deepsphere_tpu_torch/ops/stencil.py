@@ -636,3 +636,22 @@ def cface_extract(x5, h):
     B, Fc, faces, n, _ = x5.shape
     xi = x5[:, :, :, :, h : h + n].reshape(B, Fc, faces * n * n)
     return xi.permute(0, 2, 1)
+
+
+def stencil_basis_stack(st: FaceStencil, kind, x2d, n_terms, tables=None):
+    """Basis stack in NEST order, shape (n_terms, M, C) — the stencil-path
+    analogue of ``spmv.chebyshev_basis`` & co., for tests and parity checks
+    (the filter tooling's impulse responses): ``n_terms`` per-step
+    applications of :func:`stencil_matvec`, on the device of ``x2d``."""
+    from .layout import face_to_nest, nest_to_face
+
+    n = st.nside
+    M, C = x2d.shape
+    tables = _tables_for(tables, st, x2d.device)
+    xf = nest_to_face(x2d).reshape(12, n, n, C)
+    matvec = lambda t: stencil_matvec(st, tables, t)
+    terms = [
+        face_to_nest(t.reshape(M, C))
+        for t in _term_stream(kind, matvec, xf, n_terms)
+    ]
+    return torch.stack(terms, dim=0)

@@ -433,6 +433,51 @@ def test_k60_model_takes_the_per_step_route(rng, dev):
         _close(g_c[name], g_p[name], 1e-4)
 
 
+@pytest.mark.parametrize("fused_dw", [True, False])
+def test_knn_model_matches_the_cpu(rng, dev, fused_dw):
+    """``HealpyGCNN(graph_method="knn")`` at nside 32, k=8 (the reference's
+    graph, built without sklearn): conv 1, Chebyshev K=5, runs in cface on
+    the kNN deep stencil (radius-2 capture, h=8, corner rows recomputed
+    from the ball) through K4 and K1 forward and K2 or K1 + K3 backward;
+    logits and the gradients of a fixed cotangent match the same model on
+    the CPU to 1e-4."""
+    nside = 32
+    npix = 12 * nside * nside
+    layers = [hp_nn.HealpyChebyshev(K=5, Fout=4, activation="relu"),
+              hp_nn.HealpyPool(p=1),
+              hp_nn.HealpyChebyshev(K=5, Fout=6, activation="relu"),
+              hp_nn.HealpyPool(p=1), hp_nn.Flatten(), hp_nn.Dense(3)]
+    cpu = dt.HealpyGCNN(nside, np.arange(npix), layers, n_neighbors=8,
+                        graph_method="knn").build((2, npix, 1), seed=4,
+                                                  device="cpu")
+    assert all(g.method == "knn" for g in cpu.graphs.values())
+    card = copy.deepcopy(cpu).to(dev)
+    x = torch.from_numpy(rng.normal(size=(2, npix, 1)).astype(np.float32))
+    cot = torch.from_numpy(rng.normal(size=(2, 3)).astype(np.float32))
+    config.set_fused_dw(fused_dw)
+    out = {}
+    for m, d in ((card, dev), (cpu, torch.device("cpu"))):
+        _cuda.reset_launch_counts()
+        y = m(x.to(d))
+        y.backward(cot.to(d))
+        out[d.type] = (y.detach().cpu(), {n: p.grad.cpu()
+                                          for n, p in m.named_parameters()})
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            c = dict(_cuda.launch_counts)
+            # conv 1: K4 + K1 forward; backward K4 on dy + K2, or K3 on
+            # x's strips (its input needs no dx)
+            want = ({"strips": 2, "stencil_conv": 1, "dxdw": 1, "grad": 0}
+                    if fused_dw else
+                    {"strips": 1, "stencil_conv": 1, "dxdw": 0, "grad": 1})
+            assert c == {**want, "bands": 0}, c
+            assert not any(_cuda.route_counts.values())
+    (y_c, g_c), (y_p, g_p) = out["cuda"], out["cpu"]
+    _close(y_c, y_p, 1e-4)
+    for name in g_p:
+        _close(g_c[name], g_p[name], 1e-4)
+
+
 def test_cface_conv_raises_before_launch_where_a_kernel_has_no_plan(rng,
                                                                     dev):
     """k=20 grid at K=11 (radius 2, h=20), batch 1, 2048 -> 2048 channels:

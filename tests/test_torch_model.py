@@ -456,3 +456,55 @@ def test_get_layer_and_param_key_match_jax():
 
     assert err(tm, name="conv") == err(jm, name="conv")
     assert err(tm) == err(jm) == "Provide a layer name or index."
+
+
+def test_profiler_trace_holds_each_layer_scope(tmp_path):
+    """``utils.profiling.trace`` writes a Chrome trace in which every layer
+    of the model's loop has its scope, named ``{class}_{key}`` as the JAX
+    package's ``named_scope``s; outside a profiler no scope is opened."""
+    import json
+
+    from deepsphere_tpu_torch.utils import timed_block, trace
+
+    n = 8
+    npix = 12 * n * n
+    tm = dt.HealpyGCNN(n, np.arange(npix), [
+        thp.HealpyChebyshev(K=3, Fout=2, use_bn=True), thp.HealpyPool(p=1),
+        thp.HealpyMonomial(K=2, Fout=3), thp.Flatten(), thp.Dense(3)]).build(
+        (2, npix, 1), device="cpu")
+    x = torch.randn(2, npix, 1)
+    with trace(str(tmp_path)) as prof:
+        with timed_block("forward", sync=x):
+            tm(x)
+    with open(prof.trace_path) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    scopes = [f"{type(m).__name__}_{key}" for key, m in tm.layers.items()]
+    assert "NestToCface_nesttocface_0" in scopes
+    assert all(s in names for s in scopes), set(scopes) - names
+    assert os.path.dirname(prof.trace_path) == str(tmp_path)
+
+
+def test_export_keeps_its_kernel_nodes_with_the_scopes(tmp_path):
+    """The quick_start classifier exported while a profiler records has the
+    same graph as exported without one: the layer scopes stay out of the
+    artifact, and its ``stencil_conv`` and ``strips`` nodes are one each
+    per cface conv (conv 1 at nside 16)."""
+    from deepsphere_tpu_torch.serve.export import ExportedModel
+    from deepsphere_tpu_torch.utils import trace
+
+    n = 16
+    npix = 12 * n * n
+    tm = dt.HealpyGCNN(n, np.arange(npix), _quick_start(thp)).build(
+        (2, npix, 1), device="cpu")
+    n_cface = sum(getattr(m, "layout", None) == "cface" and hasattr(m, "graph")
+                  for m in tm.layers.values())
+    plain = tm.export_inference(batch_size=2)
+    with trace(str(tmp_path)):
+        scoped = tm.export_inference(batch_size=2)
+    counts = [ExportedModel(p).op_counts() for p in (plain, scoped)]
+    assert counts[0] == counts[1] == {"strips": n_cface,
+                                      "stencil_conv": n_cface}
+    assert n_cface >= 1
+    targets = [[str(nd.target) for nd in p.graph.nodes] for p in (plain, scoped)]
+    assert targets[0] == targets[1]
+    assert not any("profiler" in t for t in targets[1])

@@ -444,3 +444,65 @@ def test_port_reads_no_path_under_the_jax_package():
                     and id(node) not in docs):
                 s = node.value.replace("\\", "/")
                 assert s != "deepsphere_tpu" and "deepsphere_tpu/" not in s, (path, s)
+
+
+@pytest.mark.parametrize("fused_dw", [True, False])
+def test_remat_step_matches_plain(rng, monkeypatch, fused_dw):
+    """``remat=True`` (each layer checkpointed, its forward recomputed in
+    the backward) is a pure memory/work trade, as in the JAX package
+    (``tests/test_networks.py::test_remat_model_matches_plain``): after two
+    ``train_on_batch`` steps the losses, the gradients, the parameters and
+    the BN running statistics equal the plain model's, which holds only if
+    the recompute leaves the statistics alone (flax's ``nn.remat`` updates
+    them once a step).  The parameter trees are the same, and a cface conv
+    runs its forward kernels' plain versions twice a step."""
+    n = 8
+    npix = 12 * n * n
+
+    def layers():
+        return [thp.HealpyChebyshev(K=5, Fout=6, activation="relu", use_bn=True),
+                thp.HealpyPool(p=1, pool_type="AVG"),
+                thp.HealpyMonomial(K=3, Fout=4, activation="elu", use_bn=True),
+                thp.Flatten(), thp.Dense(3)]
+
+    plain = dt.HealpyGCNN(n, np.arange(npix), layers()).build(
+        (4, npix, 1), seed=2, device="cpu")
+    remat = dt.HealpyGCNN(n, np.arange(npix), layers(), remat=True).build(
+        (4, npix, 1), seed=2, device="cpu")
+    assert remat.remat and not plain.remat
+    assert list(plain.state_dict()) == list(remat.state_dict())
+    x = rng.normal(size=(8, npix, 1)).astype(np.float32)
+    y = rng.randint(0, 3, size=8)
+    config.set_fused_dw(fused_dw)
+    try:
+        for m in (plain, remat):
+            m.compile(optimizer=1e-3, loss=_LOSS)
+        calls = {}
+        orig = tfs.fused_stencil_conv_cfp
+        for m in (plain, remat):
+            def counting(*a, _key=m.remat, **kw):
+                calls[_key] = calls.get(_key, 0) + 1
+                return orig(*a, **kw)
+
+            monkeypatch.setattr(tfs, "fused_stencil_conv_cfp", counting)
+            m.logs = [m._trainer.train_on_batch(x[4 * i:4 * i + 4],
+                                                y[4 * i:4 * i + 4])
+                      for i in range(2)]
+    finally:
+        config.set_fused_dw(True)
+    assert [lg["loss"] for lg in plain.logs] == [lg["loss"] for lg in remat.logs]
+    for a, b in ((export_jax_variables(plain, grads=True),
+                  export_jax_variables(remat, grads=True)),
+                 (export_jax_variables(plain), export_jax_variables(remat))):
+        for u, w in zip(jax.tree_util.tree_leaves(a),
+                        jax.tree_util.tree_leaves(b)):
+            assert np.array_equal(u, w)
+    # one cface conv: one forward a step, and one recompute with remat
+    assert calls == {False: 2, True: 4}
+    # in eval, and without autograd, nothing is checkpointed
+    remat.eval()
+    with torch.no_grad():
+        a = remat(torch.from_numpy(x[:4]))
+    plain.eval()
+    with torch.no_grad():
+        assert torch.equal(a, plain(torch.from_numpy(x[:4])))
