@@ -140,7 +140,8 @@ Phases, one result line each (with the elapsed seconds):
    implementation called directly, and the quick_start train step with the
    ops against with their implementations called directly, in turns;
 14. the TF2 user's path on the reference's kNN graph: (a) the kNN graphs
-   of nside 64 at k=8 and k=20 built on the host (``scipy``'s cKDTree;
+   of nside 64 at k=8 and k=20 built on the host (``scipy``'s cKDTree and
+   a replay of sklearn's tree in the tied rows, ``graph/kdtree.py``;
    sklearn is never imported), with their seconds; (b) quick_start at full
    width on the k=8 kNN graph (``graph_method="knn"``, batch 16), its
    weights loaded from a reference checkpoint's group tree made from
@@ -148,10 +149,12 @@ Phases, one result line each (with the elapsed seconds):
    ``import_keras_h5`` without the file), each conv's route printed (conv
    1 in cface on the kNN deep stencil, h=18, its corner correction
    recomputing rows from the ball; convs 2-4 per step), 4 requests of 16
-   maps (one K4 and one K1 a request) against a CPU copy loaded from the
-   same tree (1e-4), one ``train_on_batch`` on each backward route against
-   a float64 CPU step (loss 1e-5, gradients 1e-3, BN 1e-5), ms per step
-   with the routes alternating, and a profiler window of 3 steps written
+   maps (one K4 and one K1 a request), all 64 logits against a CPU copy
+   loaded from the same tree (1e-4), one ``train_on_batch`` on each
+   backward route against a float64 CPU step that takes the card step's
+   max-pool and ReLU decisions (loss 1e-5, gradients 1e-3, BN 1e-5; where
+   float64's own picks differ is printed), ms per step with the routes
+   alternating, and a profiler window of 3 steps written
    by ``utils.profiling.trace`` (every layer's scope and the kernels'
    launches in the trace; the device-busy share); (c) the same model with
    ``remat=True``, one step on each route: loss, gradients and BN
@@ -174,10 +177,11 @@ and bound, and finally
 non-zero and prints no result line.  It needs one card, never falls back to
 the CPU, and imports no JAX.
 
-Two other modes measure only:
+Three other modes measure only:
 
     python3 chip_smoke.py --kernel-times ROOT
     python3 chip_smoke.py --compare PARENT [OUT.json]
+    python3 chip_smoke.py --memory [OUT.json]
 
 and ``--replay ARTIFACT X.npy OUT_DIR B...`` is phase 13's serving
 process.
@@ -187,7 +191,10 @@ maps at the four phase-3 shapes, and the quick_start train step on both
 backward routes (as phase 5 does), with the package of the checkout ROOT;
 ``--compare`` runs it for the checkout PARENT (another commit, e.g.
 unpacked with ``git archive``) and this one in turns, parent, this, this,
-parent, and also writes the pairs to OUT.json.
+parent, and also writes the pairs to OUT.json.  ``--memory`` records the
+allocator through one train step of phase 14's kNN quick_start on each
+backward route, with and without remat, and sums the allocations live at
+the step's peak by the code that made them.
 """
 
 import atexit
@@ -635,6 +642,121 @@ def kernel_times(root):
     out["train_step"] = route_steps(dt, config, hp_nn)
     print(json.dumps(out["train_step"]), file=sys.stderr, flush=True)
     print(json.dumps(out), flush=True)
+
+
+def _peak_sites(snap, root, ours=("deepsphere_tpu_torch", "chip_smoke")):
+    """The allocations live at the peak of a recorded allocator trace
+    (``torch.cuda.memory._snapshot()``), counted from where the recording
+    began: (peak bytes, [(site, bytes, blocks)] largest first).  A site is
+    the innermost Python frame in this repo's code with its function, else
+    the innermost frame at all, else "no Python frame" (an op that the
+    autograd engine runs in C++)."""
+    cur = peak = 0
+    live, at_peak = {}, {}
+    for e in snap["device_traces"][0]:
+        if e["action"] == "alloc":
+            cur += e["size"]
+            live[e["addr"]] = e
+            if cur > peak:
+                peak, at_peak = cur, dict(live)
+        elif e["action"] == "free_requested":
+            cur -= e["size"]
+            live.pop(e["addr"], None)
+    sites = {}
+    for e in at_peak.values():
+        frames = e.get("frames") or []
+        mine = [f for f in frames if any(o in f["filename"] for o in ours)]
+        f = (mine or frames or [None])[0]
+        if f is None:
+            site = "no Python frame"
+        else:
+            fn = f["filename"]
+            fn = (os.path.relpath(fn, root) if fn.startswith(root)
+                  else os.path.basename(fn))
+            site = f"{fn}:{f['line']} {f['name']}"
+
+        b, n = sites.get(site, (0, 0))
+        sites[site] = (b + e["size"], n + 1)
+    return peak, sorted(((s, b, n) for s, (b, n) in sites.items()),
+                        key=lambda t: -t[1])
+
+
+def memory_report(out_path=None):
+    """``--memory [OUT.json]``: where the device memory of one train step
+    of quick_start on the k=8 kNN graph (nside 64, batch 16, phase 14's
+    model) peaks, on each backward route, with and without remat.  Each
+    setting takes two steps of a fresh copy; the allocator records the
+    second (Adam's state and the graph tables are then in place), and the
+    allocations live at its peak are summed by the code that made them.
+    Prints the table and writes it to ``out_path`` if given."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    import deepsphere_tpu_torch as dt
+    from deepsphere_tpu_torch import config
+    from deepsphere_tpu_torch.nn import healpy_layers as hp_nn
+    from deepsphere_tpu_torch.ops import _cuda
+
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    card = card_line()
+    _cuda.build()
+    _cuda.lib()
+    nside = 64
+    npix = 12 * nside * nside
+    init = dt.HealpyGCNN(nside, np.arange(npix), quick_start_layers(hp_nn),
+                         n_neighbors=8, graph_method="knn")
+    init.build((16, npix, 1), seed=41)
+    data = np.random.RandomState(43)
+    xt = data.normal(size=(32, npix, 1)).astype(np.float32)
+    yt = data.randint(0, 4, size=32)
+    rows = []
+    try:
+        for fused in (True, False):
+            for remat in (False, True):
+                config.set_fused_dw(fused)
+                m = copy.deepcopy(init)
+                m.remat = remat
+                m.compile(optimizer=1e-3,
+                          loss="sparse_categorical_crossentropy_from_logits")
+                peaks = []
+                for i in range(2):
+                    torch.cuda.synchronize()
+                    base = torch.cuda.memory_allocated(dev)
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    if i == 1:
+                        torch.cuda.memory._record_memory_history(
+                            enabled="all", context="all", stacks="python",
+                            max_entries=1_000_000)
+                    m._trainer.train_on_batch(xt[16 * i:16 * i + 16],
+                                              yt[16 * i:16 * i + 16])
+                    torch.cuda.synchronize()
+                    peaks.append(torch.cuda.max_memory_allocated(dev) - base)
+                snap = torch.cuda.memory._snapshot()
+                torch.cuda.memory._record_memory_history(enabled=None)
+                peak, sites = _peak_sites(snap, here)
+                row = {"fused_dw": fused, "remat": remat,
+                       "held_before_step": base, "peak_step1": peaks[0],
+                       "peak_step2": peaks[1], "peak_traced": peak,
+                       "sites": [{"site": s, "bytes": b, "blocks": n}
+                                 for s, b, n in sites[:12]]}
+                rows.append(row)
+                say("memory", f"{'K2' if fused else 'K1+K3'} route, remat="
+                    f"{remat}: peak over the bytes held before the step "
+                    f"{peaks[0]} (step 1), {peaks[1]} (step 2; traced "
+                    f"{peak}), {base} held; live at the peak:")
+                for s, b, n in sites[:12]:
+                    print(f"    {b:>12d} B in {n:>4d} blocks  {s}")
+                del m
+    finally:
+        config.set_fused_dw(True)
+    summary = {"card": card, "model": "quick_start, k=8 kNN graph, nside 64,"
+               " batch 16", "rows": rows}
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(summary, f, indent=1)
+    print(card)
+    print(json.dumps({"memory": [{k: r[k] for k in (
+        "fused_dw", "remat", "peak_step1", "peak_step2")} for r in rows]}))
 
 
 def compare(parent, out_path=None):
@@ -1804,6 +1926,76 @@ def reference_tree(model, seed):
     return tree
 
 
+def watch(model, rec):
+    """Forward hooks that record, in NEST order on the CPU, each max pool's
+    input under its key (the preceding conv's output after its ReLU) and
+    the output of the last conv that no pool follows: the decisions a
+    forward of ``model`` took.  Returns the hooks."""
+    from deepsphere_tpu_torch.ops.layout import face_to_nest
+    from deepsphere_tpu_torch.ops.stencil import cface_extract
+
+    def nest(x, layout, off):
+        if layout == "cface":
+            x = cface_extract(x, off)
+        return face_to_nest(x) if layout in ("cface", "face") else x
+
+    hooks = []
+    convs = [k for k in model.order if hasattr(model.layers[k], "n_terms")]
+    for k in model.order:
+        layer = model.layers[k]
+        if getattr(layer, "pool_type", None) == "MAX":
+            hooks.append(layer.register_forward_hook(
+                lambda mod, inp, out, k=k: rec.__setitem__(k, nest(
+                    inp[0].detach(), mod.layout, mod.cface_off).cpu())))
+    last = model.layers[convs[-1]]
+    if last.layout == "cface":
+        raise NotImplementedError("watch: the last conv runs in cface")
+    hooks.append(last.register_forward_hook(
+        lambda mod, inp, out: rec.__setitem__(convs[-1], nest(
+            out.detach(), mod.layout, 0).cpu())))
+    return hooks
+
+
+def follow(ref, rec):
+    """Make the float64 NEST model ``ref`` take the decisions in ``rec``
+    (:func:`watch`): each ReLU conv passes where the card's output was
+    positive, each max pool takes the card's maxima (shared evenly where
+    the card's tie).  Returns {layer key: the number of places where
+    ``ref``'s own pick differs}, filled by ``ref``'s next forward."""
+    order = list(ref.order)
+    flips = {}
+
+    def relu_as(key, mask):
+        def act(y):
+            flips[key] = int(((y > 0) != mask).sum())
+            return y * mask.to(y.dtype)
+        return act
+
+    def share(x4):
+        w = (x4 == x4.amax(2, keepdim=True)).to(torch.float64)
+        return w / w.sum(2, keepdim=True)
+
+    for key, c in rec.items():
+        c = c.to(torch.float64)
+        layer = ref.layers[key]
+        if getattr(layer, "pool_type", None) == "MAX":
+            conv = [k for k in order[:order.index(key)]
+                    if hasattr(ref.layers[k], "n_terms")][-1]
+            ref.layers[conv].activation = relu_as(conv, c > 0)
+            B, M, F = c.shape
+            w = share(c.reshape(B, M // 4, 4, F))
+
+            def pool(mod, inp, out, w=w, key=key):
+                x4 = inp[0].reshape(w.shape)
+                flips[key] = int((share(x4) != w).any(2).sum())
+                return (x4 * w).sum(2)
+
+            layer.register_forward_hook(pool)
+        else:
+            layer.activation = relu_as(key, c > 0)
+    return flips
+
+
 def knn_phase(dev, card, rng):
     """14. The TF2 user's path: kNN graphs built without sklearn, a
     reference checkpoint's tree imported into quick_start on the kNN graph,
@@ -1880,8 +2072,8 @@ def knn_phase(dev, card, rng):
     if srv != want or any(srv_rt.values()):
         raise AssertionError(f"kNN serving launched {srv}, routes {srv_rt}; "
                              f"expected {want}")
-    ref = cpu.predict(x[:16], batch_size=16)
-    rel = float(np.abs(logits[:16] - ref).max() / np.abs(ref).max())
+    ref = cpu.predict(x, batch_size=16)
+    rel = float(np.abs(logits - ref).max() / np.abs(ref).max())
     if not (logits.shape == (64, 4) and np.all(np.isfinite(logits))
             and rel <= 1e-4):
         raise AssertionError(f"kNN logits {logits.shape} rel {rel:.3e} from "
@@ -1894,51 +2086,74 @@ def knn_phase(dev, card, rng):
         f" built and imported from a reference tree ({sorted(tree)}) in "
         f"{build_s:.2f} s; conv routes (key, layout, radius, h, corrected "
         f"rows, route) {routes}; 4 requests x 16 maps launched {srv} (conv 1:"
-        f" one K4 + one K1 a request; convs 2-4 per step, no kernel), logits "
+        f" one K4 + one K1 a request; convs 2-4 per step, no kernel), all 64 logits "
         f"rel {rel:.2e} from the CPU; {fwd_ms:.3f} ms per forward of 16 maps "
         f"on {card}")
     out.update(routes=routes, serve_ms=fwd_ms)
 
     # one train step on each backward route against a float64 CPU step
+    # that takes the card step's max-pool and ReLU decisions: where two
+    # pooled values (or a pre-activation and 0) lie within float32 rounding
+    # of each other, the card and float64 may pick differently, and the
+    # gradient then moves by a whole pixel's share (a pool input tie at
+    # 6e-8 of its max did so on this model in one run).  The reference
+    # counts where its own picks differ.
     data = np.random.RandomState(43)
     xt = data.normal(size=(64, npix, 1)).astype(np.float32)
     yt = data.randint(0, 4, size=64)
-    t64 = time.perf_counter()
-    cpu64 = nest_reference(dt, model, nside, quick_start_layers(hp_nn),
-                           n_neighbors=8, graph_method="knn")
-    cpu64.train()
-    out64 = cpu64(torch.from_numpy(xt[:16].astype(np.float64)))
-    loss64 = resolve_loss(loss_name)(torch.from_numpy(yt[:16]), out64)
-    loss64.backward()
-    g64, s64, loss64 = grads_of(cpu64), stats_of(cpu64), float(loss64.detach())
-    cpu_s = time.perf_counter() - t64
-    del cpu64, out64
     # conv 1 is the one cface conv; its input needs no gradient
     want_step = {True: {**zero, "strips": 2, "stencil_conv": 1, "dxdw": 1},
                  False: {**zero, "strips": 1, "stencil_conv": 1, "grad": 1}}
     init = copy.deepcopy(model)
 
-    def step(fused, remat):
+    def step(fused, remat, decisions=None):
         """One train step of a copy of ``init`` on a route: (model, logs,
-        launches, peak bytes over the bytes held before the step)."""
+        launches, peak bytes over the bytes held before the step); with
+        ``decisions`` a dict, the step's max-pool inputs and last conv's
+        output are recorded there in NEST order (:func:`watch`)."""
         config.set_fused_dw(fused)
         m = copy.deepcopy(init)
         m.remat = remat
         m.compile(optimizer=1e-3, loss=loss_name)
+        hooks = [] if decisions is None else watch(m, decisions)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         logs, c, r = counted(lambda: m._trainer.train_on_batch(xt[:16],
                                                                yt[:16]))
         peak = torch.cuda.max_memory_allocated(dev) - base
+        for hk in hooks:
+            hk.remove()
         if any(r.values()):
             raise AssertionError(f"the kNN step took the routes {r}")
         return m, logs, c, peak
 
-    steps, remats = {}, {}
+    def ref_step(rec):
+        """The float64 step on the decisions ``rec``: (loss, gradients, BN
+        statistics, {layer: picks of its own that differ})."""
+        cpu64 = nest_reference(dt, model, nside, quick_start_layers(hp_nn),
+                               n_neighbors=8, graph_method="knn")
+        flips = follow(cpu64, rec)
+        cpu64.train()
+        out64 = cpu64(torch.from_numpy(xt[:16].astype(np.float64)))
+        loss64 = resolve_loss(loss_name)(torch.from_numpy(yt[:16]), out64)
+        loss64.backward()
+        return float(loss64.detach()), grads_of(cpu64), stats_of(cpu64), flips
+
+    steps, remats, seen = {}, {}, {}
     try:
         for fused in (True, False):
-            m, logs, c, peak = step(fused, False)
+            seen[fused] = {}
+            steps[fused] = step(fused, False, seen[fused])
+        same = all(torch.equal(seen[True][k], seen[False][k])
+                   for k in seen[True])
+        t64 = time.perf_counter()
+        refs = {True: ref_step(seen[True])}
+        refs[False] = refs[True] if same else ref_step(seen[False])
+        cpu_s = time.perf_counter() - t64
+        for fused in (True, False):
+            m, logs, c, peak = steps[fused]
+            loss64, g64, s64, flips = refs[fused]
             g, st_ = grads_of(m), stats_of(m)
             loss_rel = abs(logs["loss"] - loss64) / abs(loss64)
             g_err, s_err = tree_errs(g, g64), tree_errs(st_, s64)
@@ -1947,7 +2162,8 @@ def knn_phase(dev, card, rng):
                 raise AssertionError(
                     f"kNN step fused_dw={fused}: launched {c} (expected "
                     f"{want_step[fused]}), loss rel {loss_rel:.3e}, errors "
-                    f"above {GRAD_TOL} / {BN_TOL}: {bad}")
+                    f"above {GRAD_TOL} / {BN_TOL}: {bad} (float64 picks "
+                    f"that differ from the card's: {flips})")
             steps[fused] = (m, c, loss_rel, max(g_err.values()),
                             max(s_err.values()), peak, logs, g, st_)
             # (c) the same model with remat: each layer recomputed in the
@@ -1997,7 +2213,9 @@ def knn_phase(dev, card, rng):
                         if e.get("name") == sc) / 1e3 / 3 for sc in scopes}
     top_layers = sorted(layer_ms.items(), key=lambda kv: -kv[1])[:5]
     say("knn", f"one train_on_batch of 16 maps (float64 CPU step "
-        f"{cpu_s:.1f} s): K2 route launched {steps[True][1]}, loss rel "
+        f"{cpu_s:.1f} s, on the card's max-pool and ReLU decisions; its own "
+        f"picks differ at {refs[True][3]} on the K2 route's, "
+        f"{refs[False][3]} on the K1+K3 route's): K2 route launched {steps[True][1]}, loss rel "
         f"{steps[True][2]:.2e}, gradients {steps[True][3]:.2e}, BN "
         f"{steps[True][4]:.2e}; K1+K3 route launched {steps[False][1]}, loss "
         f"rel {steps[False][2]:.2e}, gradients {steps[False][3]:.2e}, BN "
@@ -2955,6 +3173,8 @@ if __name__ == "__main__":
             compare(sys.argv[2], sys.argv[3] if len(sys.argv) > 3 else None)
         elif sys.argv[1] == "--replay":
             replay(*sys.argv[2:])
+        elif sys.argv[1] == "--memory":
+            memory_report(*sys.argv[2:3])
         else:
             raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
     else:

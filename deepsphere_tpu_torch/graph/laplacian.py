@@ -40,6 +40,7 @@ from scipy import sparse
 
 from ..sphere import healpix as hp
 from .._logger import logger
+from . import kdtree
 
 __all__ = [
     "SphereGraph",
@@ -215,37 +216,9 @@ def _grid_ring_adjacency(nside, indices, k, kernel_width=None,
     return W, kernel_width
 
 
-def _knn_neighbours(coords, k, margin=8):
-    """Each point's ``k`` nearest other points, by chord distance.
-
-    ``scipy.spatial.cKDTree`` gives the same float64 distances as sklearn's
-    ``NearestNeighbors``, which the JAX package uses.  HEALPix's symmetries
-    make the k-th and (k+1)-th distances tie exactly in some rows; there
-    sklearn's pick follows its tree traversal, and this one keeps the lower
-    pixel index.  So ``k + 1 + margin`` candidates are sorted by (distance,
-    index), the margin widened until the last candidate lies beyond the
-    k-th distance of every row.
-
-    :return: (distances (n, k) float64, indices (n, k) int64), self excluded
-    """
-    from scipy.spatial import cKDTree
-
-    n = coords.shape[0]
-    tree = cKDTree(coords)
-    while True:
-        kq = min(k + 1 + margin, n)
-        d, idx = tree.query(coords, k=kq)
-        d, idx = d.reshape(n, kq), idx.reshape(n, kq).astype(np.int64)
-        if kq == n or np.all(d[:, -1] > d[:, k]):
-            break
-        margin = max(2 * margin, 8)
-    order = np.lexsort((idx, d), axis=1)[:, 1:k + 1]  # self first, dropped
-    return np.take_along_axis(d, order, axis=1), np.take_along_axis(
-        idx, order, axis=1)
-
-
 def _knn_adjacency(coords, k, kernel_width=None, width_ratio=None):
-    """Gaussian-weighted symmetric kNN adjacency from 3D unit vectors."""
+    """Gaussian-weighted symmetric kNN adjacency from 3D unit vectors, on
+    the neighbours sklearn's ``NearestNeighbors`` picks (:mod:`.kdtree`)."""
     n = coords.shape[0]
     k_eff = min(k, n - 1)
     if k_eff < k:
@@ -253,7 +226,10 @@ def _knn_adjacency(coords, k, kernel_width=None, width_ratio=None):
             f"WARNING: graph has only {n} vertices; kNN degree reduced "
             f"from k={k} to {k_eff} (check nside/indices if unexpected)"
         )
-    dist, idx = _knn_neighbours(np.asarray(coords, dtype=np.float64), k_eff)
+    dist, idx, n_tied = kdtree.knn(coords, k_eff)
+    if n_tied:
+        logger.info(f"kNN: {n_tied} of {n} rows tie at the k-th distance; "
+                    "their neighbours are sklearn's KDTree picks, replayed")
 
     if kernel_width is None:
         kernel_width = float(np.mean(dist)) * (width_ratio or 1.0)

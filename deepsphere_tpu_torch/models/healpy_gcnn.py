@@ -107,10 +107,13 @@ class HealpyGCNN(nn.Module):
         pixel-sharded where the pixel count divides over the pixel axis
     :param remat: checkpoint every layer in training
         (``torch.utils.checkpoint``, non-reentrant): the backward recomputes
-        each layer's activations instead of storing them — one extra
-        forward of work for O(1) activation memory, the trade for training
-        deep stacks at large nside.  Batch norms update their running
-        statistics once a step (not again in the recompute)
+        each layer's forward instead of keeping its activations, one extra
+        forward of work.  It saves what the stack holds between layers at
+        the end of the forward; a layer's own working set in its backward
+        stays, and where that sets the step's peak (a cface conv's corner
+        correction at large nside) remat does not lower it.  Batch norms
+        update their running statistics once a step (not again in the
+        recompute)
     :param graph_method: "auto" (grid/ring graph where a template exists),
         "grid" or "knn"
     :param internal_layout: "auto" (cface/face planning) or "nest"

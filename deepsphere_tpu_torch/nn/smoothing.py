@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from .._logger import logger
+from ..graph.kdtree import candidates
 from ..ops.smoothing import smooth_chain, smooth_route
 from ..ops.spmv import ellpack_spmv
 from ..ops.stencil import as_tensors, stencil_tables
@@ -150,11 +151,9 @@ def _gauss_neighbours(nside, pix, nest, radius):
     counts = tree.query_ball_point(vec, r=chord, return_length=True)
     k = min(int(np.max(counts)), N)
     logger.info(f"The maximal number of neighbors within that radius is {k}")
-    # a few candidates past the k-th, so that a tie at the k-th angle is
-    # cut by pixel index
-    kq = min(k + 8, N)
-    d, inds = tree.query(vec, k=kq)
-    d, inds = d.reshape(N, kq), inds.reshape(N, kq).astype(np.int64)
+    # candidates past the k-th, so that a tie at the k-th angle is cut by
+    # pixel index
+    d, inds = candidates(vec, k, tree=tree)
     ang = 2.0 * np.arcsin(np.clip(d / 2.0, 0.0, 1.0))
     # HEALPix's symmetries make many pixels equidistant (the k-th often
     # ties); angles equal to 1e-12 rad count as equal

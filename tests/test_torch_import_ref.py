@@ -7,8 +7,8 @@ groups the JAX importer's docstring table names (``chebyshev`` with
 pseudo-conv's ``filter`` and its transpose's, a ViT's and a graph
 transformer's ``embed`` and ``layers/multi_head_attention*`` blocks, the
 ``dense`` head, and the empty groups Keras writes for stateless layers).
-The models are built on the kNN graph, the reference's, with the port's
-neighbour sets on both sides.  The same file goes into the JAX model
+The models are built on the kNN graph, the reference's, which both
+packages build bit for bit alike.  The same file goes into the JAX model
 (``import_keras_h5``) and into the port model of the same layers
 (``load_weights_from_reference``); their eval logits agree to 1e-5 of
 their max.  Every error of the importer is raised with the JAX package's
@@ -27,38 +27,12 @@ import deepsphere_tpu as ds
 import deepsphere_tpu_torch as dt
 from deepsphere_tpu.nn import healpy_layers as jhp
 from deepsphere_tpu.train.import_ref import import_keras_h5 as j_import
-from deepsphere_tpu_torch.graph.laplacian import _knn_neighbours
 from deepsphere_tpu_torch.interop import export_jax_variables
 from deepsphere_tpu_torch.nn import healpy_layers as thp
 from deepsphere_tpu_torch.train import import_keras_h5 as t_import
 from deepsphere_tpu_torch.train.import_ref import _BASE_NAME, _import_tree, _read_tree
 
 TOL = 1e-5
-
-
-class _PortSets:
-    """A stand-in for sklearn's ``NearestNeighbors`` returning the port's
-    kNN sets, so both packages build the same kNN graph (they differ only
-    where the k-th neighbour ties: ``tests/test_torch_knn.py``)."""
-
-    def __init__(self, n_neighbors):
-        self.k = n_neighbors - 1
-
-    def fit(self, coords):
-        return self
-
-    def kneighbors(self, coords):
-        d, i = _knn_neighbours(np.asarray(coords), self.k)
-        n = len(i)
-        return (np.concatenate([np.zeros((n, 1)), d], axis=1),
-                np.concatenate([np.arange(n)[:, None], i], axis=1))
-
-
-@pytest.fixture(autouse=True)
-def _port_sets(monkeypatch):
-    import sklearn.neighbors
-
-    monkeypatch.setattr(sklearn.neighbors, "NearestNeighbors", _PortSets)
 
 
 def _conv_stack(m):

@@ -1,19 +1,18 @@
 """PyTorch port, kNN graphs (the reference's own graph construction)
 against the JAX package on the CPU.
 
-* The graph.  The port finds each pixel's k nearest neighbours with
-  ``scipy.spatial.cKDTree`` (the card's machine has no sklearn); the JAX
-  package with sklearn's ``NearestNeighbors``.  Both give the same float64
-  distances.  HEALPix's symmetries make the k-th and (k+1)-th distances
-  tie exactly in some rows: there sklearn keeps the pixel its tree
-  traversal meets, the port the lower pixel index.  The port's graphs are
-  built in a fresh interpreter where sklearn cannot be imported; the tests
-  name the tied rows, check that every pixel in which the sets differ lies
-  at the k-th distance, that W and L are equal exactly on every row no
-  tie reaches, and that the JAX build given the port's sets (a stand-in
-  ``NearestNeighbors``) is the port's graph bit for bit.
-* Under that stand-in, the kNN convs and a kNN model against the JAX
-  package: the k=8 nside-32 K=5 deep stencil (radius-2 capture, corner
+* The graph.  The JAX package finds each pixel's k nearest neighbours with
+  sklearn's ``NearestNeighbors`` (a ``KDTree``); the port, which has no
+  sklearn on the card's machine, with ``scipy.spatial.cKDTree`` candidates
+  and, in the rows where HEALPix's symmetries make the k-th and (k+1)-th
+  distances tie exactly, a replay of sklearn's tree, its partition and its
+  heap (``graph/kdtree.py``).  The port's graphs are built in a fresh
+  interpreter where sklearn cannot be imported; they equal the JAX builds
+  bit for bit (W, L, kernel width, lmax), tied rows included, and the
+  tied-row count is printed.  The replayed tree equals sklearn's own, and
+  its picks equal sklearn's on data made of ties.
+* The kNN convs and a kNN model against the JAX package on the same
+  graphs: the k=8 nside-32 K=5 deep stencil (radius-2 capture, corner
   rows recomputed from the ball) on the per-step path and on the fused
   cface route with its corner correction; the k=60 nside-16 single-step
   stencil, whose 32 rows with edges outside the capture window take the
@@ -39,7 +38,7 @@ import deepsphere_tpu.graph as jgraph
 import deepsphere_tpu.ops.stencil as jstencil
 import deepsphere_tpu_torch as dt
 import deepsphere_tpu_torch.graph as tgraph
-import deepsphere_tpu_torch.graph.laplacian as tlap
+from deepsphere_tpu_torch.graph import kdtree
 import deepsphere_tpu_torch.ops.stencil as tstencil
 from deepsphere_tpu.nn import healpy_layers as jhp
 from deepsphere_tpu.ops.spmv import chebyshev_basis, graph_conv
@@ -54,8 +53,8 @@ GRAD_TOL = 1e-4
 
 # (nside, k) of the graph cases: the degrees the reference supports at
 # sizes a CPU builds in seconds
-CASES = [(8, 8), (16, 8), (32, 8), (8, 20), (16, 20), (32, 20), (8, 60),
-         (16, 60)]
+CASES = [(2, 8), (4, 8), (8, 8), (16, 8), (32, 8), (4, 20), (8, 20),
+         (16, 20), (32, 20), (4, 60), (8, 60), (16, 60)]
 
 
 def _rel(got, want):
@@ -74,31 +73,6 @@ def _sklearn_sets(coords, k):
     nn = sklearn.neighbors.NearestNeighbors(n_neighbors=k + 1).fit(coords)
     d, i = nn.kneighbors(coords)
     return d[:, 1:], i[:, 1:]
-
-
-class _PortSets:
-    """A stand-in for sklearn's ``NearestNeighbors`` that returns the
-    port's neighbour sets (:func:`tlap._knn_neighbours`), self first: the
-    JAX package's builds then see the same neighbours as the port's."""
-
-    def __init__(self, n_neighbors):
-        self.k = n_neighbors - 1
-
-    def fit(self, coords):
-        self.coords = np.asarray(coords)
-        return self
-
-    def kneighbors(self, coords):
-        assert np.array_equal(np.asarray(coords), self.coords)
-        d, i = tlap._knn_neighbours(self.coords, self.k)
-        n = len(i)
-        return (np.concatenate([np.zeros((n, 1)), d], axis=1),
-                np.concatenate([np.arange(n)[:, None], i], axis=1))
-
-
-@pytest.fixture
-def port_sets(monkeypatch):
-    monkeypatch.setattr(sklearn.neighbors, "NearestNeighbors", _PortSets)
 
 
 @pytest.fixture(scope="module")
@@ -139,21 +113,6 @@ def port_graphs(tmp_path_factory):
     return graphs
 
 
-def _row_equal(a, b, rows):
-    """Whether sparse rows ``rows`` of ``a`` and ``b`` hold the same columns
-    and the same values, bit for bit."""
-    a, b = a.tocsr(), b.tocsr()
-    a.sort_indices()
-    b.sort_indices()
-    for r in rows:
-        sa = slice(a.indptr[r], a.indptr[r + 1])
-        sb = slice(b.indptr[r], b.indptr[r + 1])
-        if not (np.array_equal(a.indices[sa], b.indices[sb])
-                and np.array_equal(a.data[sa], b.data[sb])):
-            return False
-    return True
-
-
 def _bit_equal(a, b):
     a, b = a.tocsr(), b.tocsr()
     a.sort_indices()
@@ -164,59 +123,93 @@ def _bit_equal(a, b):
 
 
 @pytest.mark.parametrize("nside,k", CASES)
-def test_knn_graph_matches_jax(port_graphs, monkeypatch, nside, k):
-    """The port's kNN graph (built with sklearn blocked) against the JAX
-    build: equal exactly where no tie reaches, the tied rows' differing
-    pixels all at the k-th distance, and the JAX build with the port's
-    sets equal bit for bit."""
+def test_knn_graph_matches_jax(port_graphs, nside, k):
+    """The port's kNN graph (built with sklearn blocked) equals the JAX
+    build bit for bit, in the rows where the k-th distance ties too."""
     W_t, L_t, kw_t, lmax_t = port_graphs[nside, k]
     coords = _coords(nside)
-    n = len(coords)
     d_s, i_s = _sklearn_sets(coords, k)
-    d_t, i_t = tlap._knn_neighbours(coords, k)
-    # the same float64 distances, row by row, in the same order
+    d_t, i_t, n_tied = kdtree.knn(coords, k)
     assert np.array_equal(d_s, d_t)
-    differ = [r for r in range(n) if set(i_s[r]) != set(i_t[r])]
-    for r in differ:
-        kth = d_t[r, -1]
-        for ids, ds_ in ((i_t, d_t), (i_s, d_s)):
-            other = set(i_s[r]) if ids is i_t else set(i_t[r])
-            only = [c for c in range(k) if ids[r, c] not in other]
-            assert only and all(ds_[r, c] == kth for c in only)
-    # the weights of a tied row are the same numbers on other columns
-    w = lambda d: np.exp(-(d**2) / (2.0 * kw_t**2))
-    assert np.array_equal(w(d_t[differ]), w(d_s[differ]))
-    print(f"nside {nside} k {k}: {len(differ)} of {n} rows tie at the k-th "
-          "distance and keep other pixels than sklearn")
-
+    assert all(set(a) == set(b) for a, b in zip(i_s, i_t))
+    print(f"nside {nside} k {k}: {n_tied} of {len(coords)} rows tie at the "
+          "k-th distance and take sklearn's pick from the replayed tree")
     gj = jgraph.build_sphere_graph(nside, k=k, method="knn")
-    assert gj.kernel_width == kw_t
-    # rows that a differing directed edge reaches in W, then in L (degrees)
-    touched = set(differ)
-    for r in differ:
-        touched |= set(i_s[r]) ^ set(i_t[r])
-    reached = set(touched)
-    for r in touched:
-        reached |= set(W_t[r].indices) | set(gj.A.tocsr()[r].indices)
-    assert _row_equal(W_t, gj.A, sorted(set(range(n)) - touched))
-    assert _row_equal(L_t, gj.L, sorted(set(range(n)) - reached))
-    if not differ:
-        assert _bit_equal(W_t, gj.A) and _bit_equal(L_t, gj.L)
+    assert _bit_equal(W_t, gj.A) and _bit_equal(L_t, gj.L)
+    assert gj.kernel_width == kw_t and gj.lmax == lmax_t
 
-    # the JAX build on the port's sets is the port's graph
-    monkeypatch.setattr(sklearn.neighbors, "NearestNeighbors", _PortSets)
-    gp = jgraph.build_sphere_graph(nside, k=k, method="knn")
-    assert _bit_equal(W_t, gp.A) and _bit_equal(L_t, gp.L)
-    assert gp.kernel_width == kw_t and gp.lmax == lmax_t
+
+def _tie_data(kind):
+    rs = np.random.RandomState(0)
+    if kind == "grid":  # integer points: most rows tie at the k-th
+        g = np.meshgrid(*[np.arange(9.0)] * 3, indexing="ij")
+        return np.stack(g, -1).reshape(-1, 3)
+    if kind == "normal":
+        return rs.normal(size=(1000, 3))
+    n = 12 * 16 * 16
+    if kind == "ring":
+        return hp.pix2vec(16, np.arange(n), nest=False)
+    return _coords(16)[np.sort(rs.choice(n, n // 3, replace=False))]
+
+
+@pytest.mark.parametrize("kind", ["grid", "normal", "ring", "partial"])
+def test_kdtree_replays_sklearns_tree(kind):
+    """The replayed tree holds sklearn's ``KDTree`` point order (the
+    libstdc++ ``nth_element`` partitions) and node bounds, and its
+    neighbour sets are sklearn's, on data whose ties the HEALPix graphs
+    above meet only in a few rows."""
+    data = np.ascontiguousarray(_tie_data(kind), dtype=np.float64)
+    idx, lower, upper, _, _ = kdtree.build_tree(data)
+    _, want_idx, _, bounds = sklearn.neighbors.KDTree(
+        data, leaf_size=kdtree.LEAF_SIZE).get_arrays()
+    assert np.array_equal(idx, want_idx)
+    assert np.array_equal(lower, bounds[0]) and np.array_equal(upper, bounds[1])
+    for k in (6, 8, 20):
+        d_s, i_s = _sklearn_sets(data, k)
+        d_t, i_t, n_tied = kdtree.knn(data, k)
+        assert np.array_equal(d_s, d_t)
+        assert all(set(a) == set(b) for a, b in zip(i_s, i_t))
+        if kind == "grid":
+            assert n_tied > len(data) // 2
+
+
+def test_nth_element_takes_libstdcpp_heap_select():
+    """Past its depth limit libstdc++'s introselect selects by a heap;
+    Musser's median-of-3 killer drives it there, and the result is still
+    a partition around the n-th key."""
+    n = 512
+    a = [0] * n
+    for i in range(1, n // 2 + 1):
+        if i % 2:
+            a[i - 1], a[i] = i, n // 2 + i
+        a[n // 2 + i - 1] = 2 * i
+    calls = []
+    orig = kdtree._heap_select
+    try:
+        kdtree._heap_select = lambda *args: calls.append(1) or orig(*args)
+        for nth in (0, n // 3, n // 2, n - 1):
+            v = list(a)
+            kdtree._nth_element(v, 0, nth, n)
+            s = sorted(a)
+            assert v[nth] == s[nth]
+            assert max(v[:nth], default=-1) < v[nth] < min(v[nth + 1:],
+                                                            default=n * 9)
+    finally:
+        kdtree._heap_select = orig
+    assert calls
 
 
 def test_knn_neighbours_take_every_tie_into_account():
     """Ties past the first margin of candidates widen it: with a margin of
-    0 the sets are those of a wide margin."""
+    1 every point as near as a row's k-th is among its candidates."""
     coords = _coords(8)
-    d0, i0 = tlap._knn_neighbours(coords, 20, margin=0)
-    d1, i1 = tlap._knn_neighbours(coords, 20, margin=64)
-    assert np.array_equal(d0, d1) and np.array_equal(i0, i1)
+    k = 21
+    d, idx = kdtree.candidates(coords, k, margin=1)
+    full = np.linalg.norm(coords[:, None] - coords[None], axis=-1)
+    kth = np.sort(full, axis=1)[:, k - 1]
+    for r in range(len(coords)):
+        near = set(np.flatnonzero(full[r] <= kth[r] + 1e-12))
+        assert near <= set(idx[r])
 
 
 def test_knn_graph_on_few_vertices_reduces_k():
@@ -234,7 +227,7 @@ def test_knn_graph_on_few_vertices_reduces_k():
 
 
 # ---------------------------------------------------------------------------
-# the kNN convs through the stencil path, on the port's neighbour sets
+# the kNN convs through the stencil path
 # ---------------------------------------------------------------------------
 
 
@@ -267,7 +260,7 @@ def _port_grads(fn, x, kern, dy):
     return y.detach().numpy(), xt.grad.numpy(), kt.grad.numpy()
 
 
-def test_knn_deep_stencil_conv_matches_jax(port_sets):
+def test_knn_deep_stencil_conv_matches_jax():
     """nside 32, k=8, Chebyshev K=5: the deep stencil (radius-2 capture,
     h=8) with its corner rows, on the per-step path and on the fused cface
     route (corner correction from the ball), against the JAX stencil conv
@@ -312,7 +305,7 @@ def test_knn_deep_stencil_conv_matches_jax(port_sets):
     assert _rel(gx, gx_j) <= GRAD_TOL and _rel(gk, gk_j) <= GRAD_TOL
 
 
-def test_knn_single_step_fix_rows_match_jax(port_sets):
+def test_knn_single_step_fix_rows_match_jax():
     """nside 16, k=60: the single-application stencil (radius-5 capture)
     leaves 32 rows whose edges escape the window; they take the exact
     ELLPACK row (fix rows).  Chebyshev K=3 per step, forward and
@@ -359,7 +352,7 @@ def test_knn_single_step_fix_rows_match_jax(port_sets):
     assert e_bare > 10 * e_fix
 
 
-def test_knn_lap_chain_matches_jax(port_sets):
+def test_knn_lap_chain_matches_jax():
     """nside 16, k=20, Chebyshev K=4: the radius-3 capture window, the
     conv the card runs as a lap chain (one L~ application a fused launch,
     ``conv_route`` "chain" for a CUDA input); on the CPU the chain's plain
@@ -397,7 +390,7 @@ def _knn_layers(m, K):
 
 
 @pytest.mark.parametrize("nside,k,K", [(16, 8, 3), (16, 20, 4)])
-def test_knn_model_matches_jax(port_sets, rng, nside, k, K):
+def test_knn_model_matches_jax(rng, nside, k, K):
     """A ``HealpyGCNN(graph_method="knn")``: the same layout plan as the
     JAX model, logits of an eval forward (2e-5), and the loss and the
     gradient tree of a training forward (1e-4) against the JAX model with

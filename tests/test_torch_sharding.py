@@ -563,33 +563,12 @@ def test_band_strip_index_map_is_the_gather_kernels_source(rng, n, h, faces):
 
 
 @pytest.mark.parametrize("n_shards", [4, 8, 12])
-def test_shard_ellpack_tables_bit_equal_to_jax(n_shards, monkeypatch):
+def test_shard_ellpack_tables_bit_equal_to_jax(n_shards):
     """The halo-sharded ELLPACK's host tables (remapped columns, values,
-    boundary rows) equal the JAX package's bit for bit, on the same kNN
-    graph: the JAX build is given the port's neighbours (its sklearn
-    search takes a brute-force path on so few points, whose distances
-    differ from the port's cKDTree ones in the last bits;
-    ``tests/test_torch_knn.py`` holds the graphs themselves)."""
-    import sklearn.neighbors
-
+    boundary rows) equal the JAX package's bit for bit."""
     import deepsphere_tpu.graph as jgraph
     from deepsphere_tpu.parallel import shard_ellpack as jshard_ellpack
-    from deepsphere_tpu_torch.graph.laplacian import _knn_neighbours
 
-    class PortSets:
-        def __init__(self, n_neighbors):
-            self.k = n_neighbors - 1
-
-        def fit(self, coords):
-            return self
-
-        def kneighbors(self, coords):
-            d, i = _knn_neighbours(np.asarray(coords), self.k)
-            n = len(i)
-            return (np.concatenate([np.zeros((n, 1)), d], axis=1),
-                    np.concatenate([np.arange(n)[:, None], i], axis=1))
-
-    monkeypatch.setattr(sklearn.neighbors, "NearestNeighbors", PortSets)
     gj = jgraph.build_sphere_graph(4, k=8)
     gt = tgraph.build_sphere_graph(4, k=8)
     want = jshard_ellpack(gj, n_shards, 0.75)
