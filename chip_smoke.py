@@ -9,7 +9,9 @@ Phases, one result line each (with the elapsed seconds):
 
 1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: one ``nvcc`` per ``deepsphere_tpu_torch/csrc/*.cu``, all at once
-   (ptxas register / spill lines are printed);
+   (ptxas register / spill lines are printed), while a side process builds
+   the headline's nside-1024 graph and stencil into ``.bench_cache/``
+   (phase 3 loads them);
 3. kernels against their plain PyTorch versions on identical CUDA inputs
    (garbage in every halo lane), at the shapes of the quick_start convs 1-3
    (batch 16, K=10, h=9) and of the headline conv (nside 1024, batch 4,
@@ -164,24 +166,41 @@ Phases, one result line each (with the elapsed seconds):
    3), batch 16, 8 -> 16, NEST: the lap chain counted, forward and forward
    + backward with a fixed cotangent on both routes against the per-step
    path on the card (y and dx 2e-5, dW 1e-4); (e) conv 1's filters
-   localized on the card against the CPU model's (1e-5).
+   localized on the card against the CPU model's (1e-5);
+15. the bfloat16 modes (``config.conv_dtype`` "bfloat16", the band mode,
+   and "bfloat16_io"): (a) the bfloat16 instantiations of K1, K2 and K3 in
+   each mode at phase 3's four shapes against their plain bfloat16
+   versions on identical CUDA inputs (1e-2 of the plain max: both round
+   at the same points and sum in other orders), each dW bitwise-repeatable,
+   and K4 on the I/O mode's bfloat16 strips exactly; their times beside
+   the float32 kernels' (phase 3), the plain versions' and the bound (the
+   I/O mode's bytes at 2 bytes an element); (b) the headline conv's
+   forward and train step on both routes in each mode against the float32
+   conv (3e-2 of its max); (c) quick_start trained three steps in each mode
+   (K2, K1+K3, K2: every loss finite, the launches of each step by mode),
+   phase 4's model served in each mode (finite logits, their distance from
+   the float32 model's printed), and the
+   "bfloat16_io" model exported and replayed by a fresh process under its
+   mode: logits bitwise equal to the live model's.
 
 It then prints the card line, one JSON line with every kernel's launches
 (the sum over the main paths, each counted from 0: quick_start training
 for K1-K4, the sharded training for K5, phases 9-12, the replays of
 phase 13 under ``export``, and phase 14's kNN serving, steps and chain
-under ``knn`` and its remat steps under ``remat``, with the paths under
-``paths``), error, times
+under ``knn`` and its remat steps under ``remat``, phase 15's under
+``bf16_*``, with the paths under ``paths``; the bfloat16 instantiations
+are entries of their own, ``*_bf16`` and ``*_bf16_io``), error, times
 and bound, and finally
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
 non-zero and prints no result line.  It needs one card, never falls back to
 the CPU, and imports no JAX.
 
-Three other modes measure only:
+Four other modes measure only:
 
     python3 chip_smoke.py --kernel-times ROOT
     python3 chip_smoke.py --compare PARENT [OUT.json]
     python3 chip_smoke.py --memory [OUT.json]
+    python3 chip_smoke.py --sass PARENT [OUT.json]
 
 and ``--replay ARTIFACT X.npy OUT_DIR B...`` is phase 13's serving
 process.
@@ -194,7 +213,10 @@ unpacked with ``git archive``) and this one in turns, parent, this, this,
 parent, and also writes the pairs to OUT.json.  ``--memory`` records the
 allocator through one train step of phase 14's kNN quick_start on each
 backward route, with and without remat, and sums the allocations live at
-the step's peak by the code that made them.
+the step's peak by the code that made them.  ``--sass`` builds the kernel
+library of the checkout PARENT and of this one and counts the parent's
+kernels whose machine code (``cuobjdump -sass``) this library holds
+unchanged.
 """
 
 import atexit
@@ -372,28 +394,29 @@ def bound(nbytes, flops):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def tile_work(st, K, C):
+def tile_work(st, K, C, es=4):
     """Bytes of C channels' halo ring and of the weight planes the
-    recursion needs, and its operations (taps, Chebyshev combine)."""
+    recursion needs (``es`` bytes an element: 2 for bfloat16 arrays), and
+    its operations (taps, Chebyshev combine)."""
     n, h, r = st.nside, st.n_steps, st.radius
     nplanes = len(st.offsets)
-    halo = C * 12 * ((n + 2 * h) ** 2 - n * n) * 4
-    planes = nplanes * 12 * (n + 2 * h - 2 * r) ** 2 * 4
+    halo = C * 12 * ((n + 2 * h) ** 2 - n * n) * es
+    planes = nplanes * 12 * (n + 2 * h - 2 * r) ** 2 * es
     side = [n + 2 * (h - r * k) for k in range(1, K)]
     laps = C * 12 * sum(s * s for s in side) * nplanes * 2
     cheby = C * 12 * sum(s * s for s in side[1:]) * 2
     return halo + planes, laps + cheby
 
 
-def k1_bound(st, K, B, Fin, Fout):
+def k1_bound(st, K, B, Fin, Fout, es=4):
     """(ms, by) of one K1 launch: the interior lanes of B*Fin channels in
-    and B*Fout out, the halo ring and weight planes (:func:`tile_work`)
-    and the (K, Fin, Fout) kernel; the recursion's and the contraction's
-    operations."""
+    and B*Fout out, the halo ring and weight planes (:func:`tile_work`), of
+    ``es`` bytes an element, and the (K, Fin, Fout) float32 kernel; the
+    recursion's and the contraction's operations."""
     n = st.nside
-    tb, tf = tile_work(st, K, B * Fin)
+    tb, tf = tile_work(st, K, B * Fin, es)
     cells = 2 * K * Fin * Fout * B * 12 * n * n
-    return bound(4 * 12 * n * n * B * (Fin + Fout) + tb + 4 * K * Fin * Fout,
+    return bound(es * 12 * n * n * B * (Fin + Fout) + tb + 4 * K * Fin * Fout,
                  tf + cells)
 
 
@@ -806,7 +829,71 @@ def compare(parent, out_path=None):
     print(json.dumps(summary), flush=True)
 
 
+def _sass_bodies(lib):
+    """{function: its instructions} of the kernel library ``lib``
+    (``cuobjdump -sass``; addresses and encodings stripped)."""
+    import re
+
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                         text=True, check=True, timeout=600).stdout
+    funcs, name = {}, None
+    for ln in out.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        ln = re.sub(r"\s*;.*", "", re.sub(r"/\*[0-9a-f]*\*/", "", ln)).strip()
+        if name and re.match(r"^[A-Z@]", ln):
+            funcs[name].append(ln)
+    return {k: "\n".join(v) for k, v in funcs.items()}
+
+
+def sass_check(parent, out_path=None):
+    """``--sass PARENT [OUT.json]``: the machine code of every kernel of the
+    checkout PARENT's library against this checkout's: how many of the
+    parent's functions this library holds instruction for instruction
+    (matched by their code, since template parameters change the names),
+    which do not, and how many functions this one adds.  Each library is
+    built by its own process."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    libs = []
+    for root in (parent, here):
+        code = ("import sys; sys.path.insert(0, {r!r}); "
+                "from deepsphere_tpu_torch.ops import _cuda; "
+                "print(_cuda.build()[0])").format(r=os.path.abspath(root))
+        res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                             text=True, timeout=1200, check=True)
+        libs.append(res.stdout.strip().splitlines()[-1])
+    par, chg = (_sass_bodies(lib) for lib in libs)
+    bodies = set(chg.values())
+    differ = sorted(k for k, v in par.items() if v not in bodies)
+    summary = {"parent": os.path.abspath(parent), "parent_functions": len(par),
+               "identical": len(par) - len(differ), "differ": differ,
+               "functions": len(chg), "added": len(chg) - len(par)}
+    say("sass", json.dumps(summary))
+    if out_path:
+        os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+        with open(out_path, "w") as fh:
+            json.dump(summary, fh, indent=1)
+
+
 K40_GRAPH = (256, 40, 5)  # phase 9(a): nside, k, K
+
+
+def prebuild_headline(root):
+    """Build the headline conv's nside-1024 grid graph and its deep stencil
+    (K=5) in another process, into ``ROOT/.bench_cache``, beside the kernels'
+    build and phase 3's quick_start shapes (minutes of host time); phase 3
+    loads it.  Returns the process."""
+    code = ("import sys; sys.path.insert(0, {root!r}); "
+            "from deepsphere_tpu_torch.graph import build_sphere_graph; "
+            "build_sphere_graph(1024, k=8, method='grid', cache_dir={cache!r})"
+            ".deep_stencil(0.75, 5)").format(
+                root=root, cache=os.path.join(root, ".bench_cache"))
+    return subprocess.Popen([sys.executable, "-c", code])
 
 
 def prebuild_k40(root):
@@ -1660,8 +1747,8 @@ def serving_model(dt, hp_nn):
 
 
 def replay(artifact, x_path, out_dir, *batches):
-    """``--replay ARTIFACT X.npy OUT_DIR B...``: phase 13's serving
-    process.  Loads the artifact through ``serve.load_exported`` with every
+    """``--replay ARTIFACT X.npy OUT_DIR B... [MODE]``: phase 13's (and
+    15(c)'s, under ``config.conv_dtype`` MODE) serving process.  Loads the artifact through ``serve.load_exported`` with every
     graph builder and stencil extraction patched to raise, answers one
     request of each batch B from the maps in X.npy (in order), writes each
     answer to OUT_DIR/y<i>.npy, times a forward of the first batch with
@@ -1682,19 +1769,26 @@ def replay(artifact, x_path, out_dir, *batches):
     gst.face_stencil = refuse
     lap.SphereGraph.face_stencil = refuse
     lap.SphereGraph.deep_stencil = refuse
+    from deepsphere_tpu_torch import config
+
+    if batches and not batches[-1].isdigit():  # the conv_dtype it runs under
+        config.set_conv_dtype(batches[-1])
+        batches = batches[:-1]
     t = time.perf_counter()
     em = serve.load_exported(artifact)
     load_s = time.perf_counter() - t
     x = np.load(x_path)
     out = {"op_counts": em.op_counts(),
            "input_shape": [str(d) for d in em.input_shape],
-           "device": str(em.device), "load_s": load_s, "launches": []}
+           "device": str(em.device), "load_s": load_s, "launches": [],
+           "bf16_launches": []}
     start = 0
     for i, b in enumerate(int(b) for b in batches):
         _cuda.reset_launch_counts()
         y = em(x[start:start + b])
         torch.cuda.synchronize()
         out["launches"].append(dict(_cuda.launch_counts))
+        out["bf16_launches"].append(dict(_cuda.bf16_launch_counts))
         np.save(os.path.join(out_dir, f"y{i}.npy"), y.cpu().numpy())
         start += b
     xb = torch.from_numpy(x[:int(batches[0])]).cuda()
@@ -2326,6 +2420,482 @@ def knn_phase(dev, card, rng):
     return {"knn": total(knn_paths), "remat": total(remat_paths)}, out
 
 
+BF_TOL = 1e-2  # a bf16 kernel's y or dx against its plain bf16 version
+BF_DW_TOL = 1e-3  # a bf16 kernel's dW against its plain bf16 version
+BF_F32_TOL = 3e-2  # a bf16 conv against the float32 conv, of max|f32|
+# the least distance of a bf16 result from the float32 one on the same
+# values, of max|f32|: a bf16 instantiation or mode that skipped its own
+# rounding would sit within the float32 kernels' 2e-5 of it.  A raw
+# kernel's dW moves less than y and dx where its inputs are bf16 already
+# and K is small (T_0 x = x is exact), hence its own bound
+BF_MOVED = 1e-3
+BF_DW_MOVED = 1e-4
+# quick_start's first bf16 train step's gradients against the float32
+# step's, of each leaf's max: batch norm on batch statistics, ReLU and
+# max-pool make them ill-conditioned (15(c) prints how far the float32
+# step's own gradients move when only its batch is rounded to bf16)
+BF_STEP_TOL = 0.5
+BF_MODES = ("bfloat16", "bfloat16_io")
+
+
+def bf16_apart(what, got, f32, least=BF_MOVED):
+    """The distance of a bfloat16 result from the float32 one, of
+    max|f32|; raises where it is not farther than ``least`` (the rounding
+    was skipped) or, where ``f32`` is all zero (a dW whose rows the corner
+    correction all recomputes), where ``got`` is not zero too."""
+    got, f32 = got.float(), f32.float()
+    if f32.abs().max() == 0:
+        if got.abs().max() != 0:
+            raise AssertionError(f"{what}: nonzero where float32 is zero")
+        return 0.0
+    d = rel_err(got, f32)
+    if not d > least:
+        raise AssertionError(f"{what}: {d:.3e} from float32 (at least "
+                             f"{least}): not rounded to bfloat16")
+    return d
+
+
+def bf16_phase(dev, card, rng, qs_st, st1024, results, serve_ms):
+    """15. The bfloat16 modes (``config.conv_dtype``): (a) K1, K2 and K3 in
+    the band mode and the I/O mode (and K4 on the I/O mode's bfloat16
+    strips) against their plain bfloat16 versions at the quick_start shapes
+    and the headline, and apart from the float32 kernels on the same
+    values; (b) the headline conv's forward and train step in each mode
+    against the float32 conv; (c) quick_start's first train step on each
+    route and its served logits in each mode against float32's, three
+    train steps, and the model exported and replayed under "bfloat16_io".
+    Every bf16 result must also lie farther than ``BF_MOVED`` from the
+    float32 one.  Returns the paths' launches (each counted from 0)."""
+    import shutil
+    import tempfile
+
+    import deepsphere_tpu_torch as dt
+    from deepsphere_tpu_torch import config
+    from deepsphere_tpu_torch.interop import export_jax_variables
+    from deepsphere_tpu_torch.nn import healpy_layers as hp_nn
+    from deepsphere_tpu_torch.ops import _cuda
+    from deepsphere_tpu_torch.ops import fused_stencil as fs
+    from deepsphere_tpu_torch.ops.stencil import (
+        as_tensors,
+        cface_embed,
+        cface_extract,
+        stencil_tables,
+    )
+    from deepsphere_tpu_torch.ops.strips import (
+        build_strips,
+        strip_arrays,
+        strip_index_map,
+    )
+
+    t_phase = time.perf_counter()
+    for k in ("strips_bf16", "stencil_conv_bf16", "stencil_conv_bf16_io",
+              "dxdw_bf16", "dxdw_bf16_io", "grad_bf16", "grad_bf16_io"):
+        results[k] = []
+    f32_ms = {(k, r[0]): r[2] for k in ("stencil_conv", "dxdw", "grad",
+                                          "strips") for r in results[k]}
+
+    def counts():
+        return {**_cuda.launch_counts, **_cuda.bf16_launch_counts}
+
+    def since(before, into=None):
+        """The launches since ``before`` (nonzero), added into ``into``."""
+        d = {k: v - before[k] for k, v in counts().items() if v - before[k]}
+        if into is not None:
+            for k, v in d.items():
+                into[k] = into.get(k, 0) + v
+        return d
+
+    def check(what, got, want, tol):
+        err = rel_err(got.float(), want.float())
+        if not err <= tol:
+            raise AssertionError(f"{what}: rel err {err:.3e} (tol {tol})")
+        return err, (got.float() - want.float()).abs().max().item()
+
+    def kernels_case(label, st, B, Fin, Fout, K):
+        n, h = st.nside, st.n_steps
+        _, P_l = fs.cfp_geometry(n, h)
+        if not fs.cfp_io_available(st):
+            raise AssertionError(f"{label}: no bf16 I/O for this conv")
+        tables = as_tensors(stencil_tables(st, bf16_io=True), dev)
+        mask = tables["corr_mask"]
+        x32 = torch.from_numpy(
+            rng.normal(size=(B * Fin, 12, n, P_l)).astype(np.float32)).to(dev)
+        dy32 = torch.from_numpy(
+            rng.normal(size=(B * Fout, 12, n, P_l)).astype(np.float32)).to(dev)
+        kernel = torch.from_numpy((rng.normal(size=(Fin * K, Fout))
+                                   / np.sqrt(Fin * K)).astype(np.float32)).to(dev)
+        wk3 = kernel.reshape(Fin, K, Fout).permute(1, 0, 2).contiguous()
+        wk3t = kernel.reshape(Fin, K, Fout).permute(1, 2, 0).contiguous()
+        inner = slice(h, h + n)
+        M = 12 * n * n
+        cells = 2 * K * Fin * Fout * B * M
+        line = []
+        for io in (False, True):
+            es = 2 if io else 4
+            sfx = "_bf16_io" if io else "_bf16"
+            xc = x32.to(torch.bfloat16) if io else x32
+            dy = dy32.to(torch.bfloat16) if io else dy32
+            w = tables["weights_bf16" if io else "weights"]
+            sx, sdy = strip_arrays(st, xc), strip_arrays(st, dy)
+            if io:  # K4 on 2-byte elements, against the plain strips
+                idx = tables["strip_idx_bf16"]
+                got = build_strips(st, xc, idx)
+                for g, want in zip(got, sx):
+                    if not torch.equal(g.view(torch.int16),
+                                       want.view(torch.int16)):
+                        raise AssertionError(f"{label}: bf16 strips differ")
+                R = sx[0].shape[2]
+                slab = 12 * n * P_l
+                xz = torch.cat([xc.reshape(B * Fin, slab),
+                                xc.new_zeros((B * Fin, 1))], dim=1)
+                sel = torch.where(idx >= 0, idx, slab).long()
+                ms4 = graph_ms(lambda: build_strips(st, xc, idx))
+                ms4p = cuda_ms(lambda: strip_arrays(st, xc), iters=3, warmup=1)
+                ms4l = graph_ms(lambda: torch.index_select(xz, 1, sel))
+                src = np.unique(strip_index_map(st, torch.bfloat16))
+                nb = (int((src >= 0).sum()) * B * Fin
+                      + B * Fin * (2 * 12 * R * P_l + 12 * n * 128)) * 2
+                results["strips_bf16"].append(
+                    (label, 0.0, ms4, ms4p, *bound(nb, 0), ms4l))
+                line.append(f"K4 bf16 exact {ms4:.4f} ms (f32 "
+                            f"{f32_ms[('strips', label)]:.4f}, plain "
+                            f"{ms4p:.4f}, index_select {ms4l:.4f})")
+            # the float32 kernels on the same values (the weight planes
+            # rounded as the bf16 ones): what a bf16 instantiation that
+            # skipped its own rounding would return
+            xf, dyf = xc.float(), dy.float()
+            wf = tables["weights"].to(torch.bfloat16).float()
+            sxf, sdyf = strip_arrays(st, xf), strip_arrays(st, dyf)
+            y_f = fs.run_stencil_kernel(st, "cheby", K, xf, wf, sxf, wk3, B)
+            dx_f, dw_f = fs.run_dxdw_kernel(st, "cheby", K, dyf, wf, sdyf,
+                                            wk3t, xf, mask, B)
+            g_f = fs.run_grad_kernel(st, "cheby", K, xf, wf, sxf, dyf, B)
+            # K1
+            a1 = (st, "cheby", K, xc, w, sx, wk3, B, "bfloat16")
+            y_k, y_p = fs.run_stencil_kernel(*a1), fs.run_stencil_plain(*a1)
+            torch.cuda.synchronize()
+            e1, abs1 = check(f"{label} K1{sfx}", y_k[..., inner],
+                             y_p[..., inner], BF_TOL)
+            if (y_k.dtype != xc.dtype or y_k[..., :h].abs().max() != 0
+                    or y_k[..., h + n:].abs().max() != 0):
+                raise AssertionError(f"{label} K1{sfx}: dtype {y_k.dtype} "
+                                     "or pad lanes")
+            d1 = bf16_apart(f"{label} K1{sfx}", y_k[..., inner],
+                            y_f[..., inner])
+            ms1 = graph_ms(lambda: fs.run_stencil_kernel(*a1))
+            ms1p = cuda_ms(lambda: fs.run_stencil_plain(*a1), iters=3,
+                           warmup=1)
+            b1 = k1_bound(st, K, B, Fin, Fout, es)
+            results["stencil_conv" + sfx].append((label, abs1, ms1, ms1p, *b1,
+                                                  None))
+            # K2
+            a2 = (st, "cheby", K, dy, w, sdy, wk3t, xc, mask, B, "bfloat16")
+            (dx_k, dw_k), (_, dw_k2) = (fs.run_dxdw_kernel(*a2),
+                                        fs.run_dxdw_kernel(*a2))
+            dx_p, dw_p = fs.run_dxdw_plain(*a2)
+            torch.cuda.synchronize()
+            e2x, abs2x = check(f"{label} K2{sfx} dx", dx_k[..., inner],
+                               dx_p[..., inner], BF_TOL)
+            e2w, abs2w = check(f"{label} K2{sfx} dW", dw_k, dw_p, BF_DW_TOL)
+            if not torch.equal(dw_k, dw_k2):
+                raise AssertionError(f"{label} K2{sfx}: dW not repeatable")
+            d2x = bf16_apart(f"{label} K2{sfx} dx", dx_k[..., inner],
+                             dx_f[..., inner])
+            d2w = bf16_apart(f"{label} K2{sfx} dW", dw_k, dw_f, BF_DW_MOVED)
+            ms2 = graph_ms(lambda: fs.run_dxdw_kernel(*a2))
+            ms2p = cuda_ms(lambda: fs.run_dxdw_plain(*a2), iters=3, warmup=1)
+            tb, tf = tile_work(st, K, B * Fout, es)
+            b2 = bound(es * M * B * Fout + tb + wk3t.numel() * 4
+                       + es * M * B * Fin + M * 4 + es * M * B * Fin
+                       + dw_k.numel() * 4, tf + 2 * cells + B * Fin * M)
+            results["dxdw" + sfx].append((label, max(abs2x, abs2w), ms2, ms2p,
+                                          *b2, None))
+            # K3
+            a3 = (st, "cheby", K, xc, w, sx, dy, B, "bfloat16")
+            g_k, g_k2 = fs.run_grad_kernel(*a3), fs.run_grad_kernel(*a3)
+            g_p = fs.run_grad_plain(*a3)
+            torch.cuda.synchronize()
+            e3, abs3 = check(f"{label} K3{sfx} dW", g_k, g_p, BF_DW_TOL)
+            if not torch.equal(g_k, g_k2):
+                raise AssertionError(f"{label} K3{sfx}: dW not repeatable")
+            d3 = bf16_apart(f"{label} K3{sfx} dW", g_k, g_f, BF_DW_MOVED)
+            del xf, dyf, wf, sxf, sdyf, y_f, dx_f, dw_f, g_f
+            ms3 = graph_ms(lambda: fs.run_grad_kernel(*a3))
+            ms3p = cuda_ms(lambda: fs.run_grad_plain(*a3), iters=3, warmup=1)
+            tb, tf = tile_work(st, K, B * Fin, es)
+            b3 = bound(es * M * B * Fin + tb + es * M * B * Fout
+                       + g_k.numel() * 4, tf + cells)
+            results["grad" + sfx].append((label, abs3, ms3, ms3p, *b3, None))
+            line.append(
+                f"{'I/O' if io else 'band'}: K1 rel {e1:.2e} {ms1:.4f} ms "
+                f"(f32 {f32_ms[('stencil_conv', label)]:.4f}, plain "
+                f"{ms1p:.4f}, bound {b1[0]:.4f} {b1[1]}) | K2 dx rel "
+                f"{e2x:.2e} dW rel {e2w:.2e} {ms2:.4f} ms (f32 "
+                f"{f32_ms[('dxdw', label)]:.4f}, plain {ms2p:.4f}, bound "
+                f"{b2[0]:.4f} {b2[1]}) | K3 dW rel {e3:.2e} {ms3:.4f} ms (f32 "
+                f"{f32_ms[('grad', label)]:.4f}, plain {ms3p:.4f}, bound "
+                f"{b3[0]:.4f} {b3[1]}) | from f32: y {d1:.2e} dx {d2x:.2e} "
+                f"dW {d2w:.2e} / {d3:.2e}")
+        say("bf16", f"{label}: " + " || ".join(line))
+        del x32, dy32, tables
+        torch.cuda.empty_cache()
+
+    # (a) the kernels at the quick_start shapes and the headline
+    for n, Fin, Fout in [(64, 1, 8), (32, 8, 16), (16, 16, 32)]:
+        kernels_case(f"quick_start nside={n} B=16 Fin={Fin} Fout={Fout} K=10",
+                     qs_st[n], 16, Fin, Fout, 10)
+    kernels_case("headline nside=1024 B=4 Fin=4 Fout=4 K=5", st1024, 4, 4, 4,
+                 5)
+    say("bf16", f"(a) done in {time.perf_counter() - t_phase:.1f} s")
+
+    paths = {}
+    # (b) the headline conv in each mode against the float32 conv
+    B, Fin, Fout, K = 4, 4, 4, 5
+    n, h = 1024, st1024.n_steps
+    M = 12 * n * n
+    tables = as_tensors(stencil_tables(st1024, bf16_io=True), dev)
+    xf = torch.from_numpy(rng.normal(size=(B, M, Fin)).astype(np.float32)).to(dev)
+    kernel = torch.from_numpy(
+        (rng.normal(size=(Fin * K, Fout)) / np.sqrt(Fin * K)).astype(np.float32)
+    ).to(dev)
+    cot = torch.from_numpy(rng.normal(size=(B, M, Fout)).astype(np.float32)).to(dev)
+    xl = xf.clone().requires_grad_()
+    kl = kernel.clone().requires_grad_()
+
+    def fwd():
+        xc = cface_embed(xf, n, h).reshape(B * Fin, 12, n, -1)
+        y = fs.fused_stencil_conv_cfp(st1024, tables, xc, kernel, K, "cheby", B)
+        return cface_extract(y.reshape(B, Fout, 12, n, -1), h)
+
+    def step():
+        xc = cface_embed(xl, n, h).reshape(B * Fin, 12, n, -1)
+        y = fs.fused_stencil_conv_cfp(st1024, tables, xc, kl, K, "cheby", B)
+        yi = cface_extract(y.reshape(B, Fout, 12, n, -1), h)
+        return torch.autograd.grad(yi, (xl, kl), cot.to(yi.dtype))
+
+    with torch.no_grad():
+        y32 = fwd().float()
+    dx32, dk32 = step()
+    ms32 = cuda_ms(lambda: fwd(), iters=10, warmup=2)
+    head = []
+    # the path's launches: one forward and one train step a route a mode
+    # (not the timed repetitions)
+    paths["bf16_headline"] = {}
+    for mode in BF_MODES:
+        config.set_conv_dtype(mode)
+        try:
+            with torch.no_grad():
+                before = counts()
+                y = fwd()
+                torch.cuda.synchronize()
+                since(before, paths["bf16_headline"])
+                ey, _ = check(f"headline {mode} y", y, y32, BF_F32_TOL)
+                bf16_apart(f"headline {mode} y", y, y32)
+                ms_f = cuda_ms(lambda: fwd(), iters=10, warmup=2)
+            tr = {}
+            for fused_dw in (True, False):
+                config.set_fused_dw(fused_dw)
+                before = counts()
+                dx, dk = step()
+                torch.cuda.synchronize()
+                since(before, paths["bf16_headline"])
+                ex, _ = check(f"headline {mode} fused_dw={fused_dw} dx", dx,
+                              dx32, BF_F32_TOL)
+                ek, _ = check(f"headline {mode} fused_dw={fused_dw} dW", dk,
+                              dk32, BF_F32_TOL)
+                bf16_apart(f"headline {mode} fused_dw={fused_dw} dx", dx, dx32)
+                bf16_apart(f"headline {mode} fused_dw={fused_dw} dW", dk, dk32)
+                tr[fused_dw] = (cuda_ms(step, iters=5, warmup=1), ex, ek)
+        finally:
+            config.set_fused_dw(True)
+            config.set_conv_dtype("float32")
+        head.append(f"{mode}: y rel {ey:.2e}, forward {ms_f:.3f} ms (f32 "
+                    f"{ms32:.3f}); train step K2 {tr[True][0]:.3f} ms (dx rel "
+                    f"{tr[True][1]:.2e}, dW rel {tr[True][2]:.2e}), K1+K3 "
+                    f"{tr[False][0]:.3f} ms (dx rel {tr[False][1]:.2e}, dW rel "
+                    f"{tr[False][2]:.2e})")
+    say("bf16", "(b) headline conv nside 1024 K=5 4 -> 4 B=4 against float32 "
+        f"(tol {BF_F32_TOL}, each farther than {BF_MOVED}): "
+        + "; ".join(head) + f"; launches "
+        f"{paths['bf16_headline']} on {card}")
+    del tables, xf, xl, kl, cot, y32, dx32, dk32
+    torch.cuda.empty_cache()
+
+    # (c) quick_start trained and served in each mode, exported under I/O
+    nside = 64
+    npix = 12 * nside * nside
+    data = np.random.RandomState(12)
+    xt = data.normal(size=(48, npix, 1)).astype(np.float32)
+    yt = data.randint(0, 4, size=48)
+    loss_name = "sparse_categorical_crossentropy_from_logits"
+    ref = serving_model(dt, hp_nn)
+    logits32 = ref.predict(xt[:16], batch_size=16)
+    del ref
+
+    def build():
+        m = dt.HealpyGCNN(nside=nside, indices=np.arange(npix),
+                          layers=quick_start_layers(hp_nn))
+        m.build((16, npix, 1), seed=11)
+        return m
+
+    def first_steps(m, x, routes=(True, False)):
+        """One train step of a copy of ``m`` on the batch ``x`` on each
+        ``config.fused_dw`` route: {route: (loss, gradients)}."""
+        out = {}
+        try:
+            for fused_dw in routes:
+                config.set_fused_dw(fused_dw)
+                c = copy.deepcopy(m)
+                c.compile(optimizer=1e-3, loss=loss_name)
+                loss = c._trainer.train_on_batch(x, yt[:16])["loss"]
+                out[fused_dw] = (float(loss), grads_of(c))
+        finally:
+            config.set_fused_dw(True)
+        return out
+
+    # the float32 first steps, and how far the float32 step's own gradients
+    # move when only its batch is rounded to bfloat16 (their conditioning)
+    m32 = build()
+    p32 = export_jax_variables(m32)["params"]
+    first32 = first_steps(m32, xt[:16])
+    xr = torch.from_numpy(xt[:16]).to(torch.bfloat16).float().numpy()
+    cond = max(tree_errs(first_steps(m32, xr, (True,))[True][1],
+                         first32[True][1]).values())
+    del m32
+    sfx = {"bfloat16": "_bf16", "bfloat16_io": "_bf16_io"}
+    qs = {}
+    for mode in BF_MODES:
+        config.set_conv_dtype(mode)
+        try:
+            t = time.perf_counter()
+            m = build()
+            # the first step on each route from float32's weights and batch
+            same = all(e == 0 for e in tree_errs(
+                export_jax_variables(m)["params"], p32).values())
+            first = []
+            for fused_dw, (loss, g) in first_steps(m, xt[:16]).items():
+                loss32, g32 = first32[fused_dw]
+                e_loss = abs(loss - loss32) / abs(loss32)
+                errs = tree_errs(g, g32)
+                bad = {k: e for k, e in errs.items()
+                       if not BF_MOVED < e <= BF_STEP_TOL}
+                if not same or not e_loss <= BF_F32_TOL or bad:
+                    raise AssertionError(
+                        f"quick_start {mode} first step fused_dw={fused_dw}:"
+                        f" weights as float32's {same}, loss rel {e_loss:.3e}"
+                        f" (tol {BF_F32_TOL}), gradients outside ({BF_MOVED},"
+                        f" {BF_STEP_TOL}]: {bad}")
+                first.append(f"{'K2' if fused_dw else 'K1+K3'} loss rel "
+                             f"{e_loss:.2e}, gradients "
+                             f"{min(errs.values()):.2e}-"
+                             f"{max(errs.values()):.2e}")
+            m.compile(optimizer=1e-3, loss=loss_name)
+            _cuda.reset_launch_counts()  # the route counts too
+            qs_path = paths[f"bf16_quick_start{sfx[mode]}"] = {}
+            losses, step_counts = [], []
+            for i, fused_dw in enumerate((True, False, True)):
+                config.set_fused_dw(fused_dw)
+                before = counts()
+                losses.append(m._trainer.train_on_batch(
+                    xt[16 * i:16 * i + 16], yt[16 * i:16 * i + 16])["loss"])
+                torch.cuda.synchronize()
+                step_counts.append(since(before, qs_path))
+            config.set_fused_dw(True)
+            s_ = sfx[mode]
+            io = mode == "bfloat16_io"
+            # conv 1's input needs no gradient: its K1+K3 route skips dx
+            want_k2 = {"strips" + ("_bf16" if io else ""): 6,
+                       "stencil_conv" + s_: 3, "dxdw" + s_: 3}
+            want_k13 = {"strips" + ("_bf16" if io else ""): 5,
+                        "stencil_conv" + s_: 5, "grad" + s_: 3}
+            if (step_counts != [want_k2, want_k13, want_k2]
+                    or not all(np.isfinite(losses))
+                    or _cuda.route_counts["per_step_cface"]):
+                raise AssertionError(f"quick_start {mode}: steps launched "
+                                     f"{step_counts}, losses {losses}, routes "
+                                     f"{_cuda.route_counts}")
+            train_s = time.perf_counter() - t
+            # served: serving_model's weights, against the float32 logits
+            sm = serving_model(dt, hp_nn)
+            before = counts()
+            logits = sm.predict(xt[:16], batch_size=16)
+            torch.cuda.synchronize()
+            serve_counts = since(before, qs_path)
+            el = float(np.abs(logits - logits32).max()
+                       / np.abs(logits32).max())
+            if not (np.all(np.isfinite(logits)) and logits.shape == (16, 4)
+                    and BF_MOVED < el <= BF_F32_TOL
+                    and serve_counts == {"strips" + ("_bf16" if io else ""): 3,
+                                         "stencil_conv" + s_: 3}):
+                raise AssertionError(f"quick_start {mode} served: logits rel "
+                                     f"{el:.3e}, launches {serve_counts}")
+            xb = torch.from_numpy(xt[:16]).to(dev)
+            sm.eval()
+            with torch.inference_mode():
+                fwd_ms = cuda_ms(lambda: sm(xb), iters=20, warmup=3)
+            qs[mode] = (sm, logits)
+            say("bf16", f"(c) quick_start {mode}: first step against "
+                f"float32's (loss tol {BF_F32_TOL}, gradients of each leaf's"
+                f" max in ({BF_MOVED}, {BF_STEP_TOL}]; the float32 step's "
+                f"own on its batch rounded to bf16: {cond:.2e}): "
+                + "; ".join(first) + "; 3 train steps (K2, K1+K3, "
+                f"K2) losses {[round(float(v), 6) for v in losses]}, launches "
+                f"{step_counts} ({train_s:.1f} s with the build); served 16 "
+                f"maps: launches {serve_counts}, logits rel {el:.2e} from "
+                f"float32 (in ({BF_MOVED}, {BF_F32_TOL}]), {fwd_ms:.3f} ms a "
+                f"forward (float32 phase 4 "
+                f"{serve_ms:.3f}) on {card}")
+            if not io:
+                del sm
+        finally:
+            config.set_fused_dw(True)
+            config.set_conv_dtype("float32")
+
+    # the I/O model exported under its mode, replayed in a fresh process
+    sm, live = qs["bfloat16_io"]
+    here = os.path.abspath(__file__)
+    tmp = tempfile.mkdtemp(prefix="ds_bf16_export_")
+    try:
+        config.set_conv_dtype("bfloat16_io")
+        try:
+            path = os.path.join(tmp, "qs_bf16_io.pt2")
+            t = time.perf_counter()
+            nbytes = sm.save_exported(path)
+            export_s = time.perf_counter() - t
+        finally:
+            config.set_conv_dtype("float32")
+        x_path = os.path.join(tmp, "x.npy")
+        np.save(x_path, xt[:16])
+        res = subprocess.run([sys.executable, here, "--replay", path, x_path,
+                              tmp, "16", "bfloat16_io"],
+                             capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise AssertionError(f"bf16 replay failed:\n{res.stdout[-3000:]}\n"
+                                 f"{res.stderr[-6000:]}")
+        rep = json.loads(res.stdout.strip().splitlines()[-1])
+        y = np.load(os.path.join(tmp, "y0.npy"))
+        bits = np.array_equal(y.view(np.int32), live.view(np.int32))
+        want = {"strips_bf16": 3, "stencil_conv_bf16_io": 3}
+        got = {k: v for k, v in {**rep["launches"][0],
+                                 **rep["bf16_launches"][0]}.items() if v}
+        if not bits or got != want or rep["op_counts"] != {
+                "strips": 3, "stencil_conv": 3}:
+            raise AssertionError(f"bf16 replay: bitwise {bits}, launches "
+                                 f"{got}, ops {rep['op_counts']}")
+        paths["bf16_export"] = got
+        say("bf16", f"(c) quick_start exported under bfloat16_io in "
+            f"{export_s:.2f} s ({nbytes} bytes), replayed by a fresh process: "
+            f"logits bitwise equal to the live model, launches {got}, graph "
+            f"ops {rep['op_counts']}, {rep['fwd_ms']:.3f} ms a replayed "
+            f"forward on {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del sm, qs
+    torch.cuda.empty_cache()
+    say("bf16", f"phase 15 done in {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -2373,7 +2943,11 @@ def main():
     say("card", f"{card} | torch {torch.__version__} cuda {torch.version.cuda}"
         f" | capability {torch.cuda.get_device_capability(0)}")
 
-    # 2. build (phase 9's k=40 graph builds beside it and phases 3-8)
+    # 2. build (the headline graph builds beside it and phase 3's first
+    # shapes, phase 9's k=40 graph beside it and phases 3-8)
+    root = os.path.dirname(os.path.abspath(__file__))
+    prebuild_h = prebuild_headline(root)
+    atexit.register(lambda: (prebuild_h.kill(), prebuild_h.wait()))
     prebuild = prebuild_k40(os.path.dirname(os.path.abspath(__file__)))
     atexit.register(lambda: (prebuild.kill(), prebuild.wait()))
     prebuild_s = prebuild_smoothing(os.path.dirname(os.path.abspath(__file__)))
@@ -2536,10 +3110,15 @@ def main():
                   qs_st[n], 16, Fin, Fout, 10)
 
     t = time.perf_counter()
-    g1024 = build_sphere_graph(1024, k=8, method="grid")
+    if prebuild_h.wait() != 0:
+        raise AssertionError("the headline graph's side build failed")
+    waited = time.perf_counter() - t
+    g1024 = build_sphere_graph(1024, k=8, method="grid",
+                               cache_dir=os.path.join(root, ".bench_cache"))
     st1024 = g1024.deep_stencil(0.75, 5)
     head_graph_s = time.perf_counter() - t
-    say("kernels", f"headline graph + stencil built in {head_graph_s:.2f} s")
+    say("kernels", f"headline graph + stencil built beside phases 2-3 (waited "
+        f"{waited:.2f} s for it, loaded in {head_graph_s - waited:.2f} s)")
     conv_case("headline nside=1024 B=4 Fin=4 Fout=4 K=5", st1024, 4, 4, 4, 5)
 
     # 4. serving: the quick_start classifier at nside 64
@@ -3105,6 +3684,9 @@ def main():
     # the profiler's layer scopes and the filters
     knn_paths, knn_times = knn_phase(dev, card, rng)
     path_launches.update(knn_paths)
+    # 15. the bfloat16 modes: kernels, the headline conv, quick_start
+    path_launches.update(bf16_phase(dev, card, rng, qs_st, st1024, results,
+                                    serve_ms))
 
     # main-path kernel times: the quick_start convs' three shapes summed
     path_launches["quick_start_train"] = train_launches
@@ -3119,8 +3701,8 @@ def main():
         return {
             "name": kname, "route": route, "source": source,
             "replaces": replaces,
-            "launches": sum(p[kname] for p in path_launches.values()),
-            "paths": {nm: p[kname] for nm, p in path_launches.items()},
+            "launches": sum(p.get(kname, 0) for p in path_launches.values()),
+            "paths": {nm: p.get(kname, 0) for nm, p in path_launches.items()},
             "max_abs_err": max(r[1] for r in rows),
             "ms": sum(r[2] for r in qs), "plain_ms": sum(r[3] for r in qs),
             "bound_ms": sum(r[4] for r in qs),
@@ -3147,6 +3729,19 @@ def main():
         entry("bands", "cuda", "deepsphere_tpu_torch/csrc/bands.cu",
               "deepsphere_tpu/ops/stencil.py:82"),
     ]
+    # the bfloat16 instantiations (phase 15): band mode and I/O mode, and
+    # K4 on the I/O mode's 2-byte strips
+    for kname, src, line in (
+            ("stencil_conv", "stencil_conv_bf16.cu", "pallas_stencil.py:522"),
+            ("dxdw", "stencil_dxdw_bf16.cu", "pallas_stencil.py:688"),
+            ("grad", "stencil_grad_bf16.cu", "pallas_stencil.py:614")):
+        for sfx in ("_bf16", "_bf16_io"):
+            kernels.append(entry(kname + sfx, "cuda",
+                                 f"deepsphere_tpu_torch/csrc/{src}",
+                                 f"deepsphere_tpu/ops/{line}"))
+    kernels.append(entry("strips_bf16", "cuda",
+                         "deepsphere_tpu_torch/csrc/strips.cu",
+                         "deepsphere_tpu/ops/pallas_strips.py:183"))
     say("paths", f"launches by path: {path_launches}; lap chain times "
         f"{chain_times}; family {family}; smoothing and kitchen sink "
         f"{slice_times}; export {export_times}; knn {knn_times}")
@@ -3175,6 +3770,8 @@ if __name__ == "__main__":
             replay(*sys.argv[2:])
         elif sys.argv[1] == "--memory":
             memory_report(*sys.argv[2:3])
+        elif sys.argv[1] == "--sass":
+            sass_check(sys.argv[2], sys.argv[3] if len(sys.argv) > 3 else None)
         else:
             raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
     else:

@@ -41,6 +41,13 @@
 // mask (F, n, P) or null [K2]; out (B*Cch, F, n, P), zero outside the
 // interior lanes [K2]; partial (K*Crec*Cch, ncol), ncol = F * tiles^2 *
 // ceil(B / GB).
+//
+// The bfloat16 instantiations (BF; stencil_dxdw_bf16*.cu and
+// stencil_grad_bf16*.cu) stage and round as K1's (stencil_conv.cuh): the
+// windows, weights and terms in bfloat16, the channel kernel and the fold
+// operand rounded to bfloat16 as they are loaded, every sum in float32;
+// src, its strips, wext, oth and out are bfloat16 arrays where io (the
+// bf16 I/O mode), else float32; wk, mask, partial and dW stay float32.
 
 #pragma once
 
@@ -50,8 +57,10 @@ namespace ds_bwd {
 
 using ds_k1::NT;
 using ds_k1::kRun;
+using ds_k1::bf16;
 using ds_k1::cp_async_commit;
 using ds_k1::cp_async_wait_all;
+using ds_k1::ld;
 
 constexpr int kWarps = NT / 32;
 
@@ -69,6 +78,7 @@ struct BwdArgs {
   float* out;         // (B*Cch, F, n, P)            [kDxDw]
   float* partial;     // (K*Crec*Cch, ncol)
   int cheby, K, B, F, Crec, Cch, n, h, Rs, P, T, GB, chunks, vec, ncol;
+  int io;             // BF: src, its strips, wext, oth, out are bfloat16
 };
 
 __host__ __device__ constexpr int ilog2(int v) {
@@ -104,14 +114,14 @@ __device__ __forceinline__ float warp_sums(float (&v)[V], int lane) {
   return c;
 }
 
-// Fold one term (G channels in buf, BW floats apart) at this thread's PP
+// Fold one term (G channels in buf, BW elements apart) at this thread's PP
 // tile pixels (threadIdx.x + p * NT of T x T, T = 1 << lgT, at window
 // offset (h + ti) * WS + h + tj): into the dx accumulators through wkk, the
 // term's [g][FC] slice [DX], and its dW sums over the warp into red[g][FC].
-template <bool DX, int G, int PP, int FC>
+template <bool DX, int G, int PP, int FC, class E = float>
 __device__ __forceinline__ void fold(float (&acc)[PP][FC],
                                      const float (&oth)[PP][FC],
-                                     const float* __restrict__ buf,
+                                     const E* __restrict__ buf,
                                      const float* __restrict__ wkk,
                                      float* __restrict__ red, int BW, int WS,
                                      int h, int lgT, int lane) {
@@ -123,7 +133,7 @@ __device__ __forceinline__ void fold(float (&acc)[PP][FC],
     const int off =
         val ? (h + (pix >> lgT)) * WS + h + (pix & ((1 << lgT) - 1)) : 0;
 #pragma unroll
-    for (int g = 0; g < G; ++g) t[g][p] = val ? buf[g * BW + off] : 0.f;
+    for (int g = 0; g < G; ++g) t[g][p] = val ? ld(buf[g * BW + off]) : 0.f;
   }
   if constexpr (DX) {
 #pragma unroll
@@ -173,9 +183,10 @@ constexpr int min_blocks() {
   return (MODE == kDxDw ? 2 : 1) * PP * FC <= 32 ? 2 : 1;
 }
 
-template <int MODE, int R, int G, int PP, int FC>
+template <int MODE, int R, int G, int PP, int FC, bool BF = false>
 __global__ void __launch_bounds__(NT, (min_blocks<MODE, PP, FC>()))
 stencil_bwd_kernel(const BwdArgs a) {
+  using E = typename ds_k1::Staged<BF>::type;
   extern __shared__ __align__(16) float smem[];
   constexpr bool kDx = MODE == kDxDw;
   constexpr int NP = (2 * R + 1) * (2 * R + 1);
@@ -191,9 +202,9 @@ stencil_bwd_kernel(const BwdArgs a) {
   const int wkn = kDx ? K * G * FC : 0;  // one step's channel-kernel slice
   const int ndw = K * a.Crec * FC;       // the block's dW cells
   float* s_wk = smem;                             // 2 x K x G x FC [kDx]
-  float* s_w = s_wk + 2 * wkn;                    // (Ww+kRun-1) x Ww x NP
-  float* bufs = s_w + (((Ww + kRun - 1) * Ww * NP + 3) & ~3);  // 2 x G x BW
-  float* s_red = bufs + 2 * G * BW;               // 2 x kWarps x NV
+  E* s_w = reinterpret_cast<E*>(s_wk + 2 * wkn);  // (Ww+kRun-1) x Ww x NP
+  E* bufs = s_w + (((Ww + kRun - 1) * Ww * NP + 3) & ~3);  // 2 x G x BW
+  float* s_red = reinterpret_cast<float*>(bufs + 2 * G * BW);  // 2 x kWarps x NV
   float* s_dw = s_red + 2 * kWarps * NV;          // K x Crec x FC
 
   const int tiles = n / T;
@@ -208,22 +219,47 @@ stencil_bwd_kernel(const BwdArgs a) {
   const int nsteps = nb * ngroups;
 
   // the weight window once per block, the halo windows and the
-  // channel-kernel slice as K1 stages them
-  ds_k1::stage_weights<R>(s_w, a.wext, a.F, f, n, a.Rs, P, h, x0, y0, Ww);
+  // channel-kernel slice as K1 stages them (the float32 statements as they
+  // were before the bfloat16 instantiations, so that their code is too)
+  if constexpr (BF) {
+    if (a.io)
+      ds_k1::stage_weights_bf<R>(s_w, reinterpret_cast<const bf16*>(a.wext),
+                                 a.F, f, n, a.Rs, P, h, x0, y0, Ww);
+    else
+      ds_k1::stage_weights_bf<R>(s_w, a.wext, a.F, f, n, a.Rs, P, h, x0, y0,
+                                 Ww);
+  } else {
+    ds_k1::stage_weights<R>(s_w, a.wext, a.F, f, n, a.Rs, P, h, x0, y0, Ww);
+  }
   for (int e = tid; e < ndw; e += NT) s_dw[e] = 0.f;
   const ds_k1::Halo halo{a.src, a.top, a.bot, a.ls, n, h, a.Rs, P};
   // halo windows of step s's channel group into buffer set `set`
   auto stage_step = [&](int s, int set) {
     const int b = b0 + s / ngroups;
     const int rc0 = (s % ngroups) * G;
-    ds_k1::stage_window<G>(bufs + set * G * BW, halo,
-                           ((long long)b * a.Crec + rc0) * a.F + f, a.F, x0,
-                           y0, W0, WS, BW, a.vec);
+    if constexpr (BF) {
+      const long long cf0 = ((long long)b * a.Crec + rc0) * a.F + f;
+      if (a.io)
+        ds_k1::stage_window_bf<G>(bufs + set * G * BW, ds_k1::as_bf16(halo),
+                                  cf0, a.F, x0, y0, W0, WS, BW);
+      else
+        ds_k1::stage_window_bf<G>(bufs + set * G * BW, halo, cf0, a.F, x0,
+                                  y0, W0, WS, BW);
+    } else {
+      ds_k1::stage_window<G>(bufs + set * G * BW, halo,
+                             ((long long)b * a.Crec + rc0) * a.F + f, a.F, x0,
+                             y0, W0, WS, BW, a.vec);
+    }
   };
-  // step s's slice of wk, zero past Cch: s_wk[slot][k][g][c]
+  // step s's slice of wk, zero past Cch: s_wk[slot][k][g][c] (rounded to
+  // bfloat16 by BF)
   auto stage_wk = [&](int s, int slot) {
-    ds_k1::stage_slice<G, FC>(s_wk + slot * wkn, a.wk, K, a.Crec, a.Cch,
-                              (s % ngroups) * G, c0);
+    if constexpr (BF)
+      ds_k1::stage_slice_bf<G, FC>(s_wk + slot * wkn, a.wk, K, a.Crec, a.Cch,
+                                   (s % ngroups) * G, c0);
+    else
+      ds_k1::stage_slice<G, FC>(s_wk + slot * wkn, a.wk, K, a.Crec, a.Cch,
+                                (s % ngroups) * G, c0);
   };
 
   const int lgT = 31 - __clz(T);  // T is 8, 16 or 32
@@ -245,14 +281,27 @@ stencil_bwd_kernel(const BwdArgs a) {
 #pragma unroll
     for (int c = 0; c < FC; ++c) acc[p][c] = 0.f;
   // the fold operand of batch index b at this thread's pixels, 0 past Cch
+  // (rounded to bfloat16 by BF, as the TPU kernel's bf16 dot operand)
   auto load_oth = [&](int b) {
 #pragma unroll
     for (int c = 0; c < FC; ++c) {
       const bool ok = c0 + c < a.Cch;
-      const float* oc = a.oth + ((long long)(b * a.Cch + c0 + c) * a.F + f) * n * P;
+      if constexpr (BF) {
+        const long long base =
+            ((long long)(b * a.Cch + c0 + c) * a.F + f) * n * P;
+        const bf16* ob = reinterpret_cast<const bf16*>(a.oth) + base;
+        const float* of = a.oth + base;
 #pragma unroll
-      for (int p = 0; p < PP; ++p)
-        oth[p][c] = ok && gof[p] >= 0 ? msk[p] * oc[gof[p]] : 0.f;
+        for (int p = 0; p < PP; ++p)
+          oth[p][c] = ok && gof[p] >= 0
+              ? msk[p] * (a.io ? ld(ob[gof[p]]) : ds_k1::rnd(of[gof[p]]))
+              : 0.f;
+      } else {
+        const float* oc = a.oth + ((long long)(b * a.Cch + c0 + c) * a.F + f) * n * P;
+#pragma unroll
+        for (int p = 0; p < PP; ++p)
+          oth[p][c] = ok && gof[p] >= 0 ? msk[p] * oc[gof[p]] : 0.f;
+      }
     }
   };
   // term k of channels rc0.. from the warps' sums in slot `slot` into the
@@ -290,16 +339,16 @@ stencil_bwd_kernel(const BwdArgs a) {
     if (gi == 0) load_oth(b0 + s / ngroups);
     const float* wk = s_wk + (s & 1) * wkn;
     float* red = s_red + warp * NV;
-    float* P0 = bufs + cur * G * BW;        // even terms
-    float* P1 = bufs + (cur ^ 1) * G * BW;  // odd terms
+    E* P0 = bufs + cur * G * BW;        // even terms
+    E* P1 = bufs + (cur ^ 1) * G * BW;  // odd terms
     const int next = cur ^ flip;
     if (K == 1 && more) stage_step(s + 1, next);
 
     fold<kDx, G, PP, FC>(acc, oth, P0, wk, red + ((s * K) & 1) * kWarps * NV,
                          BW, WS, h, lgT, lane);
     for (int k = 1; k < K; ++k) {
-      float* src = (k & 1) ? P0 : P1;
-      float* dst = (k & 1) ? P1 : P0;
+      E* src = (k & 1) ? P0 : P1;
+      E* dst = (k & 1) ? P1 : P0;
       if (a.cheby && k >= 2)
         ds_k1::lap<R, G, true>(src, dst, s_w, W0, WS, Ww, BW, k);
       else
@@ -312,7 +361,20 @@ stencil_bwd_kernel(const BwdArgs a) {
                            lgT, lane);
     }
 
-    if (kDx && gi == ngroups - 1) {  // the batch index's dx is complete
+    if constexpr (BF) {
+      if (kDx && gi == ngroups - 1) {  // the batch index's dx is complete
+        const long long ch0 = (long long)(b0 + s / ngroups) * a.Cch + c0;
+        const int nc = min(FC, a.Cch - c0);
+        if (a.io) {
+          bf16* out = reinterpret_cast<bf16*>(a.out);
+          ds_k1::store_sums(out, acc, gof, ch0, nc, a.F, f, n, P);
+          ds_k1::zero_pad_lanes(out, ch0, nc, a.F, f, n, P, h, T, x0, y0);
+        } else {
+          ds_k1::store_sums(a.out, acc, gof, ch0, nc, a.F, f, n, P);
+          ds_k1::zero_pad_lanes(a.out, ch0, nc, a.F, f, n, P, h, T, x0, y0);
+        }
+      }
+    } else if (kDx && gi == ngroups - 1) {  // the batch index's dx is complete
       const int b = b0 + s / ngroups;
       const int nc = min(FC, a.Cch - c0);
 #pragma unroll
@@ -373,38 +435,43 @@ reduce_partials(const float* __restrict__ partial, float* __restrict__ out,
   if (threadIdx.x == 0) out[blockIdx.x] = s[0];
 }
 
-template <int MODE, int R, int G, int PP, int FC>
+template <int MODE, int R, int G, int PP, int FC, bool BF>
 int launch(const BwdArgs& a, dim3 grid, size_t smem, cudaStream_t stream) {
-  return ds_k1::launch_kernel(stencil_bwd_kernel<MODE, R, G, PP, FC>, a, grid,
-                              smem, stream);
+  return ds_k1::launch_kernel(stencil_bwd_kernel<MODE, R, G, PP, FC, BF>, a,
+                              grid, smem, stream);
 }
 
 // FC fold channels a block: 4 or 8 with 4 pixels a thread (32-tile), up
 // to 32 with 1
-template <int MODE, int R, int G, int PP>
+template <int MODE, int R, int G, int PP, bool BF>
 int launch_fc(int FC, const BwdArgs& a, dim3 grid, size_t smem,
               cudaStream_t stream) {
   switch (FC) {
-    case 4: return launch<MODE, R, G, PP, 4>(a, grid, smem, stream);
-    case 8: return launch<MODE, R, G, PP, 8>(a, grid, smem, stream);
-    case 16: return launch<MODE, R, G, PP, (PP == 1 ? 16 : 8)>(a, grid, smem, stream);
-    default: return launch<MODE, R, G, PP, (PP == 1 ? 32 : 8)>(a, grid, smem, stream);
+    case 4: return launch<MODE, R, G, PP, 4, BF>(a, grid, smem, stream);
+    case 8: return launch<MODE, R, G, PP, 8, BF>(a, grid, smem, stream);
+    case 16:
+      return launch<MODE, R, G, PP, (PP == 1 ? 16 : 8), BF>(a, grid, smem,
+                                                            stream);
+    default:
+      return launch<MODE, R, G, PP, (PP == 1 ? 32 : 8), BF>(a, grid, smem,
+                                                            stream);
   }
 }
 
 // T x T tiles: 4 pixels a thread on a 32-tile (radius <= 2 only), 1 on
 // smaller tiles
-template <int MODE, int R, int G>
+template <int MODE, int R, int G, bool BF = false>
 int launch_t(int T, int FC, const BwdArgs& a, dim3 grid, size_t smem,
              cudaStream_t stream) {
   if constexpr (R <= 2) {
-    if (T == 32) return launch_fc<MODE, R, G, 4>(FC, a, grid, smem, stream);
+    if (T == 32) return launch_fc<MODE, R, G, 4, BF>(FC, a, grid, smem, stream);
   }
-  return launch_fc<MODE, R, G, 1>(FC, a, grid, smem, stream);
+  return launch_fc<MODE, R, G, 1, BF>(FC, a, grid, smem, stream);
 }
 
 // one per (mode, radius, lap group G): the instantiations of
-// stencil_dxdw*.cu and stencil_grad*.cu
+// stencil_dxdw*.cu and stencil_grad*.cu, the bfloat16 ones in their
+// *_bf16*.cu
 #define DS_BWD_LAUNCH(NAME)                                                \
   int NAME(int T, int FC, const BwdArgs& a, dim3 grid, size_t smem,        \
            cudaStream_t stream)
@@ -422,19 +489,35 @@ DS_BWD_LAUNCH(grad_r2_g1);
 DS_BWD_LAUNCH(grad_r2_g2);
 DS_BWD_LAUNCH(grad_r3_g1);
 DS_BWD_LAUNCH(grad_r4_g1);
+DS_BWD_LAUNCH(dxdw_bf16_r1_g1);
+DS_BWD_LAUNCH(dxdw_bf16_r1_g2);
+DS_BWD_LAUNCH(dxdw_bf16_r1_g4);
+DS_BWD_LAUNCH(dxdw_bf16_r2_g1);
+DS_BWD_LAUNCH(dxdw_bf16_r2_g2);
+DS_BWD_LAUNCH(dxdw_bf16_r3_g1);
+DS_BWD_LAUNCH(dxdw_bf16_r4_g1);
+DS_BWD_LAUNCH(grad_bf16_r1_g1);
+DS_BWD_LAUNCH(grad_bf16_r1_g2);
+DS_BWD_LAUNCH(grad_bf16_r1_g4);
+DS_BWD_LAUNCH(grad_bf16_r2_g1);
+DS_BWD_LAUNCH(grad_bf16_r2_g2);
+DS_BWD_LAUNCH(grad_bf16_r3_g1);
+DS_BWD_LAUNCH(grad_bf16_r4_g1);
 
 // Checks the shape (T, G, GB and FC as ops/fused_stencil.py::_bwd_plan
 // picks them), launches the kernel on its plan, then the reduction of its
-// partial sums into dw (K*Crec*Cch floats).  Returns cudaGetLastError()
-// after the launches (or the first error).
+// partial sums into dw (K*Crec*Cch floats).  prec: 0 float32, 1 the
+// bfloat16 band on float32 arrays, 2 on bfloat16 arrays.  Returns
+// cudaGetLastError() after the launches (or the first error).
 inline int launch_bwd(int mode, BwdArgs a, int radius, int nplanes, int G,
-                      int FC, float* dw, cudaStream_t stream) {
+                      int FC, int prec, float* dw, cudaStream_t stream) {
   const int T = a.T;
   const int gm = radius == 1 ? 4 : (radius == 2 ? 2 : 1);
   const bool fc_ok =
       FC == 4 || FC == 8 || ((FC == 16 || FC == 32) && T != 32);
   if (T == 32 && radius > 2) return (int)cudaErrorInvalidValue;
-  if ((mode != kDxDw && mode != kGrad) || (T != 8 && T != 16 && T != 32)
+  if ((mode != kDxDw && mode != kGrad) || prec < 0 || prec > 2
+      || (T != 8 && T != 16 && T != 32)
       || a.n % T || radius < 1 || radius > 4
       || nplanes != (2 * radius + 1) * (2 * radius + 1) || a.K < 1
       || radius * (a.K - 1) > a.h || a.B < 1 || a.F < 1 || a.F > 12
@@ -454,14 +537,38 @@ inline int launch_bwd(int mode, BwdArgs a, int radius, int nplanes, int G,
   a.vec = ((reinterpret_cast<size_t>(a.src) | reinterpret_cast<size_t>(a.top)
             | reinterpret_cast<size_t>(a.bot) | reinterpret_cast<size_t>(a.ls))
            & 15) == 0;
-  const size_t smem = sizeof(float)
-      * ((mode == kDxDw ? (size_t)2 * a.K * G * FC : 0)
-         + (((size_t)(Ww + kRun - 1) * Ww * nplanes + 3) & ~(size_t)3)
-         + (size_t)2 * G * (W0 + kRun - 1) * WS
-         + (size_t)2 * kWarps * G * FC + (size_t)a.K * a.Crec * FC);
+  a.io = prec == 2;
+  // the windows in the staged type, the rest in float32
+  const size_t es = prec ? sizeof(bf16) : sizeof(float);
+  const size_t smem =
+      sizeof(float)
+          * ((mode == kDxDw ? (size_t)2 * a.K * G * FC : 0)
+             + (size_t)2 * kWarps * G * FC + (size_t)a.K * a.Crec * FC)
+      + es * ((((size_t)(Ww + kRun - 1) * Ww * nplanes + 3) & ~(size_t)3)
+              + (size_t)2 * G * (W0 + kRun - 1) * WS);
   dim3 grid(tiles * tiles, a.F, (unsigned)gz);
   int rc;
-  if (mode == kDxDw) {
+  if (prec && mode == kDxDw) {
+    switch (radius * 8 + G) {
+      case 9: rc = dxdw_bf16_r1_g1(T, FC, a, grid, smem, stream); break;
+      case 10: rc = dxdw_bf16_r1_g2(T, FC, a, grid, smem, stream); break;
+      case 12: rc = dxdw_bf16_r1_g4(T, FC, a, grid, smem, stream); break;
+      case 17: rc = dxdw_bf16_r2_g1(T, FC, a, grid, smem, stream); break;
+      case 18: rc = dxdw_bf16_r2_g2(T, FC, a, grid, smem, stream); break;
+      case 25: rc = dxdw_bf16_r3_g1(T, FC, a, grid, smem, stream); break;
+      default: rc = dxdw_bf16_r4_g1(T, FC, a, grid, smem, stream); break;
+    }
+  } else if (prec) {
+    switch (radius * 8 + G) {
+      case 9: rc = grad_bf16_r1_g1(T, FC, a, grid, smem, stream); break;
+      case 10: rc = grad_bf16_r1_g2(T, FC, a, grid, smem, stream); break;
+      case 12: rc = grad_bf16_r1_g4(T, FC, a, grid, smem, stream); break;
+      case 17: rc = grad_bf16_r2_g1(T, FC, a, grid, smem, stream); break;
+      case 18: rc = grad_bf16_r2_g2(T, FC, a, grid, smem, stream); break;
+      case 25: rc = grad_bf16_r3_g1(T, FC, a, grid, smem, stream); break;
+      default: rc = grad_bf16_r4_g1(T, FC, a, grid, smem, stream); break;
+    }
+  } else if (mode == kDxDw) {
     switch (radius * 8 + G) {
       case 9: rc = dxdw_r1_g1(T, FC, a, grid, smem, stream); break;
       case 10: rc = dxdw_r1_g2(T, FC, a, grid, smem, stream); break;

@@ -46,6 +46,13 @@
 // The launch plan (ops/fused_stencil.py::_k1_plan) picks T, G, GB and FC
 // from the shape, by rules measured on an H100 (PERF.md).  Plain float32 FMAs on the CUDA cores, no tensor cores, no
 // TF32.
+//
+// Its bfloat16 instantiations (stencil_conv_bf16*.cu) run the TPU kernel's
+// bf16 band mode (bdt = bfloat16): the windows and weights staged as
+// bfloat16, each term rounded to bfloat16, float32 sums; on float32
+// arrays (mode 1) or bfloat16 ones (mode 2, the bf16 I/O mode: x, the
+// strips with Rs = roundup(h, 16), the R16 weight planes and the output
+// in bfloat16).  See stencil_conv.cuh.
 
 #include "stencil_conv.cuh"
 
@@ -63,17 +70,21 @@ extern "C" {
 // 16 or 32, dividing n); G: input channels whose laps run together (1, 2
 // or 4 at radius 1, 1 or 2 at radius 2, 1 beyond; it divides Fin); GB:
 // batch indices per block; FC: output channels per block (4, 8, 16, or 32
-// for T <= 16).  Returns cudaGetLastError() after the launch (or the
+// for T <= 16).  mode: 0 float32; 1 the bfloat16 band on float32 arrays;
+// 2 the bfloat16 band on bfloat16 arrays (xc, the strips, wext, out; wk3
+// stays float32).  Returns cudaGetLastError() after the launch (or the
 // attribute error).
 int ds_stencil_conv(const float* xc, const float* top, const float* bot,
                     const float* ls, const float* wext, const float* wk3,
                     float* out, int kind, int K, int radius, int nplanes,
                     int B, int F, int Fin, int Fout, int n, int h, int Rs,
-                    int P, int T, int G, int GB, int FC, void* stream) {
+                    int P, int T, int G, int GB, int FC, int mode,
+                    void* stream) {
   const int gm = radius == 1 ? 4 : (radius == 2 ? 2 : 1);
   const bool fc_ok = FC == 4 || FC == 8 || FC == 16 || (FC == 32 && T != 32);
   if (T == 32 && radius > 2) return (int)cudaErrorInvalidValue;
-  if ((T != 8 && T != 16 && T != 32) || n % T || radius < 1 || radius > 4
+  if (mode < 0 || mode > 2 || (T != 8 && T != 16 && T != 32) || n % T
+      || radius < 1 || radius > 4
       || nplanes != (2 * radius + 1) * (2 * radius + 1) || K < 1
       || radius * (K - 1) > h || B < 1 || F < 1 || F > 12 || Fin < 1
       || Fout < 1 || G < 1 || G > gm || (G & (G - 1)) || Fin % G
@@ -91,13 +102,25 @@ int ds_stencil_conv(const float* xc, const float* top, const float* bot,
            | reinterpret_cast<size_t>(bot) | reinterpret_cast<size_t>(ls))
           & 15) == 0;
   ConvArgs a{xc, top, bot, ls, wext, wk3, out, kind == 0, K, B, F, Fin, Fout,
-             n, h, Rs, P, T, GB, chunks, vec};
-  const size_t smem = sizeof(float)
-      * ((size_t)2 * K * G * FC
-         + (((size_t)(Ww + kRun - 1) * Ww * nplanes + 3) & ~(size_t)3)
-         + (size_t)2 * G * (W0 + kRun - 1) * WS);
+             n, h, Rs, P, T, GB, chunks, vec, mode == 2};
+  // the channel-kernel slots in float32, the windows in the staged type
+  const size_t es = mode ? sizeof(bf16) : sizeof(float);
+  const size_t smem = sizeof(float) * (size_t)2 * K * G * FC
+      + es * ((((size_t)(Ww + kRun - 1) * Ww * nplanes + 3) & ~(size_t)3)
+              + (size_t)2 * G * (W0 + kRun - 1) * WS);
   dim3 grid((n / T) * (n / T), F, (unsigned)gz);
   cudaStream_t st = (cudaStream_t)stream;
+  if (mode) {
+    switch (radius * 8 + G) {
+      case 9: return launch_bf16_r1_g1(T, FC, a, grid, smem, st);
+      case 10: return launch_bf16_r1_g2(T, FC, a, grid, smem, st);
+      case 12: return launch_bf16_r1_g4(T, FC, a, grid, smem, st);
+      case 17: return launch_bf16_r2_g1(T, FC, a, grid, smem, st);
+      case 18: return launch_bf16_r2_g2(T, FC, a, grid, smem, st);
+      case 25: return launch_bf16_r3_g1(T, FC, a, grid, smem, st);
+      default: return launch_bf16_r4_g1(T, FC, a, grid, smem, st);
+    }
+  }
   switch (radius * 8 + G) {
     case 9: return launch_r1_g1(T, FC, a, grid, smem, st);
     case 10: return launch_r1_g2(T, FC, a, grid, smem, st);

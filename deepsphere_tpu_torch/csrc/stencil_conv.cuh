@@ -1,10 +1,27 @@
 // Templates of the fused stencil conv kernel (K1); the design note, the
 // C entry point and the dispatch are in stencil_conv.cu.  Each
 // stencil_conv*.cu compiles the instantiations of some (radius, lap group)
-// pairs, so that one nvcc per source builds them in parallel.
+// pairs, so that one nvcc per source builds them in parallel; the bfloat16
+// instantiations (BF) are in stencil_conv_bf16*.cu.
+//
+// The bfloat16 kernels (config.conv_dtype "bfloat16" and "bfloat16_io")
+// are the same kernel with its staged elements in bfloat16: the weight
+// window and the halo windows are rounded to bfloat16 once as they are
+// staged (from float32 arrays, round to nearest even, the band mode) or
+// copied (from bfloat16 arrays, the I/O mode, a runtime flag of the
+// launch), each lap sums its taps in float32 and stores its term rounded
+// to bfloat16 (a Chebyshev term's 2 L~T - T formed in float32 first), the
+// channel kernel is rounded to bfloat16 as it is staged, and the fold
+// accumulates in float32: the rounding points of
+// ops/fused_stencil.py::_plain_terms.  A cp.async copy moves at least 4
+// bytes and a bfloat16 window row may start at an odd lane, so the
+// bfloat16 kernels stage through registers (several loads in flight a
+// thread) instead of cp.async; the output is float32, or bfloat16 in the
+// I/O mode.  The float32 kernels' code is unchanged (if constexpr).
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <map>
@@ -16,6 +33,40 @@ namespace ds_k1 {
 
 constexpr int NT = 256;  // threads per block
 constexpr int kRun = 4;  // lap points per thread: a vertical run
+
+using bf16 = __nv_bfloat16;
+
+// the element the kernels stage in shared memory: float, or bfloat16 (BF)
+template <bool BF>
+struct Staged {
+  using type = float;
+};
+template <>
+struct Staged<true> {
+  using type = bf16;
+};
+
+// a staged element as float32, and a float32 as a staged element (rounded
+// to nearest even for bfloat16)
+__device__ __forceinline__ float ld(float v) { return v; }
+__device__ __forceinline__ float ld(bf16 v) { return __bfloat162float(v); }
+template <class E>
+__device__ __forceinline__ E to(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ bf16 to<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+// a float32 rounded to bfloat16 precision, kept in float32
+__device__ __forceinline__ float rnd(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+// a source element (float32 or bfloat16) as bfloat16
+__device__ __forceinline__ bf16 to_bf16(float v) { return __float2bfloat16_rn(v); }
+__device__ __forceinline__ bf16 to_bf16(bf16 v) { return v; }
+// loads a thread keeps in flight when it stages through registers
+constexpr int kLoads = 8;
 
 // plane index of tap (dx, dy) in stencil_offsets(R): radius 1 in the
 // healpix_base neighbour order, larger radii in raster order, centre last
@@ -33,6 +84,8 @@ __device__ __forceinline__ constexpr int plane_of(int dx, int dy) {
   return idx < centre ? idx : idx - 1;
 }
 
+// xc, the strips, wext and out are bfloat16 arrays where io (the bfloat16
+// kernels' I/O mode), else float32; wk3 is float32
 struct ConvArgs {
   const float* xc;
   const float* top;
@@ -41,7 +94,7 @@ struct ConvArgs {
   const float* wext;
   const float* wk3;
   float* out;
-  int cheby, K, B, F, Fin, Fout, n, h, Rs, P, T, GB, chunks, vec;
+  int cheby, K, B, F, Fin, Fout, n, h, Rs, P, T, GB, chunks, vec, io;
 };
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -75,14 +128,15 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // One lap over [lo, W0 - lo)^2: dst = L~ src (or 2 L~ src - dst, Chebyshev
-// in place over T_{k-2}: TWICE) for G channels, buffers BW floats apart,
-// rows WS floats apart.
+// in place over T_{k-2}: TWICE) for G channels, buffers BW elements apart,
+// rows WS elements apart; elements E (float, or bfloat16: the sums in
+// float32, each term stored rounded).
 // Nothing in the unrolled body depends on a runtime value, so its loads can
 // be issued ahead of the FMAs.
-template <int R, int G, bool TWICE>
-__device__ __forceinline__ void lap(const float* __restrict__ src,
-                                    float* __restrict__ dst,
-                                    const float* __restrict__ s_w, int W0,
+template <int R, int G, bool TWICE, class E = float>
+__device__ __forceinline__ void lap(const E* __restrict__ src,
+                                    E* __restrict__ dst,
+                                    const E* __restrict__ s_w, int W0,
                                     int WS, int Ww, int BW, int k) {
   constexpr int NP = (2 * R + 1) * (2 * R + 1);
   const int lo = R * k;
@@ -106,8 +160,8 @@ __device__ __forceinline__ void lap(const float* __restrict__ src,
       for (int o = 0; o < kRun; ++o) s[g][o] = 0.f;
     // weights of point (i0, j): window position (i0, j) is weight-window
     // position (i0 - R, j - R)
-    const float* wb = s_w + ((i0 - R) * Ww + (j - R)) * NP;
-    const float* xb = src + (i0 - R) * WS + (j - R);
+    const E* wb = s_w + ((i0 - R) * Ww + (j - R)) * NP;
+    const E* xb = src + (i0 - R) * WS + (j - R);
 #pragma unroll
     for (int a = 0; a < kRun + 2 * R; ++a) {  // input row i0 - R + a
 #pragma unroll
@@ -115,12 +169,12 @@ __device__ __forceinline__ void lap(const float* __restrict__ src,
         float v[G];
 #pragma unroll
         for (int g = 0; g < G; ++g)
-          v[g] = xb[g * BW + a * WS + c];
+          v[g] = ld(xb[g * BW + a * WS + c]);
 #pragma unroll
         for (int o = 0; o < kRun; ++o) {
           const int dx = a - R - o;
           if (dx >= -R && dx <= R) {
-            const float w = wb[o * wrow + plane_of<R>(dx, c - R)];
+            const float w = ld(wb[o * wrow + plane_of<R>(dx, c - R)]);
 #pragma unroll
             for (int g = 0; g < G; ++g) s[g][o] = fmaf(w, v[g], s[g][o]);
           }
@@ -133,8 +187,8 @@ __device__ __forceinline__ void lap(const float* __restrict__ src,
       if (i < hi) {
 #pragma unroll
         for (int g = 0; g < G; ++g) {
-          float* d = dst + g * BW + i * WS + j;
-          *d = TWICE ? fmaf(2.f, s[g][o], -*d) : s[g][o];
+          E* d = dst + g * BW + i * WS + j;
+          *d = to<E>(TWICE ? fmaf(2.f, s[g][o], -ld(*d)) : s[g][o]);
         }
       }
     }
@@ -151,9 +205,9 @@ __device__ __forceinline__ void lap(const float* __restrict__ src,
 // accumulators of this thread's PP pixels (tile pixels threadIdx.x + p * NT
 // of T x T, T = 1 << lgT, at window offset (h + ti) * WS + h + tj, computed
 // here rather than held in registers); wkk: the term's [g][FC] slice.
-template <int G, int PP, int FC>
+template <int G, int PP, int FC, class E = float>
 __device__ __forceinline__ void fold(float (&acc)[PP][FC],
-                                     const float* __restrict__ buf,
+                                     const E* __restrict__ buf,
                                      const float* __restrict__ wkk, int BW,
                                      int WS, int h, int lgT) {
   int off[PP];
@@ -168,7 +222,7 @@ __device__ __forceinline__ void fold(float (&acc)[PP][FC],
   for (int g = 0; g < G; ++g) {
     float t[PP];
 #pragma unroll
-    for (int p = 0; p < PP; ++p) t[p] = val[p] ? buf[g * BW + off[p]] : 0.f;
+    for (int p = 0; p < PP; ++p) t[p] = val[p] ? ld(buf[g * BW + off[p]]) : 0.f;
     const float4* w4 = reinterpret_cast<const float4*>(wkk + g * FC);
 #pragma unroll
     for (int c = 0; c < FC / 4; ++c) {
@@ -210,20 +264,30 @@ __device__ __forceinline__ void stage_weights(float* s_w,
 }
 
 // A channel array and its halo strips: what a tile's halo window reads
-struct Halo {
-  const float* x;    // (C, F, n, P), face col y at lane y + h
-  const float* top;  // (C, F, Rs, P): the rows above the face
-  const float* bot;  // (C, F, Rs, P): the rows below
-  const float* ls;   // (C, F, n, 128): the lanes west and east
+template <class S>
+struct HaloT {
+  const S* x;    // (C, F, n, P), face col y at lane y + h
+  const S* top;  // (C, F, Rs, P): the rows above the face
+  const S* bot;  // (C, F, Rs, P): the rows below
+  const S* ls;   // (C, F, n, 128): the lanes west and east
   int n, h, Rs, P;
 };
+using Halo = HaloT<float>;
+
+// the same arrays read as bfloat16 (the I/O mode)
+__device__ __forceinline__ HaloT<bf16> as_bf16(const Halo& s) {
+  return {reinterpret_cast<const bf16*>(s.x),
+          reinterpret_cast<const bf16*>(s.top),
+          reinterpret_cast<const bf16*>(s.bot),
+          reinterpret_cast<const bf16*>(s.ls), s.n, s.h, s.Rs, s.P};
+}
 
 // face row x, lane y of channel cf (channel c of face f: c * F + f): the
 // top/bot strips above and below the face, the lane strips west and east
 // of it, else the array
-__device__ __forceinline__ const float* window_src(const Halo& s,
-                                                   long long cf, int x,
-                                                   int y) {
+template <class S>
+__device__ __forceinline__ const S* window_src(const HaloT<S>& s,
+                                               long long cf, int x, int y) {
   if (x < 0) return s.top + (cf * s.Rs + s.Rs + x) * s.P + y;
   if (x >= s.n) return s.bot + (cf * s.Rs + x - s.n) * s.P + y;
   if (y < s.h) return s.ls + (cf * s.n + x) * 128 + y;
@@ -282,12 +346,124 @@ __device__ __forceinline__ void stage_slice(float* dst,
   }
 }
 
+// The bfloat16 kernels' staging, through registers: each thread keeps
+// kLoads loads in flight before it stores their values (rounded to
+// bfloat16 from float32 sources, copied from bfloat16 ones).
+
+// the weight window, laid out as stage_weights lays it
+template <int R, class S>
+__device__ __forceinline__ void stage_weights_bf(bf16* s_w,
+                                                 const S* __restrict__ wext,
+                                                 int F, int f, int n, int Rs,
+                                                 int P, int h, int x0, int y0,
+                                                 int Ww) {
+  constexpr int NP = (2 * R + 1) * (2 * R + 1);
+  const long long nr = n + 2 * Rs;
+  const int tot = NP * Ww * Ww;
+  for (int e0 = threadIdx.x; e0 < tot; e0 += kLoads * NT) {
+    S v[kLoads];
+    int o[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int e = e0 + u * NT;
+      o[u] = -1;
+      if (e < tot) {
+        const int row = e / Ww;  // plane d, window row i
+        const int j = e - row * Ww;
+        const int d = row / Ww;
+        const int i = row - d * Ww;
+        const int x = x0 - h + R + i;
+        const int wr = x < 0 ? n + Rs + x : (x >= n ? Rs + x : x);
+        v[u] = wext[((long long)(d * F + f) * nr + wr) * P + y0 + R + j];
+        o[u] = (i * Ww + j) * NP + d;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u)
+      if (o[u] >= 0) s_w[o[u]] = to_bf16(v[u]);
+  }
+}
+
+// the halo windows of the G channels cf0 + g * F into dst + g * BW, laid
+// out as stage_window lays them (W0 columns a row)
+template <int G, class S>
+__device__ __forceinline__ void stage_window_bf(bf16* dst,
+                                                const HaloT<S>& s,
+                                                long long cf0, int F, int x0,
+                                                int y0, int W0, int WS,
+                                                int BW) {
+  const int per = W0 * W0;
+  const int tot = G * per;
+  for (int e0 = threadIdx.x; e0 < tot; e0 += kLoads * NT) {
+    S v[kLoads];
+    int o[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int e = e0 + u * NT;
+      o[u] = -1;
+      if (e < tot) {
+        const int g = e / per;
+        const int r = e - g * per;
+        const int i = r / W0;
+        const int j = r - i * W0;
+        v[u] = *window_src(s, cf0 + (long long)g * F, x0 - s.h + i, y0 + j);
+        o[u] = g * BW + i * WS + j;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u)
+      if (o[u] >= 0) dst[o[u]] = to_bf16(v[u]);
+  }
+}
+
+// stage_slice's channel-kernel slice, each weight rounded to bfloat16
+// (kept in float32)
+template <int G, int FC>
+__device__ __forceinline__ void stage_slice_bf(float* dst,
+                                               const float* __restrict__ wk,
+                                               int K, int Cin, int Cout,
+                                               int ci0, int co0) {
+  for (int e = threadIdx.x; e < K * G * FC; e += NT) {
+    const int k = e / (G * FC);
+    const int rem = e - k * G * FC;
+    const int g = rem / FC;
+    const int co = co0 + rem - g * FC;
+    dst[e] = co < Cout ? rnd(wk[((long long)k * Cin + ci0 + g) * Cout + co])
+                       : 0.f;
+  }
+}
+
+// The bfloat16 kernels' output of a tile: the PP x FC sums of this thread
+// (then zeroed) to channels ch0 + o (o < nc) of out (C, F, n, P), float32
+// or bfloat16 (O), at its pixels' offsets gof in a face plane (-1: none).
+// The float32 kernels keep their own writes (K2's dx through a shared
+// function spilled, 5% slower at the headline).
+template <int PP, int FC, class O>
+__device__ __forceinline__ void store_sums(O* __restrict__ out,
+                                           float (&acc)[PP][FC],
+                                           const long long (&gof)[PP],
+                                           long long ch0, int nc, int F,
+                                           int f, int n, int P) {
+#pragma unroll
+  for (int o = 0; o < FC; ++o) {
+    if (o < nc) {
+      O* oc = out + ((ch0 + o) * F + f) * n * P;
+#pragma unroll
+      for (int p = 0; p < PP; ++p) {
+        if (gof[p] >= 0) oc[gof[p]] = to<O>(acc[p][o]);
+        acc[p][o] = 0.f;
+      }
+    }
+  }
+}
+
 // Zeros at the lanes outside the interior of channels ch0 + o (o < nc) of
 // out (C, F, n, P) along the tile's T rows: [0, h) by the first tile
 // column, [h + n, P) by the last.  (Each kernel writes the interior from
 // its own registers: K2 through its pixel offsets, which keeps its dx
 // write free of spills.)
-__device__ __forceinline__ void zero_pad_lanes(float* __restrict__ out,
+template <class O>
+__device__ __forceinline__ void zero_pad_lanes(O* __restrict__ out,
                                                long long ch0, int nc, int F,
                                                int f, int n, int P, int h,
                                                int T, int x0, int y0) {
@@ -301,7 +477,7 @@ __device__ __forceinline__ void zero_pad_lanes(float* __restrict__ out,
       const int ti = rem / wpad;
       const int l = rem - ti * wpad;
       const int y = l < wlo ? l : h + n + (l - wlo);
-      out[(((ch0 + o) * F + f) * n + x0 + ti) * P + y] = 0.f;
+      out[(((ch0 + o) * F + f) * n + x0 + ti) * P + y] = to<O>(0.f);
     }
   }
 }
@@ -314,9 +490,10 @@ constexpr int min_blocks() {
   return PP * FC <= 32 ? 2 : 1;
 }
 
-template <int R, int G, int PP, int FC>
+template <int R, int G, int PP, int FC, bool BF = false>
 __global__ void __launch_bounds__(NT, (min_blocks<PP, FC>()))
 stencil_conv_kernel(const ConvArgs a) {
+  using E = typename Staged<BF>::type;
   extern __shared__ __align__(16) float smem[];
   constexpr int NP = (2 * R + 1) * (2 * R + 1);
   const int T = a.T, h = a.h, n = a.n, P = a.P, K = a.K;
@@ -326,9 +503,9 @@ stencil_conv_kernel(const ConvArgs a) {
   const int BW = (W0 + kRun - 1) * WS;  // one channel's buffer (+ run slack)
   const int wkn = K * G * FC;     // one group's channel-kernel slice
   float* s_wk = smem;                               // 2 x K x G x FC
-  float* s_w = s_wk + 2 * wkn;                      // (Ww+kRun-1) x Ww x NP
-  // 2 x G x BW, 16-byte aligned
-  float* bufs = s_w + (((Ww + kRun - 1) * Ww * NP + 3) & ~3);
+  E* s_w = reinterpret_cast<E*>(s_wk + 2 * wkn);    // (Ww+kRun-1) x Ww x NP
+  // 2 x G x BW, 16-byte aligned (float)
+  E* bufs = s_w + (((Ww + kRun - 1) * Ww * NP + 3) & ~3);
 
   const int tiles = n / T;
   const int f = blockIdx.y;
@@ -340,21 +517,42 @@ stencil_conv_kernel(const ConvArgs a) {
   const int ngroups = a.Fin / G;  // G divides Fin
   const int nsteps = nb * ngroups;
 
-  stage_weights<R>(s_w, a.wext, a.F, f, n, a.Rs, P, h, x0, y0, Ww);
   const Halo halo{a.xc, a.top, a.bot, a.ls, n, h, a.Rs, P};
+  if constexpr (BF) {
+    if (a.io)
+      stage_weights_bf<R>(s_w, reinterpret_cast<const bf16*>(a.wext), a.F,
+                          f, n, a.Rs, P, h, x0, y0, Ww);
+    else
+      stage_weights_bf<R>(s_w, a.wext, a.F, f, n, a.Rs, P, h, x0, y0, Ww);
+  } else {
+    stage_weights<R>(s_w, a.wext, a.F, f, n, a.Rs, P, h, x0, y0, Ww);
+  }
   // halo windows of step s's channel group into buffer set `set`
   auto stage_step = [&](int s, int set) {
     const int b = b0 + s / ngroups;
     const int fi0 = (s % ngroups) * G;
-    stage_window<G>(bufs + set * G * BW, halo,
-                    ((long long)b * a.Fin + fi0) * a.F + f, a.F, x0, y0, W0,
-                    WS, BW, a.vec);
+    const long long cf0 = ((long long)b * a.Fin + fi0) * a.F + f;
+    if constexpr (BF) {
+      if (a.io)
+        stage_window_bf<G>(bufs + set * G * BW, as_bf16(halo), cf0, a.F, x0,
+                           y0, W0, WS, BW);
+      else
+        stage_window_bf<G>(bufs + set * G * BW, halo, cf0, a.F, x0, y0, W0,
+                           WS, BW);
+    } else {
+      stage_window<G>(bufs + set * G * BW, halo, cf0, a.F, x0, y0, W0, WS,
+                      BW, a.vec);
+    }
   };
   // step s's slice of wk3, zero past Fout: s_wk[slot][k][g][fo], copied
-  // asynchronously like the windows
+  // asynchronously like the windows (rounded to bfloat16 by BF)
   auto stage_wk = [&](int s, int slot) {
-    stage_slice<G, FC>(s_wk + slot * wkn, a.wk3, K, a.Fin, a.Fout,
-                       (s % ngroups) * G, fo0);
+    if constexpr (BF)
+      stage_slice_bf<G, FC>(s_wk + slot * wkn, a.wk3, K, a.Fin, a.Fout,
+                            (s % ngroups) * G, fo0);
+    else
+      stage_slice<G, FC>(s_wk + slot * wkn, a.wk3, K, a.Fin, a.Fout,
+                         (s % ngroups) * G, fo0);
   };
 
   const int lgT = 31 - __clz(T);  // T is 8, 16 or 32
@@ -381,15 +579,15 @@ stencil_conv_kernel(const ConvArgs a) {
     if (more) stage_wk(s + 1, (s + 1) & 1);
     cp_async_commit();
     const float* wk = s_wk + (s & 1) * wkn;
-    float* P0 = bufs + cur * G * BW;        // even terms
-    float* P1 = bufs + (cur ^ 1) * G * BW;  // odd terms
+    E* P0 = bufs + cur * G * BW;        // even terms
+    E* P1 = bufs + (cur ^ 1) * G * BW;  // odd terms
     const int next = cur ^ flip;
     if (K == 1 && more) stage_step(s + 1, next);
 
     fold<G, PP, FC>(acc, P0, wk, BW, WS, h, lgT);
     for (int k = 1; k < K; ++k) {
-      float* src = (k & 1) ? P0 : P1;
-      float* dst = (k & 1) ? P1 : P0;
+      E* src = (k & 1) ? P0 : P1;
+      E* dst = (k & 1) ? P1 : P0;
       if (a.cheby && k >= 2)
         lap<R, G, true>(src, dst, s_w, W0, WS, Ww, BW, k);
       else
@@ -399,7 +597,29 @@ stencil_conv_kernel(const ConvArgs a) {
       fold<G, PP, FC>(acc, dst, wk + k * G * FC, BW, WS, h, lgT);
     }
 
-    if ((s + 1) % ngroups == 0) {  // the batch index is complete
+    if constexpr (BF) {
+      if ((s + 1) % ngroups == 0) {  // the batch index is complete
+        const int b = b0 + s / ngroups;
+        const int nfo = min(FC, a.Fout - fo0);
+        long long gof[PP];
+#pragma unroll
+        for (int p = 0; p < PP; ++p) {
+          const int pix = threadIdx.x + p * NT;
+          gof[p] = pix < T * T ? (long long)(x0 + (pix >> lgT)) * P + h + y0
+                                     + (pix & (T - 1))
+                               : -1;
+        }
+        const long long ch0 = (long long)b * a.Fout + fo0;
+        if (a.io) {
+          bf16* out = reinterpret_cast<bf16*>(a.out);
+          store_sums(out, acc, gof, ch0, nfo, a.F, f, n, P);
+          zero_pad_lanes(out, ch0, nfo, a.F, f, n, P, h, T, x0, y0);
+        } else {
+          store_sums(a.out, acc, gof, ch0, nfo, a.F, f, n, P);
+          zero_pad_lanes(a.out, ch0, nfo, a.F, f, n, P, h, T, x0, y0);
+        }
+      }
+    } else if ((s + 1) % ngroups == 0) {  // the batch index is complete
       const int b = b0 + s / ngroups;
       const int nfo = min(FC, a.Fout - fo0);
 #pragma unroll
@@ -453,35 +673,37 @@ int launch_kernel(void (*kern)(Args), const Args& a, dim3 grid, size_t smem,
   return (int)cudaGetLastError();
 }
 
-template <int R, int G, int PP, int FC>
+template <int R, int G, int PP, int FC, bool BF>
 int launch(const ConvArgs& a, dim3 grid, size_t smem, cudaStream_t stream) {
-  return launch_kernel(stencil_conv_kernel<R, G, PP, FC>, a, grid, smem,
+  return launch_kernel(stencil_conv_kernel<R, G, PP, FC, BF>, a, grid, smem,
                        stream);
 }
 
-template <int R, int G, int PP>
+template <int R, int G, int PP, bool BF>
 int launch_fc(int FC, const ConvArgs& a, dim3 grid, size_t smem,
               cudaStream_t stream) {
   switch (FC) {
-    case 4: return launch<R, G, PP, 4>(a, grid, smem, stream);
-    case 8: return launch<R, G, PP, 8>(a, grid, smem, stream);
-    case 16: return launch<R, G, PP, 16>(a, grid, smem, stream);
-    default: return launch<R, G, PP, (PP == 1 ? 32 : 16)>(a, grid, smem, stream);
+    case 4: return launch<R, G, PP, 4, BF>(a, grid, smem, stream);
+    case 8: return launch<R, G, PP, 8, BF>(a, grid, smem, stream);
+    case 16: return launch<R, G, PP, 16, BF>(a, grid, smem, stream);
+    default:
+      return launch<R, G, PP, (PP == 1 ? 32 : 16), BF>(a, grid, smem, stream);
   }
 }
 
 // T x T tiles: 4 pixels a thread on a 32-tile (radius <= 2 only: larger
 // radii fit no 32-tile), 1 on smaller tiles
-template <int R, int G>
+template <int R, int G, bool BF = false>
 int launch_t(int T, int FC, const ConvArgs& a, dim3 grid, size_t smem,
              cudaStream_t stream) {
   if constexpr (R <= 2) {
-    if (T == 32) return launch_fc<R, G, 4>(FC, a, grid, smem, stream);
+    if (T == 32) return launch_fc<R, G, 4, BF>(FC, a, grid, smem, stream);
   }
-  return launch_fc<R, G, 1>(FC, a, grid, smem, stream);
+  return launch_fc<R, G, 1, BF>(FC, a, grid, smem, stream);
 }
 
-// one per (radius, lap group G): the instantiations of stencil_conv*.cu
+// one per (radius, lap group G): the instantiations of stencil_conv*.cu,
+// and the bfloat16 ones of stencil_conv_bf16*.cu
 #define DS_K1_LAUNCH(NAME)                                                 \
   int NAME(int T, int FC, const ConvArgs& a, dim3 grid, size_t smem,       \
            cudaStream_t stream)
@@ -492,5 +714,12 @@ DS_K1_LAUNCH(launch_r2_g1);
 DS_K1_LAUNCH(launch_r2_g2);
 DS_K1_LAUNCH(launch_r3_g1);
 DS_K1_LAUNCH(launch_r4_g1);
+DS_K1_LAUNCH(launch_bf16_r1_g1);
+DS_K1_LAUNCH(launch_bf16_r1_g2);
+DS_K1_LAUNCH(launch_bf16_r1_g4);
+DS_K1_LAUNCH(launch_bf16_r2_g1);
+DS_K1_LAUNCH(launch_bf16_r2_g2);
+DS_K1_LAUNCH(launch_bf16_r3_g1);
+DS_K1_LAUNCH(launch_bf16_r4_g1);
 
 }  // namespace ds_k1

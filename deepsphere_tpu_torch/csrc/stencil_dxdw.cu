@@ -50,19 +50,22 @@ extern "C" {
 // (8, 16 or 32, dividing n), G (recursion channels per lap, dividing Fc), GB
 // (batch indices per block) and FC (x channels per block: 4 or 8 on a
 // 32-tile, up to 32 on smaller ones): the plan of
-// ops/fused_stencil.py::_bwd_plan.  Returns cudaGetLastError() after the
-// two launches (or the first error).
+// ops/fused_stencil.py::_bwd_plan.  prec: 0 float32, 1 the bfloat16 band
+// on float32 arrays, 2 on bfloat16 arrays (dy, its strips, wext, xr, dx;
+// the bfloat16 instantiations of stencil_dxdw_bf16*.cu).  Returns
+// cudaGetLastError() after the two launches (or the first error).
 int ds_stencil_dxdw(const float* dy, const float* top, const float* bot,
                     const float* ls, const float* wext, const float* wk3t,
                     const float* xr, const float* mask, float* dx,
                     float* partial, float* dw, int kind, int K, int radius,
                     int nplanes, int B, int F, int Fc, int Fx, int n, int h,
                     int Rs, int P, int T, int G, int GB, int FC,
-                    void* stream) {
+                    int prec, void* stream) {
   ds_bwd::BwdArgs a{dy, top, bot, ls, wext, wk3t, xr, mask, dx, partial,
-                    kind == 0, K, B, F, Fc, Fx, n, h, Rs, P, T, GB, 0, 0, 0};
-  return ds_bwd::launch_bwd(ds_bwd::kDxDw, a, radius, nplanes, G, FC, dw,
-                            (cudaStream_t)stream);
+                    kind == 0, K, B, F, Fc, Fx, n, h, Rs, P, T, GB, 0, 0, 0,
+                    0};
+  return ds_bwd::launch_bwd(ds_bwd::kDxDw, a, radius, nplanes, G, FC, prec,
+                            dw, (cudaStream_t)stream);
 }
 
 }  // extern "C"

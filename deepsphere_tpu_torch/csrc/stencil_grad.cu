@@ -41,19 +41,20 @@ extern "C" {
 
 // kind: 0 Chebyshev, 1 monomial.  F: faces in the arrays.  T, G (dividing
 // Fin), GB and FC (dy channels per block): the plan of
-// ops/fused_stencil.py::_bwd_plan, as for ds_stencil_dxdw.  Returns
+// ops/fused_stencil.py::_bwd_plan, as for ds_stencil_dxdw; prec as its
+// (xc, its strips, wext and dy bfloat16 at 2).  Returns
 // cudaGetLastError() after the two launches (or the first error).
 int ds_stencil_grad(const float* xc, const float* top, const float* bot,
                     const float* ls, const float* wext, const float* dy,
                     float* partial, float* dw, int kind, int K, int radius,
                     int nplanes, int B, int F, int Fin, int Fout, int n,
                     int h, int Rs, int P, int T, int G, int GB, int FC,
-                    void* stream) {
+                    int prec, void* stream) {
   ds_bwd::BwdArgs a{xc, top, bot, ls, wext, nullptr, dy, nullptr, nullptr,
                     partial, kind == 0, K, B, F, Fin, Fout, n, h, Rs, P, T,
-                    GB, 0, 0, 0};
-  return ds_bwd::launch_bwd(ds_bwd::kGrad, a, radius, nplanes, G, FC, dw,
-                            (cudaStream_t)stream);
+                    GB, 0, 0, 0, 0};
+  return ds_bwd::launch_bwd(ds_bwd::kGrad, a, radius, nplanes, G, FC, prec,
+                            dw, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -27,6 +27,10 @@
 //   one 16-byte store per channel.
 // Writes are coalesced 16-byte stores.  The output is bit-identical to the
 // plain version, since each element is a copy.
+//
+// The same kernel copies 2-byte elements (the bfloat16 strips of the
+// bf16 I/O conv, R = roundup(h, 16), through their own source map): a
+// group is then four bfloat16 copied as their bits, 8 bytes.
 
 #include <cuda_runtime.h>
 
@@ -37,9 +41,12 @@ constexpr int kThreads = 256;
 // every main-path shape among 1, 2, 4, 8 and 16 (PERF.md)
 constexpr int kCC = 2;
 
+// E: the element (float, or unsigned short: a bfloat16's bits); V: four
+// of them
+template <class E, class V>
 __global__ void __launch_bounds__(kThreads)
-strips_kernel(const float* __restrict__ src, const int* __restrict__ idx,
-              float* __restrict__ out, int C, long long slab, int F,
+strips_kernel(const E* __restrict__ src, const int* __restrict__ idx,
+              E* __restrict__ out, int C, long long slab, int F,
               int n, int h, int R, int P, int vec) {
   const int tb4 = F * R * (P / 4);  // 16-byte groups of one channel's top
   const int ls4 = F * n * 32;       // ... and of its ls
@@ -64,11 +71,11 @@ strips_kernel(const float* __restrict__ src, const int* __restrict__ idx,
     base = 2LL * C * tb4 + rem;
     stride = ls4;
   }
-  float4* o = reinterpret_cast<float4*>(out) + base;
+  V* o = reinterpret_cast<V*>(out) + base;
   const int c0 = blockIdx.y * kCC;
   const int c1 = min(C, c0 + kCC);
   if (!data) {
-    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    const V z = {0, 0, 0, 0};
     for (int c = c0; c < c1; ++c) o[c * stride] = z;
     return;
   }
@@ -77,15 +84,15 @@ strips_kernel(const float* __restrict__ src, const int* __restrict__ idx,
   const bool run = vec && m.x >= 0 && (m.x & 3) == 0 && m.y == m.x + 1
                    && m.z == m.x + 2 && m.w == m.x + 3;
   for (int c = c0; c < c1; ++c) {
-    const float* s = src + c * slab;
-    float4 v;
+    const E* s = src + c * slab;
+    V v;
     if (run) {
-      v = *reinterpret_cast<const float4*>(s + m.x);
+      v = *reinterpret_cast<const V*>(s + m.x);
     } else {
-      v.x = m.x >= 0 ? s[m.x] : 0.f;
-      v.y = m.y >= 0 ? s[m.y] : 0.f;
-      v.z = m.z >= 0 ? s[m.z] : 0.f;
-      v.w = m.w >= 0 ? s[m.w] : 0.f;
+      v.x = m.x >= 0 ? s[m.x] : E(0);
+      v.y = m.y >= 0 ? s[m.y] : E(0);
+      v.z = m.z >= 0 ? s[m.z] : E(0);
+      v.w = m.w >= 0 ? s[m.w] : E(0);
     }
     o[c * stride] = v;
   }
@@ -98,21 +105,30 @@ extern "C" {
 // src: (C, slab) sources; idx: one channel's int32 source map over
 // [top (F, R, P) | bot (F, R, P) | ls (F, n, 128)], -1 for a zero; out: the
 // three strips of C channels in one allocation, [top | bot | ls]; vec: src
-// and slab allow 16-byte loads.  idx must be 16-byte aligned.  Returns
+// and slab allow loads of four aligned elements; es: bytes of an element,
+// 4 (float32) or 2 (bfloat16).  idx must be 16-byte aligned.  Returns
 // cudaGetLastError().
-int ds_strips(const float* src, const int* idx, float* out, int C,
+int ds_strips(const void* src, const int* idx, void* out, int C,
               long long slab, int F, int n, int h, int R, int P, int vec,
-              void* stream) {
+              int es, void* stream) {
   if (reinterpret_cast<size_t>(idx) & 15) return (int)cudaErrorMisalignedAddress;
-  if (C < 1 || F < 1 || F > 12 || n < 1 || h < 1 || h > R
+  if ((es != 4 && es != 2) || C < 1 || F < 1 || F > 12 || n < 1 || h < 1
+      || h > R
       || 2 * h > 128 || P % 128 || n + 2 * h > P)
     return (int)cudaErrorInvalidValue;
   const long long groups = 2LL * F * R * (P / 4) + (long long)F * n * 32;
   const long long gy = (C + kCC - 1) / kCC;
   if (gy > 65535 || groups > (1LL << 30)) return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)((groups + kThreads - 1) / kThreads), (unsigned)gy);
-  strips_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      src, idx, out, C, slab, F, n, h, R, P, vec);
+  if (es == 4)
+    strips_kernel<float, float4><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        static_cast<const float*>(src), idx, static_cast<float*>(out), C,
+        slab, F, n, h, R, P, vec);
+  else
+    strips_kernel<unsigned short, ushort4>
+        <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+            static_cast<const unsigned short*>(src), idx,
+            static_cast<unsigned short*>(out), C, slab, F, n, h, R, P, vec);
   return (int)cudaGetLastError();
 }
 

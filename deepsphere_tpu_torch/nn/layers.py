@@ -42,6 +42,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from .. import config
 from ..ops import spmv
 from ..ops.layout import face_to_nest, nest_to_face, nside_of_axis
 from ..ops.fused_stencil import cface_route
@@ -452,7 +453,8 @@ class _GraphPolyConv(_Layer):
         ``state_dict``, moved by ``.to``."""
         st = self.graph.face_stencil(self._scale)
         if not self._chain_keys:
-            tables = stencil_tables(st)
+            tables = stencil_tables(
+                st, bf16_io=config.conv_dtype == "bfloat16_io")
             for k, v in as_tensors(tables, self.kernel.device).items():
                 self.register_buffer(f"chain_{k}", v, persistent=False)
             self._chain_keys = tuple(tables)
@@ -489,7 +491,10 @@ class _GraphPolyConv(_Layer):
         elif cfg is not None:
             tables = self._sharded_ellpack().shard_tables(cfg.pixel_rank)
         elif st is not None:
-            tables = stencil_tables(st)
+            # bf16 I/O reads the bfloat16 weight planes built once here:
+            # set config.set_conv_dtype before the model is built
+            tables = stencil_tables(
+                st, bf16_io=config.conv_dtype == "bfloat16_io")
         else:
             idx, val = self.graph.ellpack(self._scale)
             tables = {"idx": idx, "val": val}

@@ -65,16 +65,23 @@ class _Dense(_Layer):
 
 
 class AddPositionEmbs(_Layer):
-    """Adds a learned positional embedding of shape (1, seq, emb)."""
+    """Adds a learned positional embedding of shape (1, seq, emb).
 
-    def __init__(self):
-        super().__init__()
+    ``posemb_init``: a callable of (shape, generator) returning the initial
+    embedding, as the convs' ``initializer``; None draws N(0, 0.02)."""
+
+    def __init__(self, posemb_init=None):
+        super().__init__(posemb_init=posemb_init)
+        self.posemb_init = posemb_init
         self.register_parameter("pos_embedding", None)
 
     def forward(self, x):
         if self.pos_embedding is None:
-            w = torch.randn((1,) + tuple(x.shape[1:]),
-                            generator=self._init_generator) * 0.02
+            shape = (1,) + tuple(x.shape[1:])
+            if self.posemb_init is None:
+                w = torch.randn(shape, generator=self._init_generator) * 0.02
+            else:
+                w = self.posemb_init(shape, self._init_generator)
             self.pos_embedding = nn.Parameter(w.to(x.device))
         return x + self.pos_embedding.to(x.dtype)
 

@@ -1,6 +1,12 @@
 from . import attention, layout, smoothing, spmv, stencil
 from . import library  # registers the kernels' custom ops (deepsphere::*)
-from .spmv import chebyshev_basis, ellpack_spmv, graph_conv, monomial_basis
+from .spmv import (
+    bernstein_basis,
+    chebyshev_basis,
+    ellpack_spmv,
+    graph_conv,
+    monomial_basis,
+)
 
 __all__ = [
     "attention",
@@ -12,5 +18,6 @@ __all__ = [
     "ellpack_spmv",
     "chebyshev_basis",
     "monomial_basis",
+    "bernstein_basis",
     "graph_conv",
 ]

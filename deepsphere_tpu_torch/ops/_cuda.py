@@ -6,7 +6,8 @@ over ``stencil_conv*.cu``, ``stencil_dxdw.cu`` and ``stencil_grad.cu`` as
 the two modes of the backward template ``stencil_bwd.cuh``, which runs its
 laps and stages its windows through K1's device functions, with their
 instantiations spread over
-``stencil_dxdw_r*.cu`` and ``stencil_grad_r*.cu``, and ``bands.cu``) have
+``stencil_dxdw_r*.cu`` and ``stencil_grad_r*.cu``, the bfloat16
+instantiations of all three in ``*_bf16*.cu``, and ``bands.cu``) have
 a plain C interface.
 At first use each ``.cu`` is compiled by its own ``nvcc`` for Hopper
 (``sm_90a``), all of them at once, and the objects are linked into one
@@ -18,7 +19,10 @@ The kernels are reached through their custom ops (:mod:`.library`): each
 op's CUDA implementation adds one to its entry of :data:`launch_counts`
 where it launches its kernel, and nowhere else, so a run (a replayed
 ``torch.export`` artifact too) can show that its main path went through
-the kernels.  Beside them, :data:`route_counts` counts
+the kernels; a bfloat16 instantiation counts in :data:`bf16_launch_counts`
+instead, by kernel and mode (``_bf16``: the band mode on float32 arrays,
+``_bf16_io``: bfloat16 arrays; ``strips_bf16``: K4 on 2-byte elements).
+Beside them, :data:`route_counts` counts
 the routes chosen from a shape that launch none of these kernels (the
 cface conv's per-step route, ``ops/stencil.py::_cface_per_step``) or that
 choose which launches run (the lap chain: ``lap_chain`` for each conv that
@@ -36,8 +40,8 @@ import os
 import subprocess
 import time
 
-__all__ = ["build", "lib", "check", "launch_counts", "route_counts",
-           "reset_launch_counts"]
+__all__ = ["build", "lib", "check", "launch_counts", "bf16_launch_counts",
+           "route_counts", "reset_launch_counts"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -48,6 +52,10 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: kernel name -> launches since the last :func:`reset_launch_counts`
 launch_counts = {"strips": 0, "stencil_conv": 0, "dxdw": 0, "grad": 0,
                  "bands": 0}
+#: bfloat16 instantiation -> launches since the last :func:`reset_launch_counts`
+bf16_launch_counts = {"strips_bf16": 0, "stencil_conv_bf16": 0,
+                      "stencil_conv_bf16_io": 0, "dxdw_bf16": 0,
+                      "dxdw_bf16_io": 0, "grad_bf16": 0, "grad_bf16_io": 0}
 #: route name -> times taken since the last :func:`reset_launch_counts`
 route_counts = {"per_step_cface": 0, "chain_cface": 0, "lap_chain": 0,
                 "smooth_fused": 0, "smooth_per_step": 0}
@@ -57,7 +65,7 @@ _lib = None
 
 def reset_launch_counts():
     """Set every launch count and every route count to 0."""
-    for counts in (launch_counts, route_counts):
+    for counts in (launch_counts, bf16_launch_counts, route_counts):
         for k in counts:
             counts[k] = 0
 
@@ -128,13 +136,13 @@ def lib():
         path, _, _ = build()
         L = ctypes.CDLL(path)
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        L.ds_strips.argtypes = [vp, vp, vp, ci, ll] + [ci] * 6 + [vp]
+        L.ds_strips.argtypes = [vp, vp, vp, ci, ll] + [ci] * 7 + [vp]
         L.ds_strips.restype = ci
-        L.ds_stencil_conv.argtypes = [vp] * 7 + [ci] * 16 + [vp]
+        L.ds_stencil_conv.argtypes = [vp] * 7 + [ci] * 17 + [vp]
         L.ds_stencil_conv.restype = ci
-        L.ds_stencil_dxdw.argtypes = [vp] * 11 + [ci] * 16 + [vp]
+        L.ds_stencil_dxdw.argtypes = [vp] * 11 + [ci] * 17 + [vp]
         L.ds_stencil_dxdw.restype = ci
-        L.ds_stencil_grad.argtypes = [vp] * 8 + [ci] * 16 + [vp]
+        L.ds_stencil_grad.argtypes = [vp] * 8 + [ci] * 17 + [vp]
         L.ds_stencil_grad.restype = ci
         L.ds_bands.argtypes = [vp, vp] + [ci] * 6 + [vp]
         L.ds_bands.restype = ci

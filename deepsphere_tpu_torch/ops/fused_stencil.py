@@ -39,6 +39,14 @@ every row), so tests always check the raw kernels as well.
 
 The conv is a ``torch.autograd.Function`` (:func:`fused_stencil_conv_cfp`);
 its backward takes the route that ``config.fused_dw`` names.
+
+Precision (``config.conv_dtype``, the JAX package's modes): float32; the
+bfloat16 band mode, where K1-K3 and their plain versions round to bfloat16
+at the points :func:`_plain_terms` names and keep float32 device arrays;
+and the bfloat16 I/O mode, where the conv's own device arrays (activations,
+strips, weight planes, output, dy and dx) are bfloat16 too, on the convs
+that :func:`cfp_io_available` takes (the band mode on the others).  The
+corner correction stays float32 in every mode, as the JAX package's.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from __future__ import annotations
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .. import config
@@ -54,8 +63,13 @@ from .strips import build_strips, strip_arrays
 
 __all__ = [
     "cfp_geometry",
+    "cfp_io_available",
+    "reextend_weights",
+    "strip_rows",
     "cfp_structural_available",
     "cface_route",
+    "staged_bytes",
+    "conv_dtypes",
     "chain_refused",
     "run_stencil_kernel",
     "run_stencil_plain",
@@ -93,15 +107,17 @@ class Plan(NamedTuple):
     grid: tuple
 
 
-def _k1_smem(T, h, r, nplanes, K, G, FC):
+def _k1_smem(T, h, r, nplanes, K, G, FC, es=4):
     """Dynamic shared bytes of one K1 block: two slots of the group's
-    channel kernel, the interleaved weight window (padded to 16 bytes) and
-    2 x G halo-window buffers (rows padded to 16 bytes, and kRun - 1 rows
-    of slack for the last run)."""
+    channel kernel (float32), the interleaved weight window (padded to 4
+    elements) and 2 x G halo-window buffers (rows padded to 4 elements,
+    and kRun - 1 rows of slack for the last run), of ``es`` bytes an
+    element: 4, or 2 for the bfloat16 kernels, which stage bfloat16."""
     W0 = T + 2 * h
     Ww = W0 - 2 * r
-    return 4 * (2 * K * G * FC + _round_up((Ww + _K1_RUN - 1) * Ww * nplanes, 4)
-                + 2 * G * (W0 + _K1_RUN - 1) * _round_up(W0, 4))
+    return (4 * 2 * K * G * FC
+            + es * (_round_up((Ww + _K1_RUN - 1) * Ww * nplanes, 4)
+                    + 2 * G * (W0 + _K1_RUN - 1) * _round_up(W0, 4)))
 
 
 def _batch_group(blocks, B, sms):
@@ -112,9 +128,10 @@ def _batch_group(blocks, B, sms):
                or [1])
 
 
-def _k1_plan(n, h, r, nplanes, K, B, F, Fin, Fout, sms):
+def _k1_plan(n, h, r, nplanes, K, B, F, Fin, Fout, sms, es=4):
     """K1's launch plan on a card of ``sms`` SMs, or None where the kernel
-    does not take the shape.
+    does not take the shape (``es``: bytes of a staged element,
+    :func:`_k1_smem`).
 
     The largest tile side (32, 16 or 8, dividing n) whose window fits
     shared memory; on it the largest lap group G (a power of two up to
@@ -133,7 +150,7 @@ def _k1_plan(n, h, r, nplanes, K, B, F, Fin, Fout, sms):
         cap = 16 if t == 32 else 32
         fc = next(c for c in (4, 8, 16, 32) if c >= min(Fout, cap))
         for g in (g for g in (4, 2, 1) if g <= _K1_GMAX[r] and Fin % g == 0):
-            smem = _k1_smem(t, h, r, nplanes, K, g, fc)
+            smem = _k1_smem(t, h, r, nplanes, K, g, fc, es)
             if smem > _SMEM_MAX:
                 continue
             chunks = -(-Fout // fc)
@@ -150,23 +167,25 @@ def _k1_plan(n, h, r, nplanes, K, B, F, Fin, Fout, sms):
 _BWD_WARPS = 8
 
 
-def _bwd_smem(T, h, r, nplanes, K, G, FC, Crec, dx):
+def _bwd_smem(T, h, r, nplanes, K, G, FC, Crec, dx, es=4):
     """Dynamic shared bytes of one K2 (``dx``) or K3 block: K1's weight
-    window and 2 x G halo-window buffers, two slots of the group's channel
+    window and 2 x G halo-window buffers (``es`` bytes an element, as
+    :func:`_k1_smem`), and in float32 two slots of the group's channel
     kernel (K2 only), two slots of the warps' dW sums of one term, and the
     block's K x Crec x FC dW cells."""
     W0 = T + 2 * h
     Ww = W0 - 2 * r
-    return 4 * ((2 * K * G * FC if dx else 0)
-                + _round_up((Ww + _K1_RUN - 1) * Ww * nplanes, 4)
-                + 2 * G * (W0 + _K1_RUN - 1) * _round_up(W0, 4)
-                + 2 * _BWD_WARPS * G * FC + K * Crec * FC)
+    return (4 * ((2 * K * G * FC if dx else 0)
+                 + 2 * _BWD_WARPS * G * FC + K * Crec * FC)
+            + es * (_round_up((Ww + _K1_RUN - 1) * Ww * nplanes, 4)
+                    + 2 * G * (W0 + _K1_RUN - 1) * _round_up(W0, 4)))
 
 
-def _bwd_plan(n, h, r, nplanes, K, B, F, Crec, Cch, dx, sms):
+def _bwd_plan(n, h, r, nplanes, K, B, F, Crec, Cch, dx, sms, es=4):
     """The launch plan of K2 (``dx``: recursion over Crec = Fout channels,
     Cch = Fin fold channels) or K3 (Crec = Fin, Cch = Fout) on a card of
-    ``sms`` SMs, or None where the kernels do not take the shape.
+    ``sms`` SMs, or None where the kernels do not take the shape (``es``:
+    bytes of a staged element, :func:`_bwd_smem`).
 
     FC the smallest of 4, 8, 16, 32 that holds Cch (at most 8 on a 32-tile,
     whose threads hold 4 pixels x FC fold values, and K2's as many dx
@@ -187,7 +206,7 @@ def _bwd_plan(n, h, r, nplanes, K, B, F, Crec, Cch, dx, sms):
         fc = next(c for c in (4, 8, 16, 32)
                   if c >= min(Cch, 8 if t == 32 else 32))
         for g in (g for g in (4, 2, 1) if g <= _K1_GMAX[r] and Crec % g == 0):
-            smem = _bwd_smem(t, h, r, nplanes, K, g, fc, Crec, dx)
+            smem = _bwd_smem(t, h, r, nplanes, K, g, fc, Crec, dx, es)
             if smem > _SMEM_MAX:
                 continue
             chunks = -(-Cch // fc)
@@ -240,47 +259,57 @@ def cface_route(st: FaceStencil, kind, n_terms, B, Fin, Fout, sms,
     on the shallow stencil (h = radius, K = 2, Fin -> Fin), which never
     builds the deep window.  A shape both refuse raises.
 
-    The JAX gate's other declines route around TPU compiler faults and
-    have no counterpart here (``config``): h > 8 and not a multiple of 8
-    (its ``deep_stencil`` rounds such depths up; the port keeps exact
-    depths, h = 9 at quick_start, which the kernels take), and a dot-form
-    contraction below ``dot_fused_min_nside``."""
+    The plans are those of the precision in force (``config.conv_dtype``:
+    the bfloat16 kernels stage 2-byte elements).  The JAX gate's other
+    declines route around TPU compiler faults and have no counterpart here
+    (``config``): h > 8 and not a multiple of 8 (its ``deep_stencil``
+    rounds such depths up; the port keeps exact depths, h = 9 at
+    quick_start, which the kernels take), and a dot-form contraction below
+    ``dot_fused_min_nside``."""
     if not cfp_structural_available(st, kind, n_terms):
         return "per_step"
     return _cface_route(st.nside, st.n_steps, st.radius, len(st.offsets),
-                        n_terms, B, Fin, Fout, sms, bool(grad))
+                        n_terms, B, Fin, Fout, sms, bool(grad),
+                        staged_bytes())
 
 
-def _refused(n, h, r, nplanes, K, B, Fin, Fout, sms, grad):
+def staged_bytes():
+    """Bytes of an element the kernels stage in shared memory under
+    ``config.conv_dtype``: 4 in float32, 2 in either bfloat16 mode."""
+    return 4 if config.conv_dtype == "float32" else 2
+
+
+def _refused(n, h, r, nplanes, K, B, Fin, Fout, sms, grad, es=4):
     """Names of the kernels of a conv's launches (K1 forward; with
-    ``grad`` K2, K1 on dy and K3) whose plan does not take the shape."""
+    ``grad`` K2, K1 on dy and K3) whose plan does not take the shape, with
+    ``es`` bytes a staged element."""
     shape = (n, h, r, nplanes, K, B, 12)
-    plans = {"K1": _k1_plan(*shape, Fin, Fout, sms)}
+    plans = {"K1": _k1_plan(*shape, Fin, Fout, sms, es)}
     if grad:
-        plans["K2"] = _bwd_plan(*shape, Fout, Fin, True, sms)
-        plans["K1 on dy"] = _k1_plan(*shape, Fout, Fin, sms)
-        plans["K3"] = _bwd_plan(*shape, Fin, Fout, False, sms)
+        plans["K2"] = _bwd_plan(*shape, Fout, Fin, True, sms, es)
+        plans["K1 on dy"] = _k1_plan(*shape, Fout, Fin, sms, es)
+        plans["K3"] = _bwd_plan(*shape, Fin, Fout, False, sms, es)
     return [name for name, plan in plans.items() if plan is None]
 
 
-def chain_refused(n, r, nplanes, B, C, sms, grad=True):
+def chain_refused(n, r, nplanes, B, C, sms, grad=True, es=4):
     """The kernels whose plan does not take a lap of the lap chain
     (:func:`.stencil.lap_chain_conv`): one application on the shallow
     stencil (h = r, K = 2) over B x C channels in and out.  Empty where
     the chain runs on the card."""
-    return _refused(n, r, r, nplanes, 2, B, C, C, sms, grad)
+    return _refused(n, r, r, nplanes, 2, B, C, C, sms, grad, es)
 
 
 @functools.lru_cache(maxsize=None)
-def _cface_route(n, h, r, nplanes, K, B, Fin, Fout, sms, grad):
+def _cface_route(n, h, r, nplanes, K, B, Fin, Fout, sms, grad, es=4):
     """:func:`cface_route` past the structural check, memoised on the ints
     of the shape (it runs at every forward)."""
-    refused = _refused(n, h, r, nplanes, K, B, Fin, Fout, sms, grad)
+    refused = _refused(n, h, r, nplanes, K, B, Fin, Fout, sms, grad, es)
     if not refused:
         return "fused"
     if r >= 3 and K > 2:
         return "per_step"
-    chain = chain_refused(n, r, nplanes, B, Fin, sms, grad)
+    chain = chain_refused(n, r, nplanes, B, Fin, sms, grad, es)
     if not chain:
         return "chain"
     raise ValueError(
@@ -296,37 +325,152 @@ def cfp_geometry(n, h):
     return _round_up(h, 8), _round_up(n + 2 * h, 128)
 
 
+def strip_rows(h, dtype):
+    """Rows R of the row-halo strips and of each margin of the weight
+    planes for device arrays of ``dtype``: roundup(h, 8) in float32,
+    roundup(h, 16) in bfloat16 (the JAX package's bf16 layout; its
+    ``weights_bf16`` planes are R16-extended)."""
+    return _round_up(h, 16 if dtype == torch.bfloat16 else 8)
+
+
+def cfp_io_available(st: FaceStencil):
+    """Whether this conv keeps its device arrays in bfloat16 under
+    ``config.conv_dtype == "bfloat16_io"``: n % 16 == 0 and n >= roundup(h,
+    16), the JAX package's gate (``pallas_stencil.cfp_io_available``).
+
+    The 16-row alignment is a TPU rule (a bf16 DMA row slice is 16-row
+    aligned); the kernels here need none.  It is kept because it decides
+    which convs' activations and outputs are rounded to bfloat16, and so
+    the numbers: both packages round the same convs."""
+    h = st.n_steps
+    return st.nside % 16 == 0 and st.nside >= _round_up(h, 16)
+
+
+def _io_dtype(st):
+    """The dtype of this conv's device arrays under ``config.conv_dtype``:
+    bfloat16 where the mode asks for it and :func:`cfp_io_available`."""
+    iodt = config.conv_io_dtype()
+    if iodt == torch.bfloat16 and not cfp_io_available(st):
+        return torch.float32
+    return iodt
+
+
+def reextend_weights(w, n, R0, R1):
+    """Wrapped-extended weight planes (T2, F, n + 2 R0, P) with margin R0
+    -> the (T2, F, n + 2 R1, P) layout of a wider margin R1 (the bfloat16
+    layout, R1 = roundup(h, 16)); the new margin rows are zeros.  A numpy
+    array or a torch tensor."""
+    if R1 == R0:
+        return w
+    if R1 < R0:
+        raise ValueError(f"margin {R1} < {R0}")
+    parts = [w[:, :, 0:n], None, w[:, :, n : n + R0],
+             w[:, :, n + R0 : n + 2 * R0], None]
+    shape = tuple(w.shape[:2]) + (R1 - R0, w.shape[3])
+    if isinstance(w, torch.Tensor):
+        parts[1] = parts[4] = w.new_zeros(shape)
+        return torch.cat(parts, dim=2)
+    parts[1] = parts[4] = np.zeros(shape, dtype=w.dtype)
+    return np.concatenate(parts, axis=2)
+
+
+def _io_weights(st, tables, iodt):
+    """The weight planes in the conv's device dtype: ``tables["weights"]``
+    in float32; in bfloat16 ``tables["weights_bf16"]``
+    (``stencil_tables(st, bf16_io=True)``), or, where the table lacks it,
+    the float32 planes re-extended and rounded here (the same bits)."""
+    if iodt != torch.bfloat16:
+        return tables["weights"]
+    w16 = tables.get("weights_bf16")
+    if w16 is not None:
+        return w16.to(torch.bfloat16)
+    h = st.n_steps
+    return reextend_weights(tables["weights"], st.nside, _round_up(h, 8),
+                            _round_up(h, 16)).to(torch.bfloat16)
+
+
+def _strip_index(tables, dtype):
+    """The device copy of the strip source map for arrays of ``dtype``
+    (``strip_idx``, or ``strip_idx_bf16`` for bfloat16), or None."""
+    return tables.get("strip_idx_bf16" if dtype == torch.bfloat16
+                      else "strip_idx")
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
 
 
-def _window(st, xc, wext, strips):
-    """The halo-extended maps of the plain version: activation (C, 12,
-    n+2R, P_l) and weight planes (T2, 12, n+2R, P_l), window row w holding
-    face row w - R."""
+def _plain_dtype(t):
+    """The dtype a plain version computes in: float32 for bfloat16 arrays
+    (the kernels' sums), else the arrays' own (float64 on the CPU for
+    gradient checks)."""
+    return torch.float32 if t.dtype == torch.bfloat16 else t.dtype
+
+
+def _rounding(bdt):
+    """The band dtype's rounding: to bfloat16 and back for "bfloat16",
+    none for "float32"."""
+    if bdt == "bfloat16":
+        return lambda t: t.to(torch.bfloat16).to(t.dtype)
+    if bdt != "float32":
+        raise ValueError(f"band dtype must be float32 or bfloat16, got {bdt}")
+    return lambda t: t
+
+
+def _window(st, xc, wext, strips, rnd):
+    """The halo-extended maps of the plain version, in its compute dtype
+    and rounded by ``rnd``: activation (C, 12, n+2R, P_l) and weight planes
+    (T2, 12, n+2R, P_l), window row w holding face row w - R, R the strips'
+    rows (:func:`strip_rows`), and R."""
     n, h = st.nside, st.n_steps
-    R, _ = cfp_geometry(n, h)
     top, bot, ls = strips
+    R = top.shape[2]
+    if wext.shape[2] != n + 2 * R:
+        raise ValueError(f"weight planes of {wext.shape[2]} rows do not "
+                         f"match strips of {R} rows at n={n}")
+    cdt = _plain_dtype(xc)
     mid = xc.clone()
     mid[..., 0:h] = ls[..., 0:h]
     mid[..., h + n : 2 * h + n] = ls[..., h : 2 * h]
-    win = torch.cat([top, mid, bot], dim=2)
+    win = torch.cat([top, mid, bot], dim=2).to(cdt)
     ww = torch.cat([wext[:, :, n : n + R], wext[:, :, 0:n],
                     wext[:, :, n + R : n + 2 * R]], dim=2)
-    return win, ww.to(xc.dtype)
+    return rnd(win), rnd(ww.to(cdt)), R
 
 
-def _plain_terms(st, kind, n_terms, xc, wext, strips):
+def _plain_terms(st, kind, n_terms, xc, wext, strips, bdt="float32"):
     """Yield the K recursion terms T_k(L~) xc at the face rows, (C, 12, n,
     P_l) each: the padded-window recursion with ``torch.roll`` taps over
     each face's halo-extended map.  Roll wrap-around only reaches the
-    window border, r rows/lanes per step, never the interior lanes."""
+    window border, r rows/lanes per step, never the interior lanes.
+
+    Under the band dtype "bfloat16" the plain versions and the kernels
+    (``csrc/stencil_conv.cuh``, ``stencil_bwd.cuh``) round at the same
+    points, as the JAX package's bf16 kernels cast (``x0 =
+    xw.astype(bdt)``):
+
+    * the halo window and the weight planes are rounded to bfloat16 once
+      (exact where they are bfloat16 already, in the I/O mode);
+    * each lap sums its taps in float32, and the term it stores is
+      rounded to bfloat16;
+    * a Chebyshev term 2 L~T_{k-1} - T_{k-2} is formed in float32 from
+      the lap's float32 sum and rounded once;
+    * the contraction multiplies the bfloat16 terms by the channel kernel
+      rounded to bfloat16 and accumulates in float32 (the products are
+      exact in float32);
+    * dW multiplies the terms by the other operand rounded to bfloat16
+      (x, or dy), accumulating in float32, as the JAX kernels' bf16 dots;
+    * the output is float32 in the band mode, rounded to bfloat16 where
+      the arrays are bfloat16 (the I/O mode).
+
+    The kernels sum the same values in other orders, so a term may differ
+    from the plain version's by one bfloat16 step."""
     if kind not in ("cheby", "mono"):
         raise ValueError(f"unknown basis kind: {kind}")
-    n, h = st.nside, st.n_steps
-    R, _ = cfp_geometry(n, h)
-    win, ww = _window(st, xc, wext, strips)
+    n = st.nside
+    rnd = _rounding(bdt)
+    win, ww, R = _window(st, xc, wext, strips, rnd)
     offs = st.offsets
 
     def lap(p):
@@ -341,9 +485,9 @@ def _plain_terms(st, kind, n_terms, xc, wext, strips):
         if k == 0:
             t = win
         elif k == 1 or kind == "mono":
-            t = lap(prev1)
+            t = rnd(lap(prev1))
         else:
-            t = 2.0 * lap(prev1) - prev2
+            t = rnd(2.0 * lap(prev1) - prev2)
         if k:
             prev2, prev1 = prev1, t
         yield t[:, :, R : R + n]
@@ -355,56 +499,65 @@ def _zero_pad_lanes(y, h, n):
     return y
 
 
-def run_stencil_plain(st, kind, n_terms, xc, wext, strips, wk3, B):
+def run_stencil_plain(st, kind, n_terms, xc, wext, strips, wk3, B,
+                      bdt="float32"):
     """Plain version of the raw fused conv (no corner correction); same
     contract as :func:`run_stencil_kernel`."""
     n, h = st.nside, st.n_steps
     _, P_l = cfp_geometry(n, h)
     K, Fin, Fout = wk3.shape
     F = xc.shape[1]
-    y = xc.new_zeros((B, Fout, F, n, P_l))
+    cdt = _plain_dtype(xc)
+    wk = _rounding(bdt)(wk3.to(cdt))
+    y = xc.new_zeros((B, Fout, F, n, P_l), dtype=cdt)
     for k, ctr in enumerate(_plain_terms(st, kind, n_terms, xc, wext,
-                                         strips)):
+                                         strips, bdt)):
         y = y + torch.einsum("bfgxp,fo->bogxp",
-                             ctr.reshape(B, Fin, F, n, P_l), wk3[k])
-    return _zero_pad_lanes(y, h, n).reshape(B * Fout, F, n, P_l)
+                             ctr.reshape(B, Fin, F, n, P_l), wk[k])
+    return _zero_pad_lanes(y, h, n).reshape(B * Fout, F, n, P_l).to(xc.dtype)
 
 
-def run_grad_plain(st, kind, n_terms, xc, wext, strips, dy, B):
+def run_grad_plain(st, kind, n_terms, xc, wext, strips, dy, B,
+                   bdt="float32"):
     """Plain version of the raw dW of the two-kernel backward; same
     contract as :func:`run_grad_kernel`."""
     n, h = st.nside, st.n_steps
     Fin = xc.shape[0] // B
     Fout = dy.shape[0] // B
     F = xc.shape[1]
-    dyi = dy[..., h : h + n].reshape(B, Fout, F, n, n)
+    dyi = _rounding(bdt)(dy[..., h : h + n].to(_plain_dtype(xc)))
+    dyi = dyi.reshape(B, Fout, F, n, n)
     dw = [
         torch.einsum("bfgxy,bogxy->fo",
                      ctr[..., h : h + n].reshape(B, Fin, F, n, n), dyi)
-        for ctr in _plain_terms(st, kind, n_terms, xc, wext, strips)
+        for ctr in _plain_terms(st, kind, n_terms, xc, wext, strips, bdt)
     ]
     return torch.stack(dw).reshape(n_terms * Fin, Fout)
 
 
-def run_dxdw_plain(st, kind, n_terms, dy, wext, strips, wk3t, xr, mask, B):
+def run_dxdw_plain(st, kind, n_terms, dy, wext, strips, wk3t, xr, mask, B,
+                   bdt="float32"):
     """Plain version of the raw fused backward; same contract as
     :func:`run_dxdw_kernel`."""
     n, h = st.nside, st.n_steps
     _, P_l = cfp_geometry(n, h)
     K, Fc, Fx = wk3t.shape  # recursion channels Fout, x channels Fin
     F = dy.shape[1]
-    xm = xr[..., h : h + n]
+    cdt = _plain_dtype(dy)
+    rnd = _rounding(bdt)
+    xm = xr[..., h : h + n].to(cdt)
     if mask is not None:
-        xm = xm * mask[..., h : h + n].to(xm.dtype)
-    xm = xm.reshape(B, Fx, F, n, n)
-    dx = dy.new_zeros((B, Fx, F, n, P_l))
+        xm = xm * mask[..., h : h + n].to(cdt)
+    xm = rnd(xm).reshape(B, Fx, F, n, n)
+    wk = rnd(wk3t.to(cdt))
+    dx = dy.new_zeros((B, Fx, F, n, P_l), dtype=cdt)
     dws = []
     for k, ctr in enumerate(_plain_terms(st, kind, n_terms, dy, wext,
-                                         strips)):
+                                         strips, bdt)):
         c5 = ctr.reshape(B, Fc, F, n, P_l)
-        dx = dx + torch.einsum("bfgxp,fo->bogxp", c5, wk3t[k])
+        dx = dx + torch.einsum("bfgxp,fo->bogxp", c5, wk[k])
         dws.append(torch.einsum("bogxy,bfgxy->of", xm, c5[..., h : h + n]))
-    dx = _zero_pad_lanes(dx, h, n).reshape(B * Fx, F, n, P_l)
+    dx = _zero_pad_lanes(dx, h, n).reshape(B * Fx, F, n, P_l).to(dy.dtype)
     return dx, torch.stack(dws).reshape(K * Fx, Fc)
 
 
@@ -427,10 +580,17 @@ def _check_stencil(what, st, kind, t):
     check_device(what, t)
 
 
-def run_stencil_kernel(st, kind, n_terms, xc, wext, strips, wk3, B):
+def run_stencil_kernel(st, kind, n_terms, xc, wext, strips, wk3, B,
+                       bdt="float32"):
     """The raw fused conv (before the corner correction), through the
     ``stencil_conv`` op: K1 for a CUDA tensor, :func:`run_stencil_plain`
     for a CPU tensor.
+
+    ``bdt``: the band dtype, "float32" or "bfloat16" (the rounding points
+    of :func:`_plain_terms`).  The device arrays (``xc``, ``wext``, the
+    strips and the output) are all float32, or all bfloat16 (the I/O
+    mode, ``bdt`` "bfloat16"; ``wext`` with R16 margins,
+    :func:`strip_rows`); ``wk3`` is float32.
 
     :param xc: (B*Fin, F, n, P_l) activations (interior lanes read), F the
         faces of the arrays (12, or a face shard's)
@@ -448,12 +608,15 @@ def run_stencil_kernel(st, kind, n_terms, xc, wext, strips, wk3, B):
         raise ValueError(f"wk3 has {wk3.shape[0]} terms, expected {n_terms}")
     _check_stencil("stencil conv", st, kind, xc)
     return torch.ops.deepsphere.stencil_conv(
-        xc, *strips, wext, wk3, st.nside, st.n_steps, st.radius, B, kind)
+        xc, *strips, wext, wk3, st.nside, st.n_steps, st.radius, B, kind, bdt)
 
 
-def run_grad_kernel(st, kind, n_terms, xc, wext, strips, dy, B):
+def run_grad_kernel(st, kind, n_terms, xc, wext, strips, dy, B,
+                    bdt="float32"):
     """The raw dW of the two-kernel backward, through the ``stencil_grad``
-    op: K3 for a CUDA tensor, :func:`run_grad_plain` for a CPU tensor.
+    op: K3 for a CUDA tensor, :func:`run_grad_plain` for a CPU tensor
+    (``bdt`` and the device arrays' dtypes as :func:`run_stencil_kernel`'s;
+    dW is float32).
 
     dW[k, fi, fo] = sum_b sum of T_k(L~) x[b, fi] * dy[b, fo] over the
     interior lanes, the recursion run on ``xc`` through its strips.  The
@@ -469,13 +632,16 @@ def run_grad_kernel(st, kind, n_terms, xc, wext, strips, dy, B):
     _check_stencil("grad kernel", st, kind, xc)
     return torch.ops.deepsphere.stencil_grad(
         xc, *strips, wext, dy, st.nside, st.n_steps, st.radius, n_terms, B,
-        kind)
+        kind, bdt)
 
 
-def run_dxdw_kernel(st, kind, n_terms, dy, wext, strips, wk3t, xr, mask, B):
+def run_dxdw_kernel(st, kind, n_terms, dy, wext, strips, wk3t, xr, mask, B,
+                    bdt="float32"):
     """The raw fused backward, through the ``stencil_dxdw`` op: K2 for a
     CUDA tensor, :func:`run_dxdw_plain` for a CPU tensor; dx and dW in one
-    pass over dy.
+    pass over dy (``bdt`` and the device arrays' dtypes as
+    :func:`run_stencil_kernel`'s, ``xr`` among them; ``mask`` and dW are
+    float32).
 
     Channel roles are the forward's swapped: the recursion runs on ``dy``
     through its strips, with ``wk3t`` = (K, Fout, Fin).  L~ is symmetric,
@@ -499,7 +665,7 @@ def run_dxdw_kernel(st, kind, n_terms, dy, wext, strips, wk3t, xr, mask, B):
     _check_stencil("dxdw kernel", st, kind, dy)
     return torch.ops.deepsphere.stencil_dxdw(
         dy, *strips, wext, wk3t, xr, mask, st.nside, st.n_steps, st.radius,
-        B, kind)
+        B, kind, bdt)
 
 
 # ---------------------------------------------------------------------------
@@ -524,7 +690,10 @@ def _ball_src(tables, a):
 
 def _ball_terms(tables, t, n_terms, kind):
     """Exact per-term basis values over the correction ball, (Bn, C) each,
-    from its source rows ``t`` (Bn, C)."""
+    from its source rows ``t`` (Bn, C); bfloat16 rows are taken to float32
+    first, so the correction is float32 in every mode (as the JAX
+    package's ``_ball_terms``)."""
+    t = t.to(_plain_dtype(t))
     idx = tables["corr_idx"]
     val = tables["corr_val"].to(t.dtype)
     yield t
@@ -571,8 +740,13 @@ def _patch_rows(y, rows, y_fix):
     return y
 
 
-def _forward_cfp(st, tables, xc, wk3, n_terms, kind, B, strips, conv_fn):
-    y = conv_fn(st, kind, n_terms, xc, tables["weights"], strips, wk3, B)
+def _forward_cfp(st, tables, xc, wk3, n_terms, kind, B, strips, conv_fn,
+                 bdt="float32"):
+    """The raw conv ``conv_fn`` (a kernel's wrapper or its plain version)
+    on the weight planes of ``xc``'s dtype, then the corner correction;
+    the output in ``xc``'s dtype."""
+    y = conv_fn(st, kind, n_terms, xc, _io_weights(st, tables, xc.dtype),
+                strips, wk3, B, bdt)
     if "corr_rows_cfp" in tables:
         y_fix = _corrected_rows(tables, _ball_src(tables, xc), wk3, n_terms,
                                 kind, B)
@@ -595,23 +769,24 @@ def _wk3t(kernel, n_terms):
 class _FusedConv(torch.autograd.Function):
     """Strips, then K1, then the correction; backward on the
     ``config.fused_dw`` route (the JAX package's custom VJP without its
-    TPU routing)."""
+    TPU routing).  ``xc`` arrives in the conv's device dtype (float32,
+    bfloat16 or, on the CPU, float64), ``bdt`` names the band dtype."""
 
     @staticmethod
-    def forward(ctx, xc, kernel, st, tables, n_terms, kind, B):
-        strips = build_strips(st, xc, tables.get("strip_idx"))
+    def forward(ctx, xc, kernel, st, tables, n_terms, kind, B, bdt):
+        strips = build_strips(st, xc, _strip_index(tables, xc.dtype))
         y = _forward_cfp(st, tables, xc, _wk3(kernel, n_terms), n_terms, kind,
-                         B, strips, run_stencil_kernel)
+                         B, strips, run_stencil_kernel, bdt)
         # the fused backward rebuilds its strips from dy: keep x's only for
         # the two-kernel backward's K3 (none for a constant kernel)
         keep = not config.fused_dw and kernel.requires_grad
         ctx.save_for_backward(xc, kernel, *(strips if keep else ()))
-        ctx.meta = (st, tables, n_terms, kind, B)
+        ctx.meta = (st, tables, n_terms, kind, B, bdt)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        st, tables, K, kind, B = ctx.meta
+        st, tables, K, kind, B, bdt = ctx.meta
         xc, kernel, *strips = ctx.saved_tensors
         dy = dy.to(xc.dtype).contiguous()
         Fin = xc.shape[0] // B
@@ -619,23 +794,24 @@ class _FusedConv(torch.autograd.Function):
         need_dx = ctx.needs_input_grad[0]
         has_corr = "corr_rows_cfp" in tables
         rows = tables.get("corr_rows_cfp")
-        wext = tables["weights"]
+        wext = _io_weights(st, tables, xc.dtype)
+        index = _strip_index(tables, xc.dtype)
         wk3t = _wk3t(kernel, K)
         dx = None
         if config.fused_dw:
             # one pass over dy: dx, and dW at every row but the corrupt
             # ones (x is zeroed there by the mask), whose exact terms
             # <x, T_k(L~) dy> come from the ball
-            dy_strips = build_strips(st, dy, tables.get("strip_idx"))
+            dy_strips = build_strips(st, dy, index)
             dx, dw = run_dxdw_kernel(st, kind, K, dy, wext, dy_strips, wk3t,
-                                     xc, tables.get("corr_mask"), B)
+                                     xc, tables.get("corr_mask"), B, bdt)
             dwk = dw.reshape(K, Fin, Fout)
             if has_corr:
                 if need_dx:
                     dx = _patch_rows(dx, rows, _corrected_rows(
                         tables, _ball_src(tables, dy), wk3t, K, kind, B))
                 tdy = _basis_at_rows(tables, _ball_src(tables, dy), K, kind)
-                x_rc = _gather_rows(xc, rows)
+                x_rc = _gather_rows(xc, rows).to(tdy.dtype)
                 dwk = dwk + torch.einsum(
                     "rbf,krbo->kfo", x_rc.reshape(-1, B, Fin),
                     tdy.reshape(K, -1, B, Fout))
@@ -644,32 +820,41 @@ class _FusedConv(torch.autograd.Function):
             # adjoint is the same conv with the transposed channel kernel
             if need_dx:
                 dx = _forward_cfp(st, tables, dy, wk3t, K, kind, B,
-                                  build_strips(st, dy, tables.get("strip_idx")),
-                                  run_stencil_kernel)
+                                  build_strips(st, dy, index),
+                                  run_stencil_kernel, bdt)
             if not ctx.needs_input_grad[1]:
                 # a constant kernel (the lap chain's term selector): no K3
-                return dx, None, None, None, None, None, None
+                return dx, None, None, None, None, None, None, None
             if not strips:  # fused_dw was switched on between fwd and bwd
-                strips = build_strips(st, xc, tables.get("strip_idx"))
+                strips = build_strips(st, xc, index)
             dy_clean = dy * tables["corr_mask"].to(dy.dtype) if has_corr else dy
             dwk = run_grad_kernel(st, kind, K, xc, wext, tuple(strips),
-                                  dy_clean, B).reshape(K, Fin, Fout)
+                                  dy_clean, B, bdt).reshape(K, Fin, Fout)
             if has_corr:
                 basis = _basis_at_rows(tables, _ball_src(tables, xc), K,
                                        kind)
-                dy_rc = _gather_rows(dy, rows)
+                dy_rc = _gather_rows(dy, rows).to(basis.dtype)
                 dwk = dwk + torch.einsum(
                     "krbf,rbo->kfo", basis.reshape(K, -1, B, Fin),
                     dy_rc.reshape(-1, B, Fout))
         dkernel = dwk.permute(1, 0, 2).reshape(Fin * K, Fout)
         return (dx if need_dx else None, dkernel.to(kernel.dtype), None, None,
-                None, None, None)
+                None, None, None, None)
 
 
-def _compute_dtype(xc):
-    """float64 on the plain path when asked for (gradient checks); every
-    other input computes in float32, the kernels' type."""
-    return torch.float64 if xc.dtype == torch.float64 else torch.float32
+def conv_dtypes(st, xc):
+    """The precision of the fused conv of ``xc`` under
+    ``config.conv_dtype``: ``(io, kernel, bdt)``, the dtype of its device
+    arrays, that of its channel kernel and the band dtype's name.
+
+    float64 on the CPU where the input is float64 (gradient checks; every
+    mode then computes in float64, unrounded); else float32 arrays, or
+    bfloat16 arrays in the I/O mode where :func:`cfp_io_available`; a
+    float32 channel kernel; "bfloat16" in either bf16 mode."""
+    if xc.dtype == torch.float64:
+        return torch.float64, torch.float64, "float32"
+    bdt = "float32" if config.conv_dtype == "float32" else "bfloat16"
+    return _io_dtype(st), torch.float32, bdt
 
 
 def fused_stencil_conv_cfp(st: FaceStencil, tables, xc, kernel, n_terms,
@@ -681,8 +866,11 @@ def fused_stencil_conv_cfp(st: FaceStencil, tables, xc, kernel, n_terms,
     (:func:`run_stencil_kernel`), then the corner-row correction.  The
     backward takes the route that ``config.fused_dw`` names: K2
     (:func:`run_dxdw_kernel`) on dy's strips, or the forward conv on dy plus
-    K3 (:func:`run_grad_kernel`).  The device of ``xc`` decides: CUDA
-    kernels for a CUDA tensor, their plain versions for a CPU tensor.
+    K3 (:func:`run_grad_kernel`), in every precision (the JAX package sends
+    its bf16 backwards to the two-kernel form for TPU compiler reasons).
+    The device of ``xc`` decides: CUDA kernels for a CUDA tensor, their
+    plain versions for a CPU tensor.  The precision is
+    :func:`conv_dtypes`'.
 
     :param st: FaceStencil with ``n_steps >= radius * (n_terms - 1)``
     :param tables: :func:`.stencil.as_tensors` of ``stencil_tables(st)`` on
@@ -691,21 +879,24 @@ def fused_stencil_conv_cfp(st: FaceStencil, tables, xc, kernel, n_terms,
         the interior (lanes [h, h+n)) is read
     :param kernel: (Fin*n_terms, Fout)
     :param B: batch size (the channel packing)
-    :return: (B*Fout, 12, n, P_l) float32 (float64 for a float64 input on
-        the CPU), 0 outside the interior lanes; its gradient with respect
-        to ``xc`` is 0 outside the interior lanes too
+    :return: (B*Fout, 12, n, P_l) in the conv's device dtype (float32;
+        bfloat16 in the I/O mode; float64 for a float64 input on the CPU),
+        0 outside the interior lanes; its gradient with respect to ``xc``
+        is 0 outside the interior lanes too, in ``xc``'s dtype
     """
-    dt = _compute_dtype(xc)
-    return _FusedConv.apply(xc.to(dt).contiguous(), kernel.to(dt), st, tables,
-                            n_terms, kind, B)
+    io, kdt, bdt = conv_dtypes(st, xc)
+    return _FusedConv.apply(xc.to(io).contiguous(), kernel.to(kdt), st,
+                            tables, n_terms, kind, B, bdt)
 
 
 def fused_stencil_conv_cfp_plain(st: FaceStencil, tables, xc, kernel,
                                  n_terms, kind, B):
     """:func:`fused_stencil_conv_cfp` through the plain versions of both
-    forward kernels, on any device, differentiated by autograd through the
-    torch ops (the reference the kernels are held to)."""
-    dt = _compute_dtype(xc)
-    xc = xc.to(dt).contiguous()
-    return _forward_cfp(st, tables, xc, _wk3(kernel.to(dt), n_terms), n_terms,
-                        kind, B, strip_arrays(st, xc), run_stencil_plain)
+    forward kernels, on any device, in the same precision, differentiated
+    by autograd through the torch ops (the reference the kernels are held
+    to)."""
+    io, kdt, bdt = conv_dtypes(st, xc)
+    xc = xc.to(io).contiguous()
+    return _forward_cfp(st, tables, xc, _wk3(kernel.to(kdt), n_terms),
+                        n_terms, kind, B, strip_arrays(st, xc),
+                        run_stencil_plain, bdt)

@@ -24,7 +24,15 @@ their checks and call the op, and ``torch.export`` traces them as op nodes
 An op takes tensors, ints and strings only: the wrapper checks the
 stencil (its tap order, its basis kind) and passes its ints (nside ``n``,
 halo depth ``h``, radius ``r``, batch ``B``); the rest follows from the
-tensors' shapes.  The ops are registered when :mod:`deepsphere_tpu_torch.ops`
+tensors' shapes.
+
+Precision: the conv ops take the band dtype ``bdt`` ("float32", or
+"bfloat16": the kernels' bfloat16 instantiations, which round at the
+points of :func:`.fused_stencil._plain_terms`) and device arrays that are
+all float32 (K1-K3 in float32, or the bf16 band mode) or all bfloat16 (the
+bf16 I/O mode, ``bdt`` "bfloat16"); any other dtype raises.  The strips op
+copies float32 or bfloat16.  A bfloat16 launch counts in
+:data:`._cuda.bf16_launch_counts`, by mode.  The ops are registered when :mod:`deepsphere_tpu_torch.ops`
 is imported; the kernel library itself builds at the first launch, never
 at import (:mod:`._cuda`).
 """
@@ -42,6 +50,7 @@ from .fused_stencil import (
     run_dxdw_plain,
     run_grad_plain,
     run_stencil_plain,
+    strip_rows,
 )
 from .stencil import pack_edge_bands_plain, unpack_edge_bands
 from .strips import strip_arrays
@@ -72,12 +81,35 @@ def check_device(what, t):
         raise ValueError(f"no {what} implementation for device {t.device}")
 
 
-def _check_tensors(what, dev, want):
+def _check_tensors(what, dev, want, dtype=torch.float32):
     for name, (t, shape) in want.items():
-        if (t.device != dev or t.dtype != torch.float32
+        if (t.device != dev or t.dtype != dtype
                 or not t.is_contiguous() or tuple(t.shape) != shape):
-            raise ValueError(f"{what}: {name} must be a contiguous float32 "
-                             f"{shape} tensor on {dev}")
+            raise ValueError(f"{what}: {name} must be a contiguous "
+                             f"{str(dtype)[6:]} {shape} tensor on {dev}")
+
+
+def _mode(what, io, bdt):
+    """The C entry points' precision mode: 0 float32, 1 the bf16 band
+    mode (float32 arrays), 2 the bf16 I/O mode (bfloat16 arrays)."""
+    if bdt not in ("float32", "bfloat16"):
+        raise ValueError(f"{what}: band dtype must be float32 or bfloat16, "
+                         f"got {bdt}")
+    if io not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what}: its arrays must be float32 or bfloat16, "
+                         f"got {io}")
+    if io == torch.bfloat16 and bdt != "bfloat16":
+        raise ValueError(f"{what}: bfloat16 arrays need the bfloat16 band")
+    return 0 if bdt == "float32" else (2 if io == torch.bfloat16 else 1)
+
+
+def _count(name, mode):
+    """One launch of kernel ``name`` in precision ``mode``."""
+    if mode == 0:
+        _cuda.launch_counts[name] += 1
+    else:
+        _cuda.bf16_launch_counts[name + ("_bf16_io" if mode == 2
+                                         else "_bf16")] += 1
 
 
 def _kind_code(kind):
@@ -101,10 +133,10 @@ def _sms(dev):
 # ---------------------------------------------------------------------------
 
 
-def _strips_len(n, h, C, F):
-    """Elements of the flat strip buffer of C channels and F faces: top and
-    bot (C, F, R, P_l) each, then ls (C, F, n, 128)."""
-    R, P_l = cfp_geometry(n, h)
+def _strips_len(n, h, C, F, dtype):
+    """Elements of the flat strip buffer of C channels and F faces of
+    ``dtype``: top and bot (C, F, R, P_l) each, then ls (C, F, n, 128)."""
+    R, P_l = strip_rows(h, dtype), cfp_geometry(n, h)[1]
     return C * F * (2 * R * P_l + n * 128)
 
 
@@ -117,8 +149,9 @@ def _gather_strips(n, h, src, index, C, F, slab):
     faces and C channels, ``out[c, e] = src[c*slab + index[e]]`` (0 where
     the index is -1), as one flat buffer; the caller has checked ``src``.
     The kernel reads ``index`` in 16-byte groups, so it must start 16-byte
-    aligned."""
-    R, P_l = cfp_geometry(n, h)
+    aligned; it copies four elements a group, 4 bytes each (float32) or 2
+    (bfloat16: the R16 strips)."""
+    R, P_l = strip_rows(h, src.dtype), cfp_geometry(n, h)[1]
     if (index.dtype != torch.int32 or index.device != src.device
             or index.numel() != F * (2 * R * P_l + n * 128)
             or not index.is_contiguous()):
@@ -127,15 +160,19 @@ def _gather_strips(n, h, src, index, C, F, slab):
         raise ValueError("strip index map must start 16-byte aligned")
     if -(-C // _STRIPS_CC) > 65535:
         raise ValueError(f"strips kernel: {C} channels are too many for the grid")
-    out = torch.empty(_strips_len(n, h, C, F), dtype=src.dtype,
+    out = torch.empty(_strips_len(n, h, C, F, src.dtype), dtype=src.dtype,
                       device=src.device)
-    vec = int(src.data_ptr() % 16 == 0 and slab % 4 == 0)
+    es = src.element_size()
+    vec = int(src.data_ptr() % (4 * es) == 0 and slab % 4 == 0)
     lib = _cuda.lib()
     with torch.cuda.device(src.device):
         rc = lib.ds_strips(src.data_ptr(), index.data_ptr(), out.data_ptr(),
-                           C, slab, F, n, h, R, P_l, vec, _stream())
+                           C, slab, F, n, h, R, P_l, vec, es, _stream())
     _cuda.check(rc, "ds_strips")
-    _cuda.launch_counts["strips"] += 1
+    if es == 4:
+        _cuda.launch_counts["strips"] += 1
+    else:
+        _cuda.bf16_launch_counts["strips_bf16"] += 1
     return out
 
 
@@ -153,10 +190,14 @@ def strips(src: torch.Tensor, index: torch.Tensor, n: int, h: int,
            faces: list[int]) -> torch.Tensor:
     """K4: the halo strips of ``faces`` as one flat buffer (top, bot, ls;
     :func:`.strips.build_strips` makes the views), from a full-sphere cface
-    map ``src`` (C, 12, n, P_l) or the packed edge bands (12, C, 4*h*n),
-    through the int32 source map ``index``."""
-    if src.dtype != torch.float32 or not src.is_contiguous():
-        raise ValueError("strips kernel needs a contiguous float32 source")
+    map ``src`` (C, 12, n, P_l), float32 or bfloat16, or the packed edge
+    bands (12, C, 4*h*n), float32, through the int32 source map
+    ``index``."""
+    if (src.dtype not in (torch.float32, torch.bfloat16)
+            or not src.is_contiguous()
+            or (src.dim() != 4 and src.dtype != torch.float32)):
+        raise ValueError("strips kernel needs a contiguous float32 source "
+                         "(or a bfloat16 cface map)")
     C, slab = _strips_source(src, n, h)
     want = ((C, 12, n, slab // (12 * n)) if src.dim() == 4
             else (12, C, 4 * h * n))
@@ -178,7 +219,7 @@ def _strips_cpu(src, index, n, h, faces):
 @strips.register_fake
 def _strips_fake(src, index, n, h, faces):
     C, _ = _strips_source(src, n, h)
-    return src.new_empty(_strips_len(n, h, C, len(faces)))
+    return src.new_empty(_strips_len(n, h, C, len(faces), src.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -190,11 +231,14 @@ def _strips_fake(src, index, n, h, faces):
                          device_types="cuda")
 def stencil_conv(xc: torch.Tensor, top: torch.Tensor, bot: torch.Tensor,
                  ls: torch.Tensor, wext: torch.Tensor, wk3: torch.Tensor,
-                 n: int, h: int, r: int, B: int, kind: str) -> torch.Tensor:
+                 n: int, h: int, r: int, B: int, kind: str,
+                 bdt: str = "float32") -> torch.Tensor:
     """K1 on :func:`.fused_stencil._k1_plan`'s plan for this card: the raw
     fused conv (:func:`.fused_stencil.run_stencil_kernel`), (B*Fout, F, n,
-    P_l)."""
-    R, P_l = cfp_geometry(n, h)
+    P_l) in ``xc``'s dtype."""
+    io = xc.dtype
+    mode = _mode("stencil kernel", io, bdt)
+    R, P_l = strip_rows(h, io), cfp_geometry(n, h)[1]
     K, Fin, Fout = wk3.shape
     F = xc.shape[1]
     dev = xc.device
@@ -204,13 +248,15 @@ def stencil_conv(xc: torch.Tensor, top: torch.Tensor, bot: torch.Tensor,
         raise ValueError(f"stencil kernel: {F} faces (1..12)")
     C = B * Fin
     _check_tensors("stencil kernel", dev, {
-        "xc": (xc, (C, F, n, P_l)), "wk3": (wk3, (K, Fin, Fout)),
+        "xc": (xc, (C, F, n, P_l)),
         "top": (top, (C, F, R, P_l)), "bot": (bot, (C, F, R, P_l)),
         "ls": (ls, (C, F, n, 128)),
         "wext": (wext, (nplanes, F, n + 2 * R, P_l)),
-    })
+    }, io)
+    _check_tensors("stencil kernel", dev, {"wk3": (wk3, (K, Fin, Fout))})
     sms = _sms(dev)
-    plan = _k1_plan(n, h, r, nplanes, K, B, F, Fin, Fout, sms)
+    plan = _k1_plan(n, h, r, nplanes, K, B, F, Fin, Fout, sms,
+                    2 if mode else 4)
     if plan is None:
         raise ValueError(f"stencil kernel does not take n={n} h={h} r={r} "
                          f"K={K} B={B} Fout={Fout}: no tile fits shared "
@@ -221,21 +267,23 @@ def stencil_conv(xc: torch.Tensor, top: torch.Tensor, bot: torch.Tensor,
             xc.data_ptr(), top.data_ptr(), bot.data_ptr(), ls.data_ptr(),
             wext.data_ptr(), wk3.data_ptr(), out.data_ptr(),
             code, K, r, nplanes, B, F, Fin, Fout, n, h,
-            R, P_l, plan.T, plan.G, plan.GB, plan.FC, _stream(),
+            R, P_l, plan.T, plan.G, plan.GB, plan.FC, mode, _stream(),
         )
     _cuda.check(rc, "ds_stencil_conv")
-    _cuda.launch_counts["stencil_conv"] += 1
+    _count("stencil_conv", mode)
     return out
 
 
 @stencil_conv.register_kernel("cpu")
-def _stencil_conv_cpu(xc, top, bot, ls, wext, wk3, n, h, r, B, kind):
+def _stencil_conv_cpu(xc, top, bot, ls, wext, wk3, n, h, r, B, kind,
+                      bdt="float32"):
     return run_stencil_plain(_Stencil(n, h, r), kind, wk3.shape[0], xc, wext,
-                             (top, bot, ls), wk3, B)
+                             (top, bot, ls), wk3, B, bdt)
 
 
 @stencil_conv.register_fake
-def _stencil_conv_fake(xc, top, bot, ls, wext, wk3, n, h, r, B, kind):
+def _stencil_conv_fake(xc, top, bot, ls, wext, wk3, n, h, r, B, kind,
+                       bdt="float32"):
     return xc.new_empty((B * wk3.shape[2], xc.shape[1], n, xc.shape[3]))
 
 
@@ -245,7 +293,7 @@ def _stencil_conv_fake(xc, top, bot, ls, wext, wk3, n, h, r, B, kind):
 
 
 def _bwd_launch(what, n, h, r, kind, K, src, strips3, wext, oth, B, Crec,
-                Cch, dx):
+                Cch, dx, bdt):
     """Checks and plan shared by K2 (``dx``) and K3: the recursion over the
     B*Crec channels of ``src`` through ``strips3``, the fold over the B*Cch
     channels of ``oth``.
@@ -254,9 +302,11 @@ def _bwd_launch(what, n, h, r, kind, K, src, strips3, wext, oth, B, Crec,
         block writes its own column, a second launch reduces the rows in a
         fixed order: no float atomics, so two calls give bitwise-equal dW),
         dW, and the C entry points' ints (kind, K, radius, nplanes, B, F,
-        Crec, Cch, n, h, Rs, P, T, G, GB, FC)
+        Crec, Cch, n, h, Rs, P, T, G, GB, FC, mode)
     """
-    R, P_l = cfp_geometry(n, h)
+    io = src.dtype
+    mode = _mode(what, io, bdt)
+    R, P_l = strip_rows(h, io), cfp_geometry(n, h)[1]
     nplanes = (2 * r + 1) ** 2
     F = src.shape[1]
     dev = src.device
@@ -270,8 +320,9 @@ def _bwd_launch(what, n, h, r, kind, K, src, strips3, wext, oth, B, Crec,
         "top": (top, (C, F, R, P_l)), "bot": (bot, (C, F, R, P_l)),
         "ls": (ls, (C, F, n, 128)),
         "wext": (wext, (nplanes, F, n + 2 * R, P_l)),
-    })
-    p = _bwd_plan(n, h, r, nplanes, K, B, F, Crec, Cch, dx, _sms(dev))
+    }, io)
+    p = _bwd_plan(n, h, r, nplanes, K, B, F, Crec, Cch, dx, _sms(dev),
+                  2 if mode else 4)
     if p is None:
         raise ValueError(f"{what} does not take n={n} h={h} r={r} K={K} B={B}"
                          f" channels {Crec} x {Cch}: no tile fits shared "
@@ -281,7 +332,7 @@ def _bwd_launch(what, n, h, r, kind, K, src, strips3, wext, oth, B, Crec,
                           device=dev)
     dw = torch.empty((K * Crec * Cch,), dtype=torch.float32, device=dev)
     ints = (code, K, r, nplanes, B, F, Crec, Cch, n, h, R, P_l, p.T, p.G,
-            p.GB, p.FC)
+            p.GB, p.FC, mode)
     return partial, dw, ints
 
 
@@ -290,22 +341,23 @@ def _bwd_launch(what, n, h, r, kind, K, src, strips3, wext, oth, B, Crec,
 def stencil_dxdw(dy: torch.Tensor, top: torch.Tensor, bot: torch.Tensor,
                  ls: torch.Tensor, wext: torch.Tensor, wk3t: torch.Tensor,
                  xr: torch.Tensor, mask: Optional[torch.Tensor], n: int,
-                 h: int, r: int, B: int,
-                 kind: str) -> tuple[torch.Tensor, torch.Tensor]:
+                 h: int, r: int, B: int, kind: str,
+                 bdt: str = "float32") -> tuple[torch.Tensor, torch.Tensor]:
     """K2 on :func:`.fused_stencil._bwd_plan`'s plan for this card: dx
-    (B*Fin, F, n, P_l) and dW (K*Fin, Fout) in one pass over dy
-    (:func:`.fused_stencil.run_dxdw_kernel`)."""
+    (B*Fin, F, n, P_l) in dy's dtype and dW (K*Fin, Fout), float32, in one
+    pass over dy (:func:`.fused_stencil.run_dxdw_kernel`)."""
     _, P_l = cfp_geometry(n, h)
     K, Fc, Fx = wk3t.shape
     F = dy.shape[1]
     dev = dy.device
     partial, dw, ints = _bwd_launch("dxdw kernel", n, h, r, kind, K, dy,
-                                    (top, bot, ls), wext, xr, B, Fc, Fx, True)
+                                    (top, bot, ls), wext, xr, B, Fc, Fx, True,
+                                    bdt)
     want = {"wk3t": (wk3t, (K, Fc, Fx))}
     if mask is not None:
         want["mask"] = (mask, (F, n, P_l))
     _check_tensors("dxdw kernel", dev, want)
-    dx = torch.empty((B * Fx, F, n, P_l), dtype=torch.float32, device=dev)
+    dx = torch.empty((B * Fx, F, n, P_l), dtype=dy.dtype, device=dev)
     with torch.cuda.device(dev):
         rc = _cuda.lib().ds_stencil_dxdw(
             dy.data_ptr(), top.data_ptr(), bot.data_ptr(), ls.data_ptr(),
@@ -314,38 +366,44 @@ def stencil_dxdw(dy: torch.Tensor, top: torch.Tensor, bot: torch.Tensor,
             partial.data_ptr(), dw.data_ptr(), *ints, _stream(),
         )
     _cuda.check(rc, "ds_stencil_dxdw")
-    _cuda.launch_counts["dxdw"] += 1
+    _count("dxdw", ints[-1])
     return dx, dw.reshape(K * Fx, Fc)
 
 
 @stencil_dxdw.register_kernel("cpu")
 def _stencil_dxdw_cpu(dy, top, bot, ls, wext, wk3t, xr, mask, n, h, r, B,
-                      kind):
+                      kind, bdt="float32"):
     return run_dxdw_plain(_Stencil(n, h, r), kind, wk3t.shape[0], dy, wext,
-                          (top, bot, ls), wk3t, xr, mask, B)
+                          (top, bot, ls), wk3t, xr, mask, B, bdt)
+
+
+def _dw_dtype(t):
+    """dW's dtype: float32 for float32 and bfloat16 arrays (float64 only
+    on the CPU's float64 path)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
 
 
 @stencil_dxdw.register_fake
 def _stencil_dxdw_fake(dy, top, bot, ls, wext, wk3t, xr, mask, n, h, r, B,
-                       kind):
+                       kind, bdt="float32"):
     K, Fc, Fx = wk3t.shape
     return (dy.new_empty((B * Fx, dy.shape[1], n, dy.shape[3])),
-            dy.new_empty((K * Fx, Fc)))
+            dy.new_empty((K * Fx, Fc), dtype=_dw_dtype(dy)))
 
 
 @torch.library.custom_op(f"{_NS}::stencil_grad", mutates_args=(),
                          device_types="cuda")
 def stencil_grad(xc: torch.Tensor, top: torch.Tensor, bot: torch.Tensor,
                  ls: torch.Tensor, wext: torch.Tensor, dy: torch.Tensor,
-                 n: int, h: int, r: int, K: int, B: int,
-                 kind: str) -> torch.Tensor:
+                 n: int, h: int, r: int, K: int, B: int, kind: str,
+                 bdt: str = "float32") -> torch.Tensor:
     """K3 on :func:`.fused_stencil._bwd_plan`'s plan for this card: dW
-    (K*Fin, Fout) of the two-kernel backward
+    (K*Fin, Fout), float32, of the two-kernel backward
     (:func:`.fused_stencil.run_grad_kernel`)."""
     Fin, Fout = xc.shape[0] // B, dy.shape[0] // B
     partial, dw, ints = _bwd_launch("grad kernel", n, h, r, kind, K, xc,
                                     (top, bot, ls), wext, dy, B, Fin, Fout,
-                                    False)
+                                    False, bdt)
     with torch.cuda.device(xc.device):
         rc = _cuda.lib().ds_stencil_grad(
             xc.data_ptr(), top.data_ptr(), bot.data_ptr(), ls.data_ptr(),
@@ -353,19 +411,22 @@ def stencil_grad(xc: torch.Tensor, top: torch.Tensor, bot: torch.Tensor,
             *ints, _stream(),
         )
     _cuda.check(rc, "ds_stencil_grad")
-    _cuda.launch_counts["grad"] += 1
+    _count("grad", ints[-1])
     return dw.reshape(K * Fin, Fout)
 
 
 @stencil_grad.register_kernel("cpu")
-def _stencil_grad_cpu(xc, top, bot, ls, wext, dy, n, h, r, K, B, kind):
+def _stencil_grad_cpu(xc, top, bot, ls, wext, dy, n, h, r, K, B, kind,
+                      bdt="float32"):
     return run_grad_plain(_Stencil(n, h, r), kind, K, xc, wext,
-                          (top, bot, ls), dy, B)
+                          (top, bot, ls), dy, B, bdt)
 
 
 @stencil_grad.register_fake
-def _stencil_grad_fake(xc, top, bot, ls, wext, dy, n, h, r, K, B, kind):
-    return xc.new_empty((K * (xc.shape[0] // B), dy.shape[0] // B))
+def _stencil_grad_fake(xc, top, bot, ls, wext, dy, n, h, r, K, B, kind,
+                       bdt="float32"):
+    return xc.new_empty((K * (xc.shape[0] // B), dy.shape[0] // B),
+                        dtype=_dw_dtype(xc))
 
 
 # ---------------------------------------------------------------------------

@@ -68,7 +68,7 @@ __all__ = [
 
 # int32 tables that CUDA kernels read as they are; every other integer
 # table becomes int64 for torch indexing
-_INT32_TABLES = ("strip_idx", "offsets")
+_INT32_TABLES = ("strip_idx", "strip_idx_bf16", "offsets")
 
 
 def _src_block(bands, n, h, ax, ay):
@@ -215,7 +215,7 @@ def pack_edge_bands(xc, n, h):
     return torch.ops.deepsphere.bands(xc, n, h)
 
 
-def stencil_tables(st: FaceStencil):
+def stencil_tables(st: FaceStencil, bf16_io=False):
     """The arrays of a stencil that the convs read, as a dict of host numpy
     arrays (see :func:`as_tensors` for a device).
 
@@ -228,8 +228,21 @@ def stencil_tables(st: FaceStencil):
     backward's masks); ``strip_idx``, the halo
     strips' source map (:func:`.strips.strip_index_map`); and ``offsets``,
     the (nplanes, 2) tap offsets.
+
+    ``bf16_io`` (the layers pass ``config.conv_dtype == "bfloat16_io"``,
+    as the JAX package's): where :func:`.fused_stencil.cfp_io_available`,
+    also ``weights_bf16``, the weight planes re-extended to R = roundup(h,
+    16) margins and rounded to bfloat16 once (a torch bfloat16 tensor, the
+    JAX package's ``weights_bf16`` bit for bit), and ``strip_idx_bf16``,
+    the source map of the bfloat16 strips.
     """
-    from .fused_stencil import cfp_geometry, cfp_structural_available
+    from .fused_stencil import (
+        _round_up,
+        cfp_geometry,
+        cfp_io_available,
+        cfp_structural_available,
+        reextend_weights,
+    )
     from .strips import strip_index_map
 
     extra = {}
@@ -251,6 +264,11 @@ def stencil_tables(st: FaceStencil):
         extra["corr_mask"] = cm.reshape(12, n, P_l)
     if cfp_structural_available(st, "mono", 2):
         extra["strip_idx"] = strip_index_map(st)
+    if bf16_io and cfp_io_available(st):
+        w = reextend_weights(np.asarray(st.weights, np.float32), n,
+                             _round_up(h, 8), _round_up(h, 16))
+        extra["weights_bf16"] = torch.from_numpy(w).to(torch.bfloat16)
+        extra["strip_idx_bf16"] = strip_index_map(st, torch.bfloat16)
     return {
         **extra,
         "offsets": np.asarray(st.offsets, dtype=np.int32),
@@ -277,7 +295,8 @@ def stencil_tables(st: FaceStencil):
 def as_tensors(tables, device=None):
     """Host tables -> torch tensors on ``device``: floats as float32,
     integers as int64 (the CUDA kernels' tables stay int32).  Tensors
-    already on ``device`` pass through."""
+    keep their dtype (``weights_bf16`` stays bfloat16) and move to
+    ``device``."""
     out = {}
     for k, v in tables.items():
         if isinstance(v, torch.Tensor):
@@ -470,10 +489,10 @@ def check_lap_chain(st: FaceStencil, B, Fin, sms, grad):
     """Raise where the kernels' plans on a card of ``sms`` SMs refuse a lap
     of :func:`lap_chain_conv` over B x Fin channels (``grad``: its backward's
     too)."""
-    from .fused_stencil import chain_refused
+    from .fused_stencil import chain_refused, staged_bytes
 
     refused = chain_refused(st.nside, st.radius, len(st.offsets), B, Fin,
-                            sms, grad)
+                            sms, grad, staged_bytes())
     if refused:
         raise ValueError(
             f"lap chain: no plan of {', '.join(refused)} takes n={st.nside} "
@@ -493,7 +512,10 @@ def lap_chain_conv(st: FaceStencil, x, kernel, n_terms, kind, tables=None,
     at radius >= 3 (and at radius 2 from h = 20).  Each lap is
     differentiated by the fused conv's backward; the selector needs no
     gradient, so the K1+K3 route runs no K3.  Same math as the per-step
-    recursion.
+    recursion.  Under a bf16 ``config.conv_dtype`` every lap is a bf16
+    fused conv (bfloat16 out in the I/O mode), as in the JAX package's
+    chain; the recursion's combine follows torch's promotion as JAX's
+    does, and the contraction runs in float32.
 
     Same contract as :func:`stencil_graph_conv` (x: (B, M, Fin) ->
     (B, M, Fout)); requires :func:`lap_chain_available`.  A CUDA input
@@ -536,6 +558,8 @@ def lap_chain_conv(st: FaceStencil, x, kernel, n_terms, kind, tables=None,
     y = None
     for k, t in enumerate(terms):
         ti = t[..., h : h + n].reshape(B, Fin, M)
+        if ti.dtype == torch.bfloat16:
+            ti = ti.float()
         yk = torch.einsum("bfm,fo->bmo", ti, wk[:, k, :].to(ti.dtype))
         y = yk if y is None else y + yk
     return _from_face(y, layout).to(x.dtype)

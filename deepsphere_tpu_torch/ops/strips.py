@@ -17,6 +17,12 @@ R = roundup(h, 8), P_l = roundup(n + 2h, 128):
 * ``ls`` (C, 12, n, 128): the west lane strip at lanes [0, h), the east
   one at [h, 2h), zeros elsewhere.
 
+The strips of bfloat16 activations (the ``"bfloat16_io"`` conv) have R =
+roundup(h, 16) rows, as the JAX package's ``_strip_arrays`` builds them
+for bf16 (its builder kernel takes float32 only); the gather kernel copies
+their 2-byte elements with its own source map (``strip_index_map(st,
+torch.bfloat16)``), bit-identical to the plain version.
+
 On the TPU the builder was a DMA/flip program; on a GPU the whole
 assembly is one gather through a host-built int32 source map
 (:func:`strip_index_map`), which runs at memory bandwidth: each thread
@@ -41,23 +47,27 @@ __all__ = ["strip_arrays", "strip_index_map", "build_strips",
            "band_strip_index_map", "band_source_map", "build_band_strips"]
 
 
-def _geometry(st):
-    from .fused_stencil import cfp_geometry
+def _geometry(st, dtype=torch.float32):
+    """(R, P_l) of the strips of arrays of ``dtype``."""
+    from .fused_stencil import cfp_geometry, strip_rows
 
-    return cfp_geometry(st.nside, st.n_steps)
+    return strip_rows(st.n_steps, dtype), cfp_geometry(st.nside, st.n_steps)[1]
 
 
-def strip_arrays(st, xc, faces=None, bands=None):
+def strip_arrays(st, xc, faces=None, bands=None, R=None):
     """Plain version: (top, bot, ls) from slices and flips of the interior
-    of ``xc`` (C, 12, n, P_l) (lanes [h, h+n); the rest is not read).
+    of ``xc`` (C, 12, n, P_l) (lanes [h, h+n); the rest is not read), with
+    R rows in ``top`` and ``bot`` (default: those of its dtype,
+    :func:`.fused_stencil.strip_rows`).
 
     ``faces``/``bands``: the strips of ``faces`` only (F of them, in that
     order, (C, F, ...) each), with the neighbour data read from the four
     full-sphere edge bands ``bands`` (:func:`.stencil.extract_edge_bands`
     or :func:`.stencil.unpack_edge_bands`); ``xc`` may then be None."""
     n, h = st.nside, st.n_steps
-    R, P_l = _geometry(st)
     ref = xc if bands is None else bands[0]
+    R_dt, P_l = _geometry(st, ref.dtype)
+    R = R_dt if R is None else R
     C = ref.shape[0]
     west, east, south, north = edge_strips(n, h, xc, embedded=True,
                                            faces=faces, bands=bands)
@@ -75,23 +85,22 @@ def strip_arrays(st, xc, faces=None, bands=None):
     return top, bot, ls
 
 
-def strip_index_map(st):
-    """Host int32 source map of the strips: for every element of one
-    channel's ``top``, ``bot`` and ``ls`` (concatenated, flattened in that
-    order), its flat index into one channel (12, n, P_l) of ``xc``, or -1
-    for a zero.  Derived by running :func:`strip_arrays` on an image of
-    flat indices, so it follows ``edge_descriptor`` exactly.  Cached on
-    ``st``."""
-    cached = getattr(st, "_strip_idx_cache", None)
-    if cached is None:
+def strip_index_map(st, dtype=torch.float32):
+    """Host int32 source map of the strips of arrays of ``dtype`` (float32,
+    or bfloat16: R16 strips): for every element of one channel's ``top``,
+    ``bot`` and ``ls`` (concatenated, flattened in that order), its flat
+    index into one channel (12, n, P_l) of ``xc``, or -1 for a zero.
+    Derived by running :func:`strip_arrays` on an image of flat indices,
+    so it follows ``edge_descriptor`` exactly.  Cached on ``st``."""
+    R, P_l = _geometry(st, dtype)
+    cache = st.__dict__.setdefault("_strip_idx_cache", {})
+    if R not in cache:
         n = st.nside
-        _, P_l = _geometry(st)
         ids = torch.arange(1, 12 * n * P_l + 1, dtype=torch.int64)
-        parts = strip_arrays(st, ids.reshape(1, 12, n, P_l))
-        cached = (torch.cat([p.reshape(-1) for p in parts]) - 1).numpy()
-        cached = cached.astype(np.int32)
-        st._strip_idx_cache = cached
-    return cached
+        parts = strip_arrays(st, ids.reshape(1, 12, n, P_l), R=R)
+        m = (torch.cat([p.reshape(-1) for p in parts]) - 1).numpy()
+        cache[R] = m.astype(np.int32)
+    return cache[R]
 
 
 def band_strip_index_map(st, faces):
@@ -120,7 +129,7 @@ def _strip_views(st, flat, C, F):
     """(top, bot, ls) views of the flat strip buffer of :func:`..library.strips`
     (one allocation: top and bot (C, F, R, P_l), then ls (C, F, n, 128))."""
     n = st.nside
-    R, P_l = _geometry(st)
+    R, P_l = _geometry(st, flat.dtype)
     e_tb = C * F * R * P_l
     return (flat[:e_tb].view(C, F, R, P_l),
             flat[e_tb:2 * e_tb].view(C, F, R, P_l),
@@ -128,15 +137,16 @@ def _strip_views(st, flat, C, F):
 
 
 def build_strips(st, xc, index=None):
-    """(top, bot, ls) of ``xc`` (C, 12, n, P_l) through the ``strips`` op:
-    the CUDA kernel for a CUDA tensor, the plain version for a CPU tensor.
-    ``index``: the device copy of :func:`strip_index_map`
-    (``tables["strip_idx"]``), else built here."""
+    """(top, bot, ls) of ``xc`` (C, 12, n, P_l), float32 or bfloat16,
+    through the ``strips`` op: the CUDA kernel for a CUDA tensor, the plain
+    version for a CPU tensor.  ``index``: the device copy of
+    :func:`strip_index_map` for ``xc``'s dtype (``tables["strip_idx"]`` or
+    ``["strip_idx_bf16"]``), else built here."""
     from .library import check_device
 
     check_device("strips", xc)
     if index is None:
-        index = torch.from_numpy(strip_index_map(st)).to(xc.device)
+        index = torch.from_numpy(strip_index_map(st, xc.dtype)).to(xc.device)
     flat = torch.ops.deepsphere.strips(xc, index, st.nside, st.n_steps,
                                        list(range(12)))
     return _strip_views(st, flat, xc.shape[0], 12)

@@ -45,13 +45,13 @@ import torch.distributed as dist
 from ..graph.stencil import FaceStencil
 from ..ops.fused_stencil import (
     _basis_at_rows,
-    _compute_dtype,
     _corrected_rows,
     _gather_rows,
     _patch_rows,
     _wk3,
     _wk3t,
     cfp_geometry,
+    conv_dtypes,
     run_grad_kernel,
     run_stencil_kernel,
 )
@@ -132,10 +132,11 @@ def _gather_shard_rows(a, send, pos, group):
     return all_gather_tensor(_gather_rows(a, send), group)[pos]
 
 
-def _forward_sharded(st, tables, xc, wk3, n_terms, kind, B, group):
+def _forward_sharded(st, tables, xc, wk3, n_terms, kind, B, group, bdt):
     """xc (C, F_loc, n, P_l) local shard -> ``(y, strips, ball)``: y
     (B*Fout, F_loc, n, P_l), the local strips and the gathered ball source
-    rows (None without corrections), which the backward reuses."""
+    rows (None without corrections), which the backward reuses; ``bdt``
+    the band dtype."""
     n, h = st.nside, st.n_steps
     F = xc.shape[1]
     bands = all_gather_tensor(pack_edge_bands(xc, n, h), group)
@@ -145,7 +146,7 @@ def _forward_sharded(st, tables, xc, wk3, n_terms, kind, B, group):
     strips = build_band_strips(st, bands, range(f0, f0 + F),
                                index=tables["band_strip_idx"])
     y = run_stencil_kernel(st, kind, n_terms, xc, tables["weights"], strips,
-                           wk3, B)
+                           wk3, B, bdt)
     ball = None
     if "ball_send" in tables:
         ball = _gather_shard_rows(xc, tables["ball_send"], tables["ball_pos"],
@@ -161,17 +162,18 @@ class _FaceShardedConv(torch.autograd.Function):
     over the pixel group."""
 
     @staticmethod
-    def forward(ctx, xc, kernel, st, tables, n_terms, kind, B, group):
+    def forward(ctx, xc, kernel, st, tables, n_terms, kind, B, group, bdt):
         y, strips, ball = _forward_sharded(
-            st, tables, xc, _wk3(kernel, n_terms), n_terms, kind, B, group)
+            st, tables, xc, _wk3(kernel, n_terms), n_terms, kind, B, group,
+            bdt)
         ctx.save_for_backward(xc, kernel, *strips,
                               *(() if ball is None else (ball,)))
-        ctx.meta = (st, tables, n_terms, kind, B, group)
+        ctx.meta = (st, tables, n_terms, kind, B, group, bdt)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        st, tables, K, kind, B, group = ctx.meta
+        st, tables, K, kind, B, group, bdt = ctx.meta
         xc, kernel, top, bot, ls, *ball = ctx.saved_tensors
         dy = dy.to(xc.dtype).contiguous()
         Fin = xc.shape[0] // B
@@ -181,11 +183,11 @@ class _FaceShardedConv(torch.autograd.Function):
             # the patched conv is the exact symmetric operator: its adjoint
             # is the same sharded conv with the transposed channel kernel
             dx, _, _ = _forward_sharded(st, tables, dy, _wk3t(kernel, K), K,
-                                        kind, B, group)
+                                        kind, B, group, bdt)
         has_corr = "ball_send" in tables
         dy_clean = dy * tables["corr_mask"].to(dy.dtype) if has_corr else dy
         dwk = run_grad_kernel(st, kind, K, xc, tables["weights"],
-                              (top, bot, ls), dy_clean, B)
+                              (top, bot, ls), dy_clean, B, bdt)
         dwk = all_reduce_(dwk.reshape(K, Fin, Fout).contiguous(), group)
         if has_corr:
             basis = _basis_at_rows(tables, ball[0], K, kind)
@@ -196,7 +198,7 @@ class _FaceShardedConv(torch.autograd.Function):
                 dy_rc.reshape(-1, B, Fout))
         dkernel = dwk.permute(1, 0, 2).reshape(Fin * K, Fout)
         return (dx, dkernel.to(kernel.dtype), None, None, None, None, None,
-                None)
+                None, None)
 
 
 def face_sharded_cfp_conv(st: FaceStencil, tables, xc, kernel, n_terms, kind,
@@ -212,10 +214,15 @@ def face_sharded_cfp_conv(st: FaceStencil, tables, xc, kernel, n_terms, kind,
     :return: (B*Fout, F_loc, n, P_l) local output shard.  The kernel's
         gradient is the whole face group's: summed over the pixel ranks in
         the backward.
+
+    Its device arrays stay float32 in every ``config.conv_dtype`` (K5 and
+    the band strips are float32), its K1 and K3 take the mode's band dtype:
+    the JAX package's sharded conv casts to float32 and its kernels read
+    the band dtype from the config.
     """
-    dt = _compute_dtype(xc)
-    return _FaceShardedConv.apply(xc.to(dt).contiguous(), kernel.to(dt), st,
-                                  tables, n_terms, kind, B, group)
+    _, kdt, bdt = conv_dtypes(st, xc)
+    return _FaceShardedConv.apply(xc.to(kdt).contiguous(), kernel.to(kdt),
+                                  st, tables, n_terms, kind, B, group, bdt)
 
 
 def cface_model_conv(st, tables, x5, kernel, n_terms, kind, cfg):

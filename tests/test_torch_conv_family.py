@@ -59,6 +59,12 @@ def _graphs(n, k=8):
     return _GRAPHS[n, k]
 
 
+def _jit_init(jm, x):
+    """``jm.init(0, x)``'s variables through a jitted ``module.init`` (the
+    same values, in a fraction of the eager init's time on the CPU)."""
+    return jax.jit(jm.module.init)(jax.random.key(0), jnp.asarray(x))
+
+
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
@@ -369,7 +375,7 @@ def test_masked_stack_on_the_full_sphere_matches_jax(rng, norm):
     assert list(tm.layers) == list(jm.module.order)
     x = rng.normal(size=(2, npix, 1)).astype(np.float32)
     y = rng.randint(0, 2, size=2)
-    v = jm.init(0, jnp.asarray(x))
+    v = _jit_init(jm, x)
     vv = _randomize(_np_tree({k: v[k] for k in ("params", "batch_stats")}),
                     rng)
     static = {k: v[k] for k in v if k not in ("params", "batch_stats")}
@@ -465,8 +471,9 @@ def test_autoencoder_matches_the_example(rng):
     npix = 12 * nside * nside
     ae = ex.AutoEncoder(nside, bottleneck)
     x = ex.make_maps(nside, 2, seed=5)
-    params, static = ae.init(0, jnp.asarray(x))
-    want = np.asarray(ae.apply(params, static, jnp.asarray(x)))
+    # jitted: the example's init and apply, in a fraction of their eager time
+    params, static = jax.jit(lambda xx: ae.init(0, xx))(jnp.asarray(x))
+    want = np.asarray(jax.jit(ae.apply)(params, static, jnp.asarray(x)))
 
     layers, n_enc = autoencoder_layers(thp, nside, bottleneck)
     tm = dt.HealpyGCNN(nside, np.arange(npix), layers)
@@ -492,7 +499,7 @@ def test_autoencoder_matches_the_example(rng):
         return jnp.mean((ae.apply(p, static, jnp.asarray(x), training=True)
                          - jnp.asarray(x)) ** 2)
 
-    l_j, g_j = jax.value_and_grad(loss_of)(params)
+    l_j, g_j = jax.jit(jax.value_and_grad(loss_of))(params)
     tx = optax.adam(1e-3)
     upd, _ = tx.update(g_j, tx.init(params), params)
     p_new = _np_tree(optax.apply_updates(params, upd))
@@ -535,7 +542,7 @@ def test_interop_round_trips_the_new_trees(rng):
     nside, npix = 8, 12 * 64
     jm = ds.HealpyGCNN(nside, np.arange(npix), _family_stack(jhp))
     x = rng.normal(size=(2, npix, 1)).astype(np.float32)
-    v = jm.init(0, jnp.asarray(x))
+    v = _jit_init(jm, x)
     vv = _randomize(_np_tree({k: v[k] for k in ("params", "batch_stats")}),
                     rng)
     want = np.asarray(jm.apply({**v, **vv}, jnp.asarray(x)))

@@ -347,6 +347,170 @@ def test_grad_kernel_matches_plain(rng, dev, n, k, kind, scale, K, B, Fin,
     assert torch.equal(dw, dw2)
 
 
+# the bfloat16 instantiations of K1-K3 (config.conv_dtype "bfloat16", float32
+# arrays, and "bfloat16_io", bfloat16 arrays): (n, k, kind, scale, K, B,
+# Fin, Fout, F).  h = 9 puts face column 0 at an odd lane; radius 2 (k=20);
+# quick_start conv 3's widths; the arrays of a face shard of 3
+_BF16 = [(16, 8, "cheby", 0.75, 10, 2, 3, 9, 12),
+         (32, 8, "cheby", 0.75, 5, 2, 4, 4, 12),
+         (32, 20, "mono", 1.0, 3, 1, 2, 3, 12),
+         (16, 8, "cheby", 0.75, 10, 2, 16, 32, 12),
+         (32, 8, "cheby", 0.75, 5, 2, 4, 4, 3)]
+# kernel against its plain version in the same mode: both round at the same
+# points, but sum in other orders, so a bfloat16 term may differ by a step
+# (y, dx); a dW sums a whole map of products in float32
+BF_TOL = 1e-2
+BF_DW_TOL = 1e-3
+# the least distance of a bfloat16 result from the float32 kernels on the
+# same values, of max|f32|: a kernel that skipped its rounding sits within
+# TOL of them.  A dW moves less than y and dx where its inputs are
+# bfloat16 already and K is small (T_0 x = x is exact), hence its own bound
+BF_MOVED = 1e-3
+BF_DW_MOVED = 1e-4
+
+
+def _apart(got, f32, least=BF_MOVED):
+    """``got`` farther than ``least`` of max|f32| from ``f32``, or zero
+    where ``f32`` is (a dW whose rows the corner correction all takes)."""
+    scale = f32.abs().max()
+    if scale == 0:
+        assert got.abs().max() == 0
+        return
+    err = ((got.float() - f32).abs().max() / scale).item()
+    assert err > least, err
+
+
+def _bf16_case(rng, dev, n, k, scale, K, B, Cx, Cdy, F, io):
+    """``_bwd_case``'s arrays for a bfloat16 kernel: bfloat16 x, dy, strips
+    (R16) and weight planes (``weights_bf16``) in the I/O mode, float32 in
+    the band mode; and, for the float32 kernels on the same values, x, dy,
+    their strips and the weight planes rounded to bfloat16, all float32."""
+    st = _stencil(n, scale, (K - 1) * (2 if k == 20 else 1), k)
+    assert fs.cfp_io_available(st)
+    h = st.n_steps
+    tables = as_tensors(stencil_tables(st, bf16_io=True), dev)
+    dt_ = torch.bfloat16 if io else torch.float32
+    x = _xc(rng, dev, n, h, B * Cx).to(dt_)
+    dy = _xc(rng, dev, n, h, B * Cdy).to(dt_)
+    cut = lambda a: a[:, :F].contiguous()
+    strips = lambda a: tuple(cut(s) for s in tstrips.strip_arrays(st, a))
+    w = tables["weights_bf16" if io else "weights"]
+    f32 = (cut(tables["weights"].to(torch.bfloat16).float()), cut(x.float()),
+           strips(x.float()), cut(dy.float()), strips(dy.float()))
+    return (st, h, cut(w), tables["corr_mask"][:F].contiguous(), cut(x),
+            strips(x), cut(dy), strips(dy), f32)
+
+
+@pytest.mark.parametrize("io", [False, True], ids=["band", "io"])
+@pytest.mark.parametrize("n,k,kind,scale,K,B,Fin,Fout,F", _BF16)
+def test_bf16_kernels_match_plain(rng, dev, n, k, kind, scale, K, B, Fin,
+                                  Fout, F, io):
+    """K1, K2 (dx, dW) and K3 in each bfloat16 mode against their plain
+    bfloat16 versions on identical CUDA inputs, to 1e-2 of the plain max
+    (1e-3 for a dW), and apart from the float32 kernels on the same
+    values; outputs in the arrays' dtype, pad lanes zero, dW float32 and
+    bitwise-equal across two calls; each launch counted as the mode's."""
+    st, h, w, mask, x, sx, dy, sdy, f32 = _bf16_case(
+        rng, dev, n, k, scale, K, B, Fin, Fout, F, io)
+    kern = torch.from_numpy(
+        rng.normal(size=(Fin * K, Fout)).astype(np.float32)).to(dev)
+    sfx = "_bf16_io" if io else "_bf16"
+    a1 = (st, kind, K, x, w, sx, fs._wk3(kern, K), B, "bfloat16")
+    y, y_p = fs.run_stencil_kernel(*a1), fs.run_stencil_plain(*a1)
+    a2 = (st, kind, K, dy, w, sdy, fs._wk3t(kern, K), x, mask, B, "bfloat16")
+    (dx, dw), (_, dw2) = fs.run_dxdw_kernel(*a2), fs.run_dxdw_kernel(*a2)
+    dx_p, dw_p = fs.run_dxdw_plain(*a2)
+    a3 = (st, kind, K, x, w, sx, dy, B, "bfloat16")
+    g, g2, g_p = (fs.run_grad_kernel(*a3), fs.run_grad_kernel(*a3),
+                  fs.run_grad_plain(*a3))
+    torch.cuda.synchronize()
+    assert _cuda.bf16_launch_counts == {
+        **{key: 0 for key in _cuda.bf16_launch_counts},
+        "stencil_conv" + sfx: 1, "dxdw" + sfx: 2, "grad" + sfx: 2}
+    assert all(v == 0 for v in _cuda.launch_counts.values())
+    for got, plain in ((y, y_p), (dx, dx_p)):
+        assert got.dtype == x.dtype == plain.dtype
+        _close(got[..., h:h + n].float(), plain[..., h:h + n].float(), BF_TOL)
+        assert got[..., :h].abs().max() == 0
+        assert got[..., h + n:].abs().max() == 0
+    for got, again, plain in ((dw, dw2, dw_p), (g, g2, g_p)):
+        assert got.dtype == torch.float32
+        _close(got, plain, BF_DW_TOL)
+        assert torch.equal(got, again)
+    wf, xf, sxf, dyf, sdyf = f32
+    yf = fs.run_stencil_kernel(st, kind, K, xf, wf, sxf, fs._wk3(kern, K), B)
+    dxf, dwf = fs.run_dxdw_kernel(st, kind, K, dyf, wf, sdyf,
+                                  fs._wk3t(kern, K), xf, mask, B)
+    gf = fs.run_grad_kernel(st, kind, K, xf, wf, sxf, dyf, B)
+    for got, ref in ((y, yf), (dx, dxf)):
+        _apart(got[..., h:h + n], ref[..., h:h + n])
+    for got, ref in ((dw, dwf), (g, gf)):
+        _apart(got, ref, BF_DW_MOVED)
+
+
+def test_bf16_strips_are_the_plain_strips(rng, dev):
+    """K4 on bfloat16 activations (the I/O mode's R16 strips, 2-byte
+    elements) equals the plain strips bit for bit, at h = 9 and 4."""
+    for n, h in ((16, 9), (32, 4)):
+        st = _stencil(n, 0.75, h)
+        x = _xc(rng, dev, n, h, 3).to(torch.bfloat16)
+        idx = as_tensors(stencil_tables(st, bf16_io=True), dev)[
+            "strip_idx_bf16"]
+        got = tstrips.build_strips(st, x, idx)
+        assert got[0].shape[2] == got[1].shape[2] == 16
+        for g, want in zip(got, tstrips.strip_arrays(st, x)):
+            assert g.dtype == torch.bfloat16
+            assert torch.equal(g.view(torch.int16), want.view(torch.int16))
+    assert _cuda.bf16_launch_counts["strips_bf16"] == 2
+    assert _cuda.launch_counts["strips"] == 0
+
+
+@pytest.mark.parametrize("fused_dw", [True, False], ids=["K2", "K1+K3"])
+@pytest.mark.parametrize("mode", ["bfloat16", "bfloat16_io"])
+def test_bf16_conv_backward_matches_plain_autograd(rng, dev, mode, fused_dw):
+    """The fused conv under each bfloat16 mode on the card (kernels) against
+    autograd through its plain forward on the card in the same mode: y,
+    dx and dW to 1e-2 (nside 32, K=5, corrections live); each apart from
+    the float32 conv's."""
+    config.set_fused_dw(fused_dw)
+    config.set_conv_dtype(mode)
+    try:
+        n, K, B, Fin, Fout = 32, 5, 2, 3, 4
+        st = _stencil(n, 0.75, K - 1)
+        h = st.n_steps
+        tables = as_tensors(stencil_tables(st, bf16_io=True), dev)
+        x = _xc(rng, dev, n, h, B * Fin).requires_grad_()
+        kern = torch.from_numpy(
+            rng.normal(size=(Fin * K, Fout)).astype(np.float32)).to(dev)
+        kern.requires_grad_()
+        cot = _xc(rng, dev, n, h, B * Fout)
+        outs = []
+        for conv in (fs.fused_stencil_conv_cfp,
+                     fs.fused_stencil_conv_cfp_plain):
+            y = conv(st, tables, x, kern, K, "cheby", B)
+            outs.append((y,) + torch.autograd.grad(y, (x, kern),
+                                                   cot.to(y.dtype)))
+        torch.cuda.synchronize()
+    finally:
+        config.set_conv_dtype("float32")
+    io = mode == "bfloat16_io"
+    assert outs[0][0].dtype == (torch.bfloat16 if io else torch.float32)
+    for got, want in zip(outs[0], outs[1]):
+        if got.dim() == 4:
+            got, want = got[..., h:h + n], want[..., h:h + n]
+        _close(got.float(), want.float(), BF_TOL)
+    sfx = "_bf16_io" if io else "_bf16"
+    assert _cuda.bf16_launch_counts["stencil_conv" + sfx] == 1 + (not fused_dw)
+    assert _cuda.bf16_launch_counts[("dxdw" if fused_dw else "grad") + sfx] == 1
+    assert _cuda.launch_counts["stencil_conv"] == 0
+    y = fs.fused_stencil_conv_cfp(st, tables, x, kern, K, "cheby", B)
+    f32 = (y,) + torch.autograd.grad(y, (x, kern), cot)
+    for got, ref in zip(outs[0], f32):
+        if got.dim() == 4:
+            got, ref = got[..., h:h + n], ref[..., h:h + n]
+        _apart(got, ref)
+
+
 @pytest.mark.parametrize("fused_dw", [True, False])
 def test_conv_backward_matches_plain_autograd(rng, dev, fused_dw):
     """The autograd function on the card (kernels) against autograd through

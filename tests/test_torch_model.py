@@ -213,7 +213,8 @@ def test_quick_start_model_matches_jax(rng):
             == [type(l).__name__ for l in jm._module_layers])
     assert list(tm.layers) == list(jm.module.order)
     x = rng.normal(size=(2, npix, 1)).astype(np.float32)
-    v = jm.init(0, jnp.asarray(x))
+    # jitted: ``jm.init(0, x)``'s variables in a fraction of its eager time
+    v = jax.jit(jm.module.init)(jax.random.key(0), jnp.asarray(x))
     vv = _random_stats(_np_tree({k: v[k] for k in ("params", "batch_stats")}),
                        rng)
     want = np.asarray(jm.apply({**v, **vv}, jnp.asarray(x)))
