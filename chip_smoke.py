@@ -195,12 +195,13 @@ and bound, and finally
 non-zero and prints no result line.  It needs one card, never falls back to
 the CPU, and imports no JAX.
 
-Four other modes measure only:
+Five other modes measure only:
 
     python3 chip_smoke.py --kernel-times ROOT
     python3 chip_smoke.py --compare PARENT [OUT.json]
     python3 chip_smoke.py --memory [OUT.json]
     python3 chip_smoke.py --sass PARENT [OUT.json]
+    python3 chip_smoke.py --k1-ab [EDITS.json ...]
 
 and ``--replay ARTIFACT X.npy OUT_DIR B...`` is phase 13's serving
 process.
@@ -216,11 +217,21 @@ backward route, with and without remat, and sums the allocations live at
 the step's peak by the code that made them.  ``--sass`` builds the kernel
 library of the checkout PARENT and of this one and counts the parent's
 kernels whose machine code (``cuobjdump -sass``) this library holds
-unchanged.
+unchanged.  ``--k1-ab`` builds K1's sources alone (``csrc/stencil_conv*.cu``)
+as they are, as they are with the bfloat16 launches forced to the 2-byte
+kernels (``kBf16``, the code of K1's first bfloat16 version), and with the
+header edits of each EDITS.json (a list of [old, new] strings applied to
+``stencil_conv.cuh``; the variant is named by the file), checks that each
+build's bfloat16 outputs equal the 2-byte kernels' bit for bit in both
+modes at ten shapes (odd and even h, radius 1-4, both stagings), and
+times the float32 K1 and every build's bfloat16 K1 in each mode at the
+four phase-3 shapes, in turns, on random inputs; writes
+``chiprun_out/k1_ab.json``.
 """
 
 import atexit
 import copy
+import hashlib
 import json
 import os
 import socket
@@ -583,11 +594,14 @@ def band_map(C, F, n, h, P, dev):
 def kernel_times(root):
     """``--kernel-times ROOT``: device times (graph replay) of K1-K5 and of
     the ``index_select`` of K4's and K5's maps at the four phase-3 shapes
-    (K5 on the B*Fin channels of the conv's input, 12 faces), and of K1 as
-    the dx conv of the K1+K3 route (on dy, through W^T), and the quick_start
-    train step on both routes (:func:`route_steps`), with the package
-    imported from the checkout ``ROOT`` (this one or another commit's).
-    Prints one JSON line."""
+    (K5 on the B*Fin channels of the conv's input, 12 faces), of K1 as
+    the dx conv of the K1+K3 route (on dy, through W^T) and of K1 in each
+    bfloat16 mode (phase 15(a)'s inputs: the same activations, as float32
+    or bfloat16, the weight planes rounded into the R16 layout), with a
+    digest of each bfloat16 output's bytes, and the quick_start train step
+    on both routes (:func:`route_steps`), with the package imported from the
+    checkout ``ROOT`` (this one or another commit's).  Prints one JSON
+    line."""
     import inspect
 
     sys.path.insert(0, os.path.abspath(root))
@@ -658,9 +672,23 @@ def kernel_times(root):
                "k5_ms": graph_ms(lambda: pack_edge_bands(xc, n, h)),
                "k5_index_select_ms": graph_ms(
                    lambda: torch.index_select(bflat, 0, bidx))}
+        # K1 in each bfloat16 mode: the band mode on xc, the I/O mode on xc
+        # in bfloat16 with its R16 strips and weight planes
+        x16 = xc.to(torch.bfloat16)
+        w16 = fs._io_weights(st, {"weights": w}, torch.bfloat16)
+        for sfx, ab in (("_bf16", (xc, w, strips)),
+                        ("_bf16_io", (x16, w16, strip_arrays(st, x16)))):
+            a1b = (st, "cheby", K, ab[0], ab[1], ab[2], wk3, B, "bfloat16")
+            y = fs.run_stencil_kernel(*a1b)
+            rec["k1" + sfx + "_digest"] = hashlib.sha256(
+                y.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+            rec["k1" + sfx + "_ms"] = graph_ms(
+                lambda: fs.run_stencil_kernel(*a1b))
+            del y, a1b
         out["shapes"].append(rec)
         print(json.dumps(rec), file=sys.stderr, flush=True)
         del xc, dy, xz, sel, strips, tables, a1t, a2, a3, args, bflat, bidx
+        del x16, w16
         torch.cuda.empty_cache()
     out["train_step"] = route_steps(dt, config, hp_nn)
     print(json.dumps(out["train_step"]), file=sys.stderr, flush=True)
@@ -785,8 +813,9 @@ def memory_report(out_path=None):
 def compare(parent, out_path=None):
     """``--compare PARENT [OUT.json]``: :func:`kernel_times` of the checkout
     PARENT and of this one in turns (parent, this, this, parent), each in
-    its own process.  Prints the pairs and writes them to ``out_path`` if
-    given."""
+    its own process, and whether the bfloat16 K1's outputs are bit for bit
+    the same in all four runs.  Prints the pairs and writes them to
+    ``out_path`` if given."""
     here = os.path.dirname(os.path.abspath(__file__))
     runs = []
     for root in (parent, here, here, parent):
@@ -801,13 +830,17 @@ def compare(parent, out_path=None):
         runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
         say("compare", f"{root}: {time.perf_counter() - t:.1f} s")
     keys = ("k1_ms", "k4_ms", "index_select_ms", "k1_dx_ms", "k2_ms", "k3_ms",
-            "k5_ms", "k5_index_select_ms")
+            "k5_ms", "k5_index_select_ms", "k1_bf16_ms", "k1_bf16_io_ms")
     pairs = []
     for j, shape in enumerate(KERNEL_SHAPES):
         row = {"shape": runs[0]["shapes"][j]["shape"]}
         for k in keys:
             row[k] = {"parent": [runs[0]["shapes"][j][k], runs[3]["shapes"][j][k]],
                       "change": [runs[1]["shapes"][j][k], runs[2]["shapes"][j][k]]}
+        for sfx in ("_bf16", "_bf16_io"):
+            digests = {runs[i]["shapes"][j]["k1" + sfx + "_digest"]
+                       for i in range(4)}
+            row["k1" + sfx + "_bit_equal"] = len(digests) == 1
         pairs.append(row)
         say("compare", json.dumps(row))
     steps = {}
@@ -827,6 +860,165 @@ def compare(parent, out_path=None):
         with open(out_path, "w") as fh:
             json.dump(summary, fh, indent=1)
     print(json.dumps(summary), flush=True)
+
+
+K1_AB_BITS = [  # (n, h, r, K, B, Fin, Fout): odd and even h, radius 1-4
+    (16, 9, 1, 10, 2, 3, 9), (32, 4, 1, 5, 2, 4, 4), (64, 9, 1, 10, 1, 1, 8),
+    (32, 9, 1, 10, 16, 8, 16), (16, 7, 1, 8, 2, 4, 4), (32, 8, 2, 5, 1, 2, 3),
+    (32, 6, 2, 4, 2, 2, 2), (16, 3, 3, 2, 2, 2, 3), (16, 4, 4, 2, 1, 2, 2),
+    (32, 12, 3, 5, 2, 2, 3)]
+
+
+def k1_ab(edit_files):
+    """``--k1-ab [EDITS.json ...]``: K1's bfloat16 stagings against its
+    2-byte kernels, bit for bit and in turns (module docstring)."""
+    import ctypes
+    import glob
+    import shutil
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    from deepsphere_tpu_torch.ops import _cuda
+    from deepsphere_tpu_torch.ops import fused_stencil as fs
+
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    csrc = os.path.join(here, "deepsphere_tpu_torch", "csrc")
+    k1 = sorted(os.path.basename(f)
+                for f in glob.glob(os.path.join(csrc, "stencil_conv*.cu")))
+    bf32 = [f for f in k1 if f.startswith("stencil_conv_bf16") and "_s2" not in f]
+    work = tempfile.mkdtemp(prefix="ds_k1_ab_")
+    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                        "nvcc")
+
+    def tree(name, fn, edits):
+        d = os.path.join(work, name)
+        shutil.copytree(csrc, d)
+        text = open(os.path.join(d, fn)).read()
+        for old, new in edits:
+            if old not in text:
+                raise SystemExit(f"--k1-ab {name}: {old!r} not in {fn}")
+            text = text.replace(old, new)
+        open(os.path.join(d, fn), "w").write(text)
+        return d
+
+    # each variant recompiles only the files its edits can change
+    trees = {"this": (tree("this", "stencil_conv.cu", []), k1),
+             "s2": (tree("s2", "stencil_conv.cu", [(
+                 "const bool two = mode && smem_of(sizeof(float)) > kSmemMax;",
+                 "const bool two = mode;")]), ["stencil_conv.cu"])}
+    for path in edit_files:
+        name = os.path.splitext(os.path.basename(path))[0]
+        trees[name] = (tree(name, "stencil_conv.cuh", json.load(open(path))),
+                       bf32)
+    try:
+        t = time.perf_counter()
+        procs = [(name, d, f, subprocess.Popen(
+            [nvcc, *_cuda._FLAGS, "-I", d, "-c", "-o",
+             os.path.join(d, f + ".o"), os.path.join(d, f)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for name, (d, own) in trees.items() for f in own]
+        for name, d, f, proc in procs:
+            out = proc.communicate(timeout=900)[0]
+            if proc.returncode:
+                raise SystemExit(f"--k1-ab {name}: nvcc {f} failed:\n{out}")
+        libs = {}
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        for name, (d, own) in trees.items():
+            so = os.path.join(d, "k1.so")
+            objs = [os.path.join(d if f in own else trees["this"][0], f + ".o")
+                    for f in k1]
+            subprocess.run([nvcc, *_cuda._FLAGS, "-shared", "-o", so, *objs],
+                           check=True, capture_output=True, timeout=600)
+            lib = ctypes.CDLL(so)
+            lib.ds_stencil_conv.argtypes = [vp] * 7 + [ci] * 17 + [vp]
+            lib.ds_stencil_conv.restype = ci
+            libs[name] = lib
+        say("k1-ab", f"built {list(libs)} in {time.perf_counter() - t:.1f} s")
+        rng = np.random.RandomState(5)
+
+        def case(n, h, r, K, B, Fin, Fout, io):
+            dt_ = torch.bfloat16 if io else torch.float32
+            P = fs.cfp_geometry(n, h)[1]
+            R = fs.strip_rows(h, dt_)
+            g = lambda *shape: torch.from_numpy(
+                rng.normal(size=shape).astype(np.float32)).to(dev).to(dt_)
+            C = B * Fin
+            return {"xc": g(C, 12, n, P), "top": g(C, 12, R, P),
+                    "bot": g(C, 12, R, P), "ls": g(C, 12, n, 128),
+                    "wext": g((2 * r + 1) ** 2, 12, n + 2 * R, P),
+                    "wk3": torch.from_numpy(rng.normal(size=(K, Fin, Fout))
+                                            .astype(np.float32)).to(dev),
+                    "out": torch.empty((B * Fout, 12, n, P), dtype=dt_,
+                                       device=dev),
+                    "dims": (n, h, r, K, B, Fin, Fout, R, P)}
+
+        def launcher(lib, c, mode):
+            n, h, r, K, B, Fin, Fout, R, P = c["dims"]
+            npl = (2 * r + 1) ** 2
+            plan = fs._k1_plan(n, h, r, npl, K, B, 12, Fin, Fout, sms,
+                               2 if mode else 4)
+            ptrs = [c[k].data_ptr() for k in ("xc", "top", "bot", "ls",
+                                              "wext", "wk3", "out")]
+
+            def go():
+                _cuda.check(lib.ds_stencil_conv(
+                    *ptrs, 0, K, r, npl, B, 12, Fin, Fout, n, h, R, P, plan.T,
+                    plan.G, plan.GB, plan.FC, mode,
+                    torch.cuda.current_stream().cuda_stream), "k1-ab")
+            return go, plan
+
+        out = {"card": card_line(), "bits": [], "times": []}
+        for shape in K1_AB_BITS:
+            for io in (False, True):
+                c = case(*shape, io)
+                got = {}
+                for name, lib in libs.items():
+                    c["out"].fill_(7.0)
+                    go, plan = launcher(lib, c, 2 if io else 1)
+                    go()
+                    got[name] = c["out"].view(torch.int16).clone()
+                staged = fs._k1_bf16_staging(plan, shape[1], shape[2],
+                                             (2 * shape[2] + 1) ** 2, shape[3])
+                equal = {k: bool(torch.equal(v, got["s2"]))
+                         for k, v in got.items() if k != "s2"}
+                out["bits"].append({"shape": shape, "io": io,
+                                    "plan": list(plan[:4]), "staged": staged,
+                                    "equal": equal})
+                del c, got
+        say("k1-ab", "bit for bit against the 2-byte kernels: " + "; ".join(
+            f"{b['shape']} {'I/O' if b['io'] else 'band'} staged "
+            f"{b['staged']} {b['equal']}" for b in out["bits"]))
+        for shape in KERNEL_SHAPES:
+            n, Fin, Fout, B, K = shape
+            h, r = (K - 1), 1
+            row = {"shape": f"nside={n} B={B} Fin={Fin} Fout={Fout} K={K}"}
+            c32 = case(n, h, r, K, B, Fin, Fout, False)
+            row["f32"] = graph_ms(launcher(libs["this"], c32, 0)[0])
+            for io in (False, True):
+                c = case(n, h, r, K, B, Fin, Fout, True) if io else c32
+                fns = {k: launcher(lib, c, 2 if io else 1)[0]
+                       for k, lib in libs.items()}
+                order = ["s2"] + [k for k in fns if k != "s2"]
+                times = {k: [] for k in fns}
+                for k in order + order[::-1]:
+                    times[k].append(graph_ms(fns[k]))
+                row["I/O" if io else "band"] = times
+                del c
+            del c32
+            torch.cuda.empty_cache()
+            out["times"].append(row)
+            say("k1-ab", json.dumps(row))
+        os.makedirs(os.path.join(here, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(here, "chiprun_out", "k1_ab.json"), "w") as fh:
+            json.dump(out, fh, indent=1)
+        bad = [b for b in out["bits"] if not all(b["equal"].values())]
+        print(json.dumps({"k1_ab": out["times"], "bits_differ": bad}),
+              flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def _sass_bodies(lib):
@@ -886,8 +1078,8 @@ K40_GRAPH = (256, 40, 5)  # phase 9(a): nside, k, K
 def prebuild_headline(root):
     """Build the headline conv's nside-1024 grid graph and its deep stencil
     (K=5) in another process, into ``ROOT/.bench_cache``, beside the kernels'
-    build and phase 3's quick_start shapes (minutes of host time); phase 3
-    loads it.  Returns the process."""
+    build and phases 3-5 (minutes of host time); phase 3's headline case,
+    run after phase 5, loads it.  Returns the process."""
     code = ("import sys; sys.path.insert(0, {root!r}); "
             "from deepsphere_tpu_torch.graph import build_sphere_graph; "
             "build_sphere_graph(1024, k=8, method='grid', cache_dir={cache!r})"
@@ -2471,6 +2663,7 @@ def bf16_phase(dev, card, rng, qs_st, st1024, results, serve_ms):
 
     import deepsphere_tpu_torch as dt
     from deepsphere_tpu_torch import config
+    from deepsphere_tpu_torch.graph import build_sphere_graph
     from deepsphere_tpu_torch.interop import export_jax_variables
     from deepsphere_tpu_torch.nn import healpy_layers as hp_nn
     from deepsphere_tpu_torch.ops import _cuda
@@ -2892,6 +3085,84 @@ def bf16_phase(dev, card, rng, qs_st, st1024, results, serve_ms):
         shutil.rmtree(tmp, ignore_errors=True)
     del sm, qs
     torch.cuda.empty_cache()
+
+    # (d) radius 3: phase 9(a)'s one-shot k=40 conv (nside 256, K=5, 4 -> 4,
+    # batch 4) in each mode, where K1's float32 bytes do not fit the 2-byte
+    # plan's tile, so it holds 2-byte elements (counted apart, "_s2"): the
+    # raw kernel against its plain version and apart from the float32
+    # kernel on the same values, and the conv against the float32 conv
+    n, k40, K = K40_GRAPH
+    B, Fin, Fout = 4, 4, 4
+    st = build_sphere_graph(n, k=k40, method="grid", cache_dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), ".bench_cache")
+    ).deep_stencil(0.75, K)
+    h, r = st.n_steps, st.radius
+    plan = fs._k1_plan(n, h, r, len(st.offsets), K, B, 12, Fin, Fout,
+                       torch.cuda.get_device_properties(dev)
+                       .multi_processor_count, 2)
+    if (r, h) != (3, 12) or fs._k1_bf16_staging(plan, h, r, len(st.offsets),
+                                                K) != 2:
+        raise AssertionError(f"radius-3 conv: radius {r}, h {h}, plan {plan}")
+    _, P_l = fs.cfp_geometry(n, h)
+    tables = as_tensors(stencil_tables(st, bf16_io=True), dev)
+    x32 = torch.from_numpy(
+        rng.normal(size=(B * Fin, 12, n, P_l)).astype(np.float32)).to(dev)
+    kernel = torch.from_numpy((rng.normal(size=(Fin * K, Fout))
+                               / np.sqrt(Fin * K)).astype(np.float32)).to(dev)
+    wk3 = fs._wk3(kernel, K)
+    inner = slice(h, h + n)
+    with torch.no_grad():
+        y32 = fs.fused_stencil_conv_cfp(st, tables, x32, kernel, K, "cheby", B)
+    paths["bf16_radius3"] = {}
+    line = []
+    for mode in BF_MODES:
+        io = mode == "bfloat16_io"
+        sfx = ("_bf16_io" if io else "_bf16") + "_s2"
+        xc = x32.to(torch.bfloat16) if io else x32
+        w = tables["weights_bf16" if io else "weights"]
+        sx = strip_arrays(st, xc)
+        a1 = (st, "cheby", K, xc, w, sx, wk3, B, "bfloat16")
+        y_k, y_p = fs.run_stencil_kernel(*a1), fs.run_stencil_plain(*a1)
+        xf = xc.float()
+        y_f = fs.run_stencil_kernel(st, "cheby", K, xf,
+                                    tables["weights"].to(torch.bfloat16)
+                                    .float(), strip_arrays(st, xf), wk3, B)
+        torch.cuda.synchronize()
+        e1, abs1 = check(f"radius 3 K1{sfx}", y_k[..., inner],
+                         y_p[..., inner], BF_TOL)
+        d1 = bf16_apart(f"radius 3 K1{sfx}", y_k[..., inner], y_f[..., inner])
+        ms1 = graph_ms(lambda: fs.run_stencil_kernel(*a1))
+        ms1p = cuda_ms(lambda: fs.run_stencil_plain(*a1), iters=3, warmup=1)
+        b1 = k1_bound(st, K, B, Fin, Fout, 2 if io else 4)
+        results["stencil_conv" + sfx] = [(f"radius 3 nside={n} B={B} "
+                                          f"Fin={Fin} Fout={Fout} K={K}",
+                                          abs1, ms1, ms1p, *b1, None)]
+        del y_k, y_p, y_f, xf
+        config.set_conv_dtype(mode)
+        try:
+            with torch.no_grad():
+                before = counts()
+                y = fs.fused_stencil_conv_cfp(st, tables, x32, kernel, K,
+                                              "cheby", B)
+                torch.cuda.synchronize()
+                got = since(before, paths["bf16_radius3"])
+        finally:
+            config.set_conv_dtype("float32")
+        ey, _ = check(f"radius 3 conv {mode}", y[..., inner],
+                      y32[..., inner], BF_F32_TOL)
+        bf16_apart(f"radius 3 conv {mode}", y[..., inner], y32[..., inner])
+        want = {"strips" + ("_bf16" if io else ""): 1, "stencil_conv" + sfx: 1}
+        if got != want:
+            raise AssertionError(f"radius 3 conv {mode}: launches {got}")
+        line.append(f"{mode}: K1{sfx} rel {e1:.2e} {ms1:.4f} ms (plain "
+                    f"{ms1p:.4f}, bound {b1[0]:.4f} {b1[1]}), {d1:.2e} from "
+                    f"f32; conv rel {ey:.2e} from f32, launches {got}")
+        del y
+    say("bf16", f"(d) radius-3 conv nside {n} K={K} h={h} {Fin} -> {Fout} B="
+        f"{B}, 2-byte plan T={plan.T} G={plan.G}: " + "; ".join(line)
+        + f" on {card}")
+    del tables, x32, y32
+    torch.cuda.empty_cache()
     say("bf16", f"phase 15 done in {time.perf_counter() - t_phase:.1f} s")
     return paths
 
@@ -2943,8 +3214,9 @@ def main():
     say("card", f"{card} | torch {torch.__version__} cuda {torch.version.cuda}"
         f" | capability {torch.cuda.get_device_capability(0)}")
 
-    # 2. build (the headline graph builds beside it and phase 3's first
-    # shapes, phase 9's k=40 graph beside it and phases 3-8)
+    # 2. build (the headline graph builds beside it and phases 3-5, so that
+    # phase 3 runs the headline shape after phase 5; phase 9's k=40 graph
+    # beside it and phases 3-8)
     root = os.path.dirname(os.path.abspath(__file__))
     prebuild_h = prebuild_headline(root)
     atexit.register(lambda: (prebuild_h.kill(), prebuild_h.wait()))
@@ -3108,18 +3380,6 @@ def main():
     for n, Fin, Fout in qs_convs:
         conv_case(f"quick_start nside={n} B=16 Fin={Fin} Fout={Fout} K=10",
                   qs_st[n], 16, Fin, Fout, 10)
-
-    t = time.perf_counter()
-    if prebuild_h.wait() != 0:
-        raise AssertionError("the headline graph's side build failed")
-    waited = time.perf_counter() - t
-    g1024 = build_sphere_graph(1024, k=8, method="grid",
-                               cache_dir=os.path.join(root, ".bench_cache"))
-    st1024 = g1024.deep_stencil(0.75, 5)
-    head_graph_s = time.perf_counter() - t
-    say("kernels", f"headline graph + stencil built beside phases 2-3 (waited "
-        f"{waited:.2f} s for it, loaded in {head_graph_s - waited:.2f} s)")
-    conv_case("headline nside=1024 B=4 Fin=4 Fout=4 K=5", st1024, 4, 4, 4, 5)
 
     # 4. serving: the quick_start classifier at nside 64
     nside = 64
@@ -3294,6 +3554,19 @@ def main():
         f"K1+K3 route {step_ms[False]:.3f} ({16e3 / step_ms[False]:.1f} "
         f"maps/s) on {card}")
     del routes, m  # phase 7 starts from ``init`` too
+
+    # 3, the headline shape: its graph builds beside phases 2-5
+    t = time.perf_counter()
+    if prebuild_h.wait() != 0:
+        raise AssertionError("the headline graph's side build failed")
+    waited = time.perf_counter() - t
+    g1024 = build_sphere_graph(1024, k=8, method="grid",
+                               cache_dir=os.path.join(root, ".bench_cache"))
+    st1024 = g1024.deep_stencil(0.75, 5)
+    head_graph_s = time.perf_counter() - t
+    say("kernels", f"headline graph + stencil built beside phases 2-5 (waited "
+        f"{waited:.2f} s for it, loaded in {head_graph_s - waited:.2f} s)")
+    conv_case("headline nside=1024 B=4 Fin=4 Fout=4 K=5", st1024, 4, 4, 4, 5)
 
     # 6. headline conv: kernels vs the plain per-step path, both on the card
     B, Fin, Fout, K = 4, 4, 4, 5
@@ -3694,7 +3967,8 @@ def main():
 
     def entry(kname, route, source, replaces):
         rows = results[kname]
-        qs = [r for r in rows if r[0].startswith("quick_start")]
+        # a kernel the quick_start shapes do not launch: its own rows
+        qs = [r for r in rows if r[0].startswith("quick_start")] or rows
         # the side of the bound that holds most of the summed bound
         share = {b: sum(r[4] for r in qs if r[5] == b)
                  for b in ("bytes", "operations")}
@@ -3739,6 +4013,11 @@ def main():
             kernels.append(entry(kname + sfx, "cuda",
                                  f"deepsphere_tpu_torch/csrc/{src}",
                                  f"deepsphere_tpu/ops/{line}"))
+    # K1 in 2-byte shared elements (phase 15(d), the radius-3 conv)
+    for sfx in ("_bf16_s2", "_bf16_io_s2"):
+        kernels.append(entry("stencil_conv" + sfx, "cuda",
+                             "deepsphere_tpu_torch/csrc/stencil_conv_bf16_s2.cu",
+                             "deepsphere_tpu/ops/pallas_stencil.py:522"))
     kernels.append(entry("strips_bf16", "cuda",
                          "deepsphere_tpu_torch/csrc/strips.cu",
                          "deepsphere_tpu/ops/pallas_strips.py:183"))
@@ -3772,6 +4051,8 @@ if __name__ == "__main__":
             memory_report(*sys.argv[2:3])
         elif sys.argv[1] == "--sass":
             sass_check(sys.argv[2], sys.argv[3] if len(sys.argv) > 3 else None)
+        elif sys.argv[1] == "--k1-ab":
+            k1_ab(sys.argv[2:])
         else:
             raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
     else:

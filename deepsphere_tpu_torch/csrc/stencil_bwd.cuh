@@ -43,11 +43,14 @@
 // ceil(B / GB).
 //
 // The bfloat16 instantiations (BF; stencil_dxdw_bf16*.cu and
-// stencil_grad_bf16*.cu) stage and round as K1's (stencil_conv.cuh): the
-// windows, weights and terms in bfloat16, the channel kernel and the fold
-// operand rounded to bfloat16 as they are loaded, every sum in float32;
-// src, its strips, wext, oth and out are bfloat16 arrays where io (the
-// bf16 I/O mode), else float32; wk, mask, partial and dW stay float32.
+// stencil_grad_bf16*.cu) round at K1's points (stencil_conv.cuh) and stage
+// as K1's 2-byte variant (kBf16), in every shape: the windows, weights and
+// terms in bfloat16 shared elements, copied through registers (several
+// loads in flight a thread, no cp.async, so the next step's windows do not
+// overlap the last lap's fold), the channel kernel and the fold operand
+// rounded to bfloat16 as they are loaded, every sum in float32; src, its
+// strips, wext, oth and out are bfloat16 arrays where io (the bf16 I/O
+// mode), else float32; wk, mask, partial and dW stay float32.
 
 #pragma once
 

@@ -47,12 +47,17 @@
 // from the shape, by rules measured on an H100 (PERF.md).  Plain float32 FMAs on the CUDA cores, no tensor cores, no
 // TF32.
 //
-// Its bfloat16 instantiations (stencil_conv_bf16*.cu) run the TPU kernel's
-// bf16 band mode (bdt = bfloat16): the windows and weights staged as
-// bfloat16, each term rounded to bfloat16, float32 sums; on float32
-// arrays (mode 1) or bfloat16 ones (mode 2, the bf16 I/O mode: x, the
-// strips with Rs = roundup(h, 16), the R16 weight planes and the output
-// in bfloat16).  See stencil_conv.cuh.
+// Its bfloat16 instantiations run the TPU kernel's bf16 band mode (bdt =
+// bfloat16): the windows and weights rounded to bfloat16, each term rounded
+// to bfloat16, float32 sums; on float32 arrays (mode 1) or bfloat16 ones
+// (mode 2, the bf16 I/O mode: x, the strips with Rs = roundup(h, 16), the
+// R16 weight planes and the output in bfloat16).  Those of
+// stencil_conv_bf16.cu and _bf16_r*.cu (band) and of stencil_conv_bf16_io*.cu
+// (I/O) hold the bfloat16 values in float32 shared memory and copy the
+// windows with cp.async, as the float32 kernel; where the float32 kernel's
+// shared bytes do not fit at the plan's tile and lap group, those of
+// stencil_conv_bf16_s2*.cu hold 2-byte elements, staged through registers,
+// in either mode.  See stencil_conv.cuh.
 
 #include "stencil_conv.cuh"
 
@@ -64,6 +69,10 @@ DS_K1_LAUNCH(launch_r1_g4) { return launch_t<1, 4>(T, FC, a, grid, smem, stream)
 
 using namespace ds_k1;
 
+// the dynamic shared bytes a launch may ask for (ops/fused_stencil.py's
+// _SMEM_MAX: an H100 block's 227 KB less 1 KB)
+constexpr size_t kSmemMax = 232448 - 1024;
+
 extern "C" {
 
 // kind: 0 Chebyshev, 1 monomial.  F: faces in the arrays.  T: tile side (8,
@@ -72,8 +81,10 @@ extern "C" {
 // batch indices per block; FC: output channels per block (4, 8, 16, or 32
 // for T <= 16).  mode: 0 float32; 1 the bfloat16 band on float32 arrays;
 // 2 the bfloat16 band on bfloat16 arrays (xc, the strips, wext, out; wk3
-// stays float32).  Returns cudaGetLastError() after the launch (or the
-// attribute error).
+// stays float32; every array 4-byte aligned).  The bfloat16 modes hold
+// their staged values in float32 shared memory where those bytes fit, else
+// in bfloat16 (the rule of ops/fused_stencil.py::_k1_bf16_staging).
+// Returns cudaGetLastError() after the launch (or the attribute error).
 int ds_stencil_conv(const float* xc, const float* top, const float* bot,
                     const float* ls, const float* wext, const float* wk3,
                     float* out, int kind, int K, int radius, int nplanes,
@@ -103,13 +114,48 @@ int ds_stencil_conv(const float* xc, const float* top, const float* bot,
           & 15) == 0;
   ConvArgs a{xc, top, bot, ls, wext, wk3, out, kind == 0, K, B, F, Fin, Fout,
              n, h, Rs, P, T, GB, chunks, vec, mode == 2};
-  // the channel-kernel slots in float32, the windows in the staged type
-  const size_t es = mode ? sizeof(bf16) : sizeof(float);
-  const size_t smem = sizeof(float) * (size_t)2 * K * G * FC
-      + es * ((((size_t)(Ww + kRun - 1) * Ww * nplanes + 3) & ~(size_t)3)
-              + (size_t)2 * G * (W0 + kRun - 1) * WS);
+  // the channel-kernel slots in float32, the windows in the staged type:
+  // float32 in every mode where that fits (the bfloat16 modes' plan is
+  // the 2-byte one, so it may not)
+  auto smem_of = [&](size_t es) {
+    return sizeof(float) * (size_t)2 * K * G * FC
+        + es * ((((size_t)(Ww + kRun - 1) * Ww * nplanes + 3) & ~(size_t)3)
+                + (size_t)2 * G * (W0 + kRun - 1) * WS);
+  };
+  const bool two = mode && smem_of(sizeof(float)) > kSmemMax;
+  const size_t smem = smem_of(two ? sizeof(bf16) : sizeof(float));
+  // the I/O mode's cp.async copies move whole 4-byte words, a window row
+  // at most 32 of 8 lanes
+  if (mode == 2 && !two && W0 > 256) return (int)cudaErrorInvalidValue;
+  if (mode == 2 && !two
+      && ((reinterpret_cast<size_t>(xc) | reinterpret_cast<size_t>(top)
+           | reinterpret_cast<size_t>(bot) | reinterpret_cast<size_t>(ls)
+           | reinterpret_cast<size_t>(wext)) & 3))
+    return (int)cudaErrorMisalignedAddress;
   dim3 grid((n / T) * (n / T), F, (unsigned)gz);
   cudaStream_t st = (cudaStream_t)stream;
+  if (two) {
+    switch (radius * 8 + G) {
+      case 9: return launch_bf16_s2_r1_g1(T, FC, a, grid, smem, st);
+      case 10: return launch_bf16_s2_r1_g2(T, FC, a, grid, smem, st);
+      case 12: return launch_bf16_s2_r1_g4(T, FC, a, grid, smem, st);
+      case 17: return launch_bf16_s2_r2_g1(T, FC, a, grid, smem, st);
+      case 18: return launch_bf16_s2_r2_g2(T, FC, a, grid, smem, st);
+      case 25: return launch_bf16_s2_r3_g1(T, FC, a, grid, smem, st);
+      default: return launch_bf16_s2_r4_g1(T, FC, a, grid, smem, st);
+    }
+  }
+  if (mode == 2) {
+    switch (radius * 8 + G) {
+      case 9: return launch_bf16_io_r1_g1(T, FC, a, grid, smem, st);
+      case 10: return launch_bf16_io_r1_g2(T, FC, a, grid, smem, st);
+      case 12: return launch_bf16_io_r1_g4(T, FC, a, grid, smem, st);
+      case 17: return launch_bf16_io_r2_g1(T, FC, a, grid, smem, st);
+      case 18: return launch_bf16_io_r2_g2(T, FC, a, grid, smem, st);
+      case 25: return launch_bf16_io_r3_g1(T, FC, a, grid, smem, st);
+      default: return launch_bf16_io_r4_g1(T, FC, a, grid, smem, st);
+    }
+  }
   if (mode) {
     switch (radius * 8 + G) {
       case 9: return launch_bf16_r1_g1(T, FC, a, grid, smem, st);

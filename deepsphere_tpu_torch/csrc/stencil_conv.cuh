@@ -2,22 +2,40 @@
 // C entry point and the dispatch are in stencil_conv.cu.  Each
 // stencil_conv*.cu compiles the instantiations of some (radius, lap group)
 // pairs, so that one nvcc per source builds them in parallel; the bfloat16
-// instantiations (BF) are in stencil_conv_bf16*.cu.
+// instantiations are in stencil_conv_bf16*.cu.
 //
 // The bfloat16 kernels (config.conv_dtype "bfloat16" and "bfloat16_io")
-// are the same kernel with its staged elements in bfloat16: the weight
-// window and the halo windows are rounded to bfloat16 once as they are
-// staged (from float32 arrays, round to nearest even, the band mode) or
-// copied (from bfloat16 arrays, the I/O mode, a runtime flag of the
-// launch), each lap sums its taps in float32 and stores its term rounded
-// to bfloat16 (a Chebyshev term's 2 L~T - T formed in float32 first), the
-// channel kernel is rounded to bfloat16 as it is staged, and the fold
-// accumulates in float32: the rounding points of
-// ops/fused_stencil.py::_plain_terms.  A cp.async copy moves at least 4
-// bytes and a bfloat16 window row may start at an odd lane, so the
-// bfloat16 kernels stage through registers (several loads in flight a
-// thread) instead of cp.async; the output is float32, or bfloat16 in the
-// I/O mode.  The float32 kernels' code is unchanged (if constexpr).
+// round at the points of ops/fused_stencil.py::_plain_terms: the weight
+// window, the halo windows and the channel kernel are rounded to bfloat16
+// once as they are staged (from float32 arrays, round to nearest even, the
+// band mode; copied from bfloat16 arrays, the I/O mode), each lap sums its
+// taps in float32 and stores its term rounded to bfloat16 (a Chebyshev
+// term's 2 L~T - T formed in float32 first), and the fold accumulates in
+// float32; the output is float32, or bfloat16 in the I/O mode.  They come
+// in two stagings (Staging below), the same function bit for bit:
+// * kBf32 (band) and kBf32Io (I/O), wherever the float32 kernel's shared
+//   bytes fit at the plan's tile, lap group and output channels
+//   (ops/fused_stencil.py::_k1_bf16_staging): the bfloat16 values held in
+//   float32 shared memory, so the laps and folds are the float32 kernel's
+//   and convert nothing but the term they store (two by two, one paired
+//   conversion).  The halo windows and the channel-kernel slice go by
+//   cp.async, the next step's during the last fold and the output as in
+//   float32.  Band mode: the float32 kernel's window copies, each thread
+//   rounding in place what it copied once its copies land (before the
+//   barrier that publishes them, so no extra one).  I/O mode: each window
+//   row lands as bfloat16 at the end of its own float32 row (16-byte
+//   copies where eight lanes share a source, 4-byte words else; a word
+//   that straddles the lane strip and the array at odd h is loaded in
+//   registers and stored whole), then the lanes that copied it widen it in
+//   place (__syncwarp, no block barrier).  The weight window, in both
+//   modes: aligned 16-byte loads of each plane row, several in flight a
+//   thread, issued while the first window's copies fly and stored
+//   interleaved (rounded in pairs in band mode).  One instantiation a mode:
+//   in one kernel the two stagings cost each other registers (measured).
+// * kBf16, where only the 2-byte plan fits: bfloat16 shared elements,
+//   staged through registers (several loads in flight a thread), either
+//   mode by a runtime flag.
+// The float32 kernels' code is unchanged (if constexpr).
 
 #pragma once
 
@@ -61,6 +79,11 @@ __device__ __forceinline__ bf16 to<bf16>(float v) {
 // a float32 rounded to bfloat16 precision, kept in float32
 __device__ __forceinline__ float rnd(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+// two float32 rounded to bfloat16 precision by one paired conversion (the
+// same rounding as rnd's, to nearest even), kept in float32
+__device__ __forceinline__ float2 rnd2(float a, float b) {
+  return __bfloat1622float2(__floats2bfloat162_rn(a, b));
 }
 // a source element (float32 or bfloat16) as bfloat16
 __device__ __forceinline__ bf16 to_bf16(float v) { return __float2bfloat16_rn(v); }
@@ -130,10 +153,11 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // One lap over [lo, W0 - lo)^2: dst = L~ src (or 2 L~ src - dst, Chebyshev
 // in place over T_{k-2}: TWICE) for G channels, buffers BW elements apart,
 // rows WS elements apart; elements E (float, or bfloat16: the sums in
-// float32, each term stored rounded).
+// float32, each term stored rounded; RND: float32 elements holding
+// bfloat16 values, each term stored rounded to bfloat16).
 // Nothing in the unrolled body depends on a runtime value, so its loads can
 // be issued ahead of the FMAs.
-template <int R, int G, bool TWICE, class E = float>
+template <int R, int G, bool TWICE, class E = float, bool RND = false>
 __device__ __forceinline__ void lap(const E* __restrict__ src,
                                     E* __restrict__ dst,
                                     const E* __restrict__ s_w, int W0,
@@ -181,14 +205,42 @@ __device__ __forceinline__ void lap(const E* __restrict__ src,
         }
       }
     }
+    if constexpr (RND) {
+      // the terms rounded two by two (one conversion a pair of rows), the
+      // old values read first (rows past hi lie in the buffer's kRun - 1
+      // slack rows; what is read there is not stored)
+      float t[G][kRun];
 #pragma unroll
-    for (int o = 0; o < kRun; ++o) {
-      const int i = i0 + o;
-      if (i < hi) {
+      for (int g = 0; g < G; ++g)
 #pragma unroll
-        for (int g = 0; g < G; ++g) {
-          E* d = dst + g * BW + i * WS + j;
-          *d = to<E>(TWICE ? fmaf(2.f, s[g][o], -ld(*d)) : s[g][o]);
+        for (int o = 0; o < kRun; ++o)
+          t[g][o] = TWICE ? fmaf(2.f, s[g][o],
+                                 -ld(dst[g * BW + (i0 + o) * WS + j]))
+                          : s[g][o];
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int o = 0; o < kRun; o += 2) {
+          const float2 r = rnd2(t[g][o], t[g][o + 1]);
+          t[g][o] = r.x;
+          t[g][o + 1] = r.y;
+        }
+#pragma unroll
+      for (int o = 0; o < kRun; ++o)
+        if (i0 + o < hi)
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+            dst[g * BW + (i0 + o) * WS + j] = t[g][o];
+    } else {
+#pragma unroll
+      for (int o = 0; o < kRun; ++o) {
+        const int i = i0 + o;
+        if (i < hi) {
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            E* d = dst + g * BW + i * WS + j;
+            *d = to<E>(TWICE ? fmaf(2.f, s[g][o], -ld(*d)) : s[g][o]);
+          }
         }
       }
     }
@@ -433,6 +485,229 @@ __device__ __forceinline__ void stage_slice_bf(float* dst,
   }
 }
 
+// bfloat16 lanes 2w, 2w + 1 of a 32-bit word as float32
+__device__ __forceinline__ float bf_lo(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf_hi(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// The kBf32 and kBf32Io stagings of the bfloat16 K1: bfloat16 values in
+// float32 shared memory, copied with cp.async and rounded (band mode) or
+// widened (I/O mode) by the thread that copied them once its copies land.
+
+// rounds to bfloat16 the 4-lane groups of the halo windows this thread
+// copied (stage_window; the lanes past W0 are row padding, never read)
+template <int G>
+__device__ __forceinline__ void round_window(float* dst, int W0, int WS,
+                                             int BW) {
+  const int c4 = WS / 4;
+  for (int g = 0; g < G; ++g) {
+    float* d = dst + g * BW;
+    for (int e = threadIdx.x; e < W0 * c4; e += NT) {
+      const int i = e / c4;
+      float4* p = reinterpret_cast<float4*>(d + i * WS + 4 * (e - i * c4));
+      const float4 v = *p;
+      const float2 a = rnd2(v.x, v.y);
+      const float2 b = rnd2(v.z, v.w);
+      *p = make_float4(a.x, a.y, b.x, b.y);
+    }
+  }
+}
+
+// rounds to bfloat16 the channel-kernel slice this thread copied
+// (stage_slice)
+template <int G, int FC>
+__device__ __forceinline__ void round_slice(float* dst, int K) {
+  for (int e = threadIdx.x; e < K * G * FC; e += NT) dst[e] = rnd(dst[e]);
+}
+
+// The I/O mode's halo windows: window row q = g * W0 + i of the G
+// channels is copied and widened by the lanes of one warp, 8 lanes of the
+// row (16 bytes of bfloat16) a lane; a warp takes 32 / upr rows at once.
+struct IoRows {
+  int upr;  // 8-lane units a row
+  int rpw;  // rows a warp takes at once
+  int ql;   // this lane's row among them (ql >= rpw: none)
+  int j;    // its first window lane
+  __device__ __forceinline__ explicit IoRows(int W0) {
+    const int lane = threadIdx.x & 31;
+    upr = (W0 + 7) >> 3;
+    rpw = 32 / upr;
+    ql = lane / upr;
+    j = 8 * (lane - ql * upr);
+  }
+  // the row's landing, bfloat16 at the end of its float32 row (16-byte
+  // aligned: WS is a multiple of 4 floats, 8 * upr of 8 bfloat16)
+  __device__ __forceinline__ bf16* landing(float* row, int WS) const {
+    return reinterpret_cast<bf16*>(row) + 2 * WS - 8 * upr;
+  }
+};
+
+// lanes y and z of a face row come from the same array (both in the west
+// lane strip, the interior, or the east lane strip)
+__device__ __forceinline__ bool one_source(const HaloT<bf16>& s, int y,
+                                           int z) {
+  return (y < s.h) == (z < s.h) && (y >= s.h + s.n) == (z >= s.h + s.n);
+}
+
+// The halo windows of the G channels cf0 + g * F into the float32 buffers
+// dst + g * BW (bfloat16 arrays), landed as bfloat16 (widen_window_io
+// widens them): 16-byte copies where the 8 lanes share a source and the
+// arrays are 16-byte aligned (vec), else 4-byte words; a word whose two
+// lanes come from two arrays (at odd h, lanes h - 1 | h and h + n - 1 |
+// h + n) is loaded in registers and stored as one word, which no cp.async
+// writes.  Lanes past W0 are not read.
+template <int G>
+__device__ __forceinline__ void stage_window_io(float* dst,
+                                                const HaloT<bf16>& s,
+                                                long long cf0, int F, int x0,
+                                                int y0, int W0, int WS,
+                                                int BW, bool vec) {
+  const IoRows r(W0);
+  if (r.ql >= r.rpw) return;
+  const int j = r.j;
+  for (int q = (threadIdx.x >> 5) * r.rpw + r.ql; q < G * W0;
+       q += (NT / 32) * r.rpw) {
+    const int g = q / W0;
+    const int i = q - g * W0;
+    const long long cf = cf0 + (long long)g * F;
+    bf16* row = r.landing(dst + g * BW + i * WS, WS);
+    const int x = x0 - s.h + i;
+    const bool whole = x < 0 || x >= s.n;  // a top or bottom strip row
+    if (vec && j + 8 <= W0 && (whole || one_source(s, y0 + j, y0 + j + 7))) {
+      cp_async16(reinterpret_cast<float*>(row + j),
+                 reinterpret_cast<const float*>(window_src(s, cf, x, y0 + j)));
+    } else {
+      for (int t = j; t < j + 8 && t < W0; t += 2) {
+        if (whole || one_source(s, y0 + t, y0 + t + 1)) {
+          cp_async4(reinterpret_cast<float*>(row + t),
+                    reinterpret_cast<const float*>(
+                        window_src(s, cf, x, y0 + t)));
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(row + t) =
+              __halves2bfloat162(*window_src(s, cf, x, y0 + t),
+                                 *window_src(s, cf, x, y0 + t + 1));
+        }
+      }
+    }
+  }
+}
+
+// Widens in place the window rows this lane copied (stage_window_io), once
+// its copies have landed: each lane reads its own 8 landed lanes, the warp
+// syncs (the float32 row overwrites the landings of its other lanes), and
+// each lane writes its 8 floats (the 4 past WS, if any, would be the next
+// row's: not written; those past W0 are row padding).
+template <int G>
+__device__ __forceinline__ void widen_window_io(float* dst, int W0, int WS,
+                                                int BW) {
+  const IoRows r(W0);
+  const int j = r.j;
+  for (int q0 = (threadIdx.x >> 5) * r.rpw; q0 < G * W0;
+       q0 += (NT / 32) * r.rpw) {
+    const int q = q0 + r.ql;
+    const bool mine = r.ql < r.rpw && q < G * W0;
+    float* row = dst;
+    uint4 w = make_uint4(0u, 0u, 0u, 0u);
+    if (mine) {
+      const int g = q / W0;
+      row = dst + g * BW + (q - g * W0) * WS;
+      w = *reinterpret_cast<const uint4*>(r.landing(row, WS) + j);
+    }
+    __syncwarp();
+    if (mine) {
+      *reinterpret_cast<float4*>(row + j) =
+          make_float4(bf_lo(w.x), bf_hi(w.x), bf_lo(w.y), bf_hi(w.y));
+      if (j + 4 < WS)
+        *reinterpret_cast<float4*>(row + j + 4) =
+            make_float4(bf_lo(w.z), bf_hi(w.z), bf_lo(w.w), bf_hi(w.w));
+    }
+  }
+}
+
+// The bfloat16 kernels' weight window in float32 (kBf32, kBf32Io), laid out as
+// stage_weights lays it, from float32 planes (band mode, rounded to
+// bfloat16) or bfloat16 ones (I/O mode): each plane row's W0 lanes from
+// y0 (aligned) in 16-byte loads where wext is 16-byte aligned (vec), kLoads
+// of them in flight a thread, then stored interleaved; issued after the
+// first step's window copies, so that both reach shared memory in one
+// round trip.
+template <int R, class S>
+__device__ __forceinline__ void stage_weights_reg(float* s_w,
+                                                  const S* __restrict__ wext,
+                                                  int F, int f, int n, int Rs,
+                                                  int P, int h, int x0, int y0,
+                                                  int Ww, bool vec) {
+  constexpr int NP = (2 * R + 1) * (2 * R + 1);
+  constexpr int CL = 16 / sizeof(S);  // lanes a 16-byte load
+  constexpr int WL = 4 / sizeof(S);   // lanes a 4-byte word
+  const int W0 = Ww + 2 * R;
+  const int upr = (W0 + CL - 1) / CL;
+  const int tot = NP * Ww * upr;
+  const long long nr = n + 2 * Rs;
+  for (int e0 = threadIdx.x; e0 < tot; e0 += kLoads * NT) {
+    uint4 v[kLoads];
+    int base[kLoads];  // s_w index of lane j0 (window position j0 - R)
+    int j0[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int e = e0 + u * NT;
+      j0[u] = -1;
+      if (e < tot) {
+        const int q = e / upr;  // plane d, window row i
+        const int d = q / Ww;
+        const int i = q - d * Ww;
+        const int j = CL * (e - q * upr);
+        const int x = x0 - h + R + i;
+        const int wr = x < 0 ? n + Rs + x : (x >= n ? Rs + x : x);
+        const S* src = wext + ((long long)(d * F + f) * nr + wr) * P + y0 + j;
+        if (vec && j + CL <= W0) {
+          v[u] = *reinterpret_cast<const uint4*>(src);
+        } else {
+          unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+          for (int t = 0; t < 4; ++t)
+            if (j + WL * t < W0)
+              w[t] = *reinterpret_cast<const unsigned*>(src + WL * t);
+          v[u] = make_uint4(w[0], w[1], w[2], w[3]);
+        }
+        j0[u] = j;
+        base[u] = (i * Ww + j - R) * NP + d;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      if (j0[u] >= 0) {
+        float val[8];
+        if constexpr (sizeof(S) == 4) {  // float32, rounded in pairs
+          const float2 a =
+              rnd2(__uint_as_float(v[u].x), __uint_as_float(v[u].y));
+          const float2 b =
+              rnd2(__uint_as_float(v[u].z), __uint_as_float(v[u].w));
+          val[0] = a.x;
+          val[1] = a.y;
+          val[2] = b.x;
+          val[3] = b.y;
+        } else {  // bfloat16 pairs, exact
+          const unsigned w[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            val[2 * t] = bf_lo(w[t]);
+            val[2 * t + 1] = bf_hi(w[t]);
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < CL; ++t) {
+          const int jj = j0[u] + t - R;  // window position
+          if (jj >= 0 && jj < Ww) s_w[base[u] + t * NP] = val[t];
+        }
+      }
+    }
+  }
+}
+
 // The bfloat16 kernels' output of a tile: the PP x FC sums of this thread
 // (then zeroed) to channels ch0 + o (o < nc) of out (C, F, n, P), float32
 // or bfloat16 (O), at its pixels' offsets gof in a face plane (-1: none).
@@ -490,9 +765,22 @@ constexpr int min_blocks() {
   return PP * FC <= 32 ? 2 : 1;
 }
 
-template <int R, int G, int PP, int FC, bool BF = false>
+// how a K1 instantiation holds the elements it stages in shared memory
+enum Staging {
+  kF32 = 0,     // float32 (the float32 kernel)
+  kBf32 = 1,    // bfloat16 values in float32, from float32 arrays (band)
+  kBf16 = 2,    // bfloat16, both bfloat16 modes (where only 2 bytes fit)
+  kBf32Io = 3,  // bfloat16 values in float32, from bfloat16 arrays (I/O)
+};
+
+template <int R, int G, int PP, int FC, int S = kF32>
 __global__ void __launch_bounds__(NT, (min_blocks<PP, FC>()))
 stencil_conv_kernel(const ConvArgs a) {
+  constexpr bool BF = S == kBf16;
+  // bfloat16 values in float32: each mode its own instantiation (the two
+  // stagings in one kernel cost each other registers)
+  constexpr bool F32S = S == kBf32 || S == kBf32Io;
+  constexpr bool IO = S == kBf32Io;
   using E = typename Staged<BF>::type;
   extern __shared__ __align__(16) float smem[];
   constexpr int NP = (2 * R + 1) * (2 * R + 1);
@@ -524,6 +812,8 @@ stencil_conv_kernel(const ConvArgs a) {
                           f, n, a.Rs, P, h, x0, y0, Ww);
     else
       stage_weights_bf<R>(s_w, a.wext, a.F, f, n, a.Rs, P, h, x0, y0, Ww);
+  } else if constexpr (F32S) {
+    // after the first window's copies (below)
   } else {
     stage_weights<R>(s_w, a.wext, a.F, f, n, a.Rs, P, h, x0, y0, Ww);
   }
@@ -539,13 +829,17 @@ stencil_conv_kernel(const ConvArgs a) {
       else
         stage_window_bf<G>(bufs + set * G * BW, halo, cf0, a.F, x0, y0, W0,
                            WS, BW);
+    } else if constexpr (IO) {
+      stage_window_io<G>(bufs + set * G * BW, as_bf16(halo), cf0, a.F, x0,
+                         y0, W0, WS, BW, a.vec);
     } else {
       stage_window<G>(bufs + set * G * BW, halo, cf0, a.F, x0, y0, W0, WS,
                       BW, a.vec);
     }
   };
   // step s's slice of wk3, zero past Fout: s_wk[slot][k][g][fo], copied
-  // asynchronously like the windows (rounded to bfloat16 by BF)
+  // asynchronously like the windows (rounded to bfloat16 by BF, and by
+  // F32S once it lands)
   auto stage_wk = [&](int s, int slot) {
     if constexpr (BF)
       stage_slice_bf<G, FC>(s_wk + slot * wkn, a.wk3, K, a.Fin, a.Fout,
@@ -553,6 +847,19 @@ stencil_conv_kernel(const ConvArgs a) {
     else
       stage_slice<G, FC>(s_wk + slot * wkn, a.wk3, K, a.Fin, a.Fout,
                          (s % ngroups) * G, fo0);
+  };
+  // F32S: what this thread copied into buffer set `set` and channel-kernel
+  // slot `slot`, rounded to bfloat16 (band mode) or widened (I/O mode) in
+  // place once its copies have landed, before the barrier that publishes
+  // them
+  auto land_step = [&](int set, int slot) {
+    if constexpr (F32S) {
+      if constexpr (IO)
+        widen_window_io<G>(bufs + set * G * BW, W0, WS, BW);
+      else
+        round_window<G>(bufs + set * G * BW, W0, WS, BW);
+      round_slice<G, FC>(s_wk + slot * wkn, K);
+    }
   };
 
   const int lgT = 31 - __clz(T);  // T is 8, 16 or 32
@@ -564,8 +871,18 @@ stencil_conv_kernel(const ConvArgs a) {
 
   stage_step(0, 0);
   stage_wk(0, 0);
+  if constexpr (F32S) {  // the weight window while those copies fly
+    const bool wvec = (reinterpret_cast<size_t>(a.wext) & 15) == 0;
+    if constexpr (IO)
+      stage_weights_reg<R>(s_w, reinterpret_cast<const bf16*>(a.wext), a.F,
+                           f, n, a.Rs, P, h, x0, y0, Ww, wvec);
+    else
+      stage_weights_reg<R>(s_w, a.wext, a.F, f, n, a.Rs, P, h, x0, y0, Ww,
+                           wvec);
+  }
   cp_async_commit();
   cp_async_wait_all();
+  if constexpr (F32S) land_step(0, 0);
   __syncthreads();
 
   // the buffer set holding this step's T_0.  The next step's windows go to
@@ -589,15 +906,15 @@ stencil_conv_kernel(const ConvArgs a) {
       E* src = (k & 1) ? P0 : P1;
       E* dst = (k & 1) ? P1 : P0;
       if (a.cheby && k >= 2)
-        lap<R, G, true>(src, dst, s_w, W0, WS, Ww, BW, k);
+        lap<R, G, true, E, F32S>(src, dst, s_w, W0, WS, Ww, BW, k);
       else
-        lap<R, G, false>(src, dst, s_w, W0, WS, Ww, BW, k);
+        lap<R, G, false, E, F32S>(src, dst, s_w, W0, WS, Ww, BW, k);
       __syncthreads();
       if (k == K - 1 && more) stage_step(s + 1, next);
       fold<G, PP, FC>(acc, dst, wk + k * G * FC, BW, WS, h, lgT);
     }
 
-    if constexpr (BF) {
+    if constexpr (S != kF32) {
       if ((s + 1) % ngroups == 0) {  // the batch index is complete
         const int b = b0 + s / ngroups;
         const int nfo = min(FC, a.Fout - fo0);
@@ -610,7 +927,7 @@ stencil_conv_kernel(const ConvArgs a) {
                                : -1;
         }
         const long long ch0 = (long long)b * a.Fout + fo0;
-        if (a.io) {
+        if (IO || (BF && a.io)) {
           bf16* out = reinterpret_cast<bf16*>(a.out);
           store_sums(out, acc, gof, ch0, nfo, a.F, f, n, P);
           zero_pad_lanes(out, ch0, nfo, a.F, f, n, P, h, T, x0, y0);
@@ -641,6 +958,9 @@ stencil_conv_kernel(const ConvArgs a) {
 
     cp_async_commit();
     cp_async_wait_all();
+    if constexpr (F32S) {
+      if (more) land_step(next, (s + 1) & 1);
+    }
     __syncthreads();
     cur ^= flip;
   }
@@ -673,37 +993,39 @@ int launch_kernel(void (*kern)(Args), const Args& a, dim3 grid, size_t smem,
   return (int)cudaGetLastError();
 }
 
-template <int R, int G, int PP, int FC, bool BF>
+template <int R, int G, int PP, int FC, int S>
 int launch(const ConvArgs& a, dim3 grid, size_t smem, cudaStream_t stream) {
-  return launch_kernel(stencil_conv_kernel<R, G, PP, FC, BF>, a, grid, smem,
+  return launch_kernel(stencil_conv_kernel<R, G, PP, FC, S>, a, grid, smem,
                        stream);
 }
 
-template <int R, int G, int PP, bool BF>
+template <int R, int G, int PP, int S>
 int launch_fc(int FC, const ConvArgs& a, dim3 grid, size_t smem,
               cudaStream_t stream) {
   switch (FC) {
-    case 4: return launch<R, G, PP, 4, BF>(a, grid, smem, stream);
-    case 8: return launch<R, G, PP, 8, BF>(a, grid, smem, stream);
-    case 16: return launch<R, G, PP, 16, BF>(a, grid, smem, stream);
+    case 4: return launch<R, G, PP, 4, S>(a, grid, smem, stream);
+    case 8: return launch<R, G, PP, 8, S>(a, grid, smem, stream);
+    case 16: return launch<R, G, PP, 16, S>(a, grid, smem, stream);
     default:
-      return launch<R, G, PP, (PP == 1 ? 32 : 16), BF>(a, grid, smem, stream);
+      return launch<R, G, PP, (PP == 1 ? 32 : 16), S>(a, grid, smem, stream);
   }
 }
 
 // T x T tiles: 4 pixels a thread on a 32-tile (radius <= 2 only: larger
 // radii fit no 32-tile), 1 on smaller tiles
-template <int R, int G, bool BF = false>
+template <int R, int G, int S = kF32>
 int launch_t(int T, int FC, const ConvArgs& a, dim3 grid, size_t smem,
              cudaStream_t stream) {
   if constexpr (R <= 2) {
-    if (T == 32) return launch_fc<R, G, 4, BF>(FC, a, grid, smem, stream);
+    if (T == 32) return launch_fc<R, G, 4, S>(FC, a, grid, smem, stream);
   }
-  return launch_fc<R, G, 1, BF>(FC, a, grid, smem, stream);
+  return launch_fc<R, G, 1, S>(FC, a, grid, smem, stream);
 }
 
 // one per (radius, lap group G): the instantiations of stencil_conv*.cu,
-// and the bfloat16 ones of stencil_conv_bf16*.cu
+// the bfloat16 ones of stencil_conv_bf16_r*.cu (kBf32, band mode) and
+// stencil_conv_bf16_io*.cu (kBf32Io, I/O mode), and the 2-byte ones
+// (kBf16, either mode) of stencil_conv_bf16_s2*.cu
 #define DS_K1_LAUNCH(NAME)                                                 \
   int NAME(int T, int FC, const ConvArgs& a, dim3 grid, size_t smem,       \
            cudaStream_t stream)
@@ -721,5 +1043,19 @@ DS_K1_LAUNCH(launch_bf16_r2_g1);
 DS_K1_LAUNCH(launch_bf16_r2_g2);
 DS_K1_LAUNCH(launch_bf16_r3_g1);
 DS_K1_LAUNCH(launch_bf16_r4_g1);
+DS_K1_LAUNCH(launch_bf16_io_r1_g1);
+DS_K1_LAUNCH(launch_bf16_io_r1_g2);
+DS_K1_LAUNCH(launch_bf16_io_r1_g4);
+DS_K1_LAUNCH(launch_bf16_io_r2_g1);
+DS_K1_LAUNCH(launch_bf16_io_r2_g2);
+DS_K1_LAUNCH(launch_bf16_io_r3_g1);
+DS_K1_LAUNCH(launch_bf16_io_r4_g1);
+DS_K1_LAUNCH(launch_bf16_s2_r1_g1);
+DS_K1_LAUNCH(launch_bf16_s2_r1_g2);
+DS_K1_LAUNCH(launch_bf16_s2_r1_g4);
+DS_K1_LAUNCH(launch_bf16_s2_r2_g1);
+DS_K1_LAUNCH(launch_bf16_s2_r2_g2);
+DS_K1_LAUNCH(launch_bf16_s2_r3_g1);
+DS_K1_LAUNCH(launch_bf16_s2_r4_g1);
 
 }  // namespace ds_k1

@@ -1,12 +1,13 @@
 // bfloat16 instantiations of the fused stencil conv kernel (K1,
-// stencil_conv.cu) for radius 1 lap group 4.
+// stencil_conv.cu; bfloat16 values in float32 shared memory, band mode) for
+// radius 1 lap group 4.
 
 #include "stencil_conv.cuh"
 
 namespace ds_k1 {
 
 DS_K1_LAUNCH(launch_bf16_r1_g4) {
-  return launch_t<1, 4, true>(T, FC, a, grid, smem, stream);
+  return launch_t<1, 4, kBf32>(T, FC, a, grid, smem, stream);
 }
 
 }  // namespace ds_k1

@@ -120,6 +120,20 @@ def _k1_smem(T, h, r, nplanes, K, G, FC, es=4):
                     + 2 * G * (W0 + _K1_RUN - 1) * _round_up(W0, 4)))
 
 
+def _k1_bf16_staging(plan, h, r, nplanes, K):
+    """Bytes a bfloat16 K1 launch on ``plan`` (its 2-byte plan, which
+    :func:`_k1_plan` gives with ``es=2``) holds each staged value in: 4
+    where the float32 kernel's shared bytes fit at the plan's tile, lap
+    group and output channels (bfloat16 values in float32 shared memory,
+    staged with cp.async as the float32 kernel), else 2 (bfloat16 shared
+    elements, staged through registers).  The same function bit for bit;
+    chosen from the shape before the launch, by the same rule as
+    ``csrc/stencil_conv.cu``, so the route and the plan are those of the
+    2-byte plan in every case."""
+    return (4 if _k1_smem(plan.T, h, r, nplanes, K, plan.G, plan.FC, 4)
+            <= _SMEM_MAX else 2)
+
+
 def _batch_group(blocks, B, sms):
     """Batch indices per block: the most that keep two blocks per SM, on a
     card of ``sms`` SMs, in a grid of ``blocks`` blocks per batch group (1

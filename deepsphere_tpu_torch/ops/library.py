@@ -32,7 +32,8 @@ points of :func:`.fused_stencil._plain_terms`) and device arrays that are
 all float32 (K1-K3 in float32, or the bf16 band mode) or all bfloat16 (the
 bf16 I/O mode, ``bdt`` "bfloat16"); any other dtype raises.  The strips op
 copies float32 or bfloat16.  A bfloat16 launch counts in
-:data:`._cuda.bf16_launch_counts`, by mode.  The ops are registered when :mod:`deepsphere_tpu_torch.ops`
+:data:`._cuda.bf16_launch_counts`, by mode (and K1's 2-byte staging apart,
+``_s2``).  The ops are registered when :mod:`deepsphere_tpu_torch.ops`
 is imported; the kernel library itself builds at the first launch, never
 at import (:mod:`._cuda`).
 """
@@ -45,6 +46,7 @@ from ..graph.stencil import stencil_offsets
 from . import _cuda
 from .fused_stencil import (
     _bwd_plan,
+    _k1_bf16_staging,
     _k1_plan,
     cfp_geometry,
     run_dxdw_plain,
@@ -103,13 +105,20 @@ def _mode(what, io, bdt):
     return 0 if bdt == "float32" else (2 if io == torch.bfloat16 else 1)
 
 
-def _count(name, mode):
-    """One launch of kernel ``name`` in precision ``mode``."""
+def _count(name, mode, staged=4):
+    """One launch of kernel ``name`` in precision ``mode``, holding its
+    staged values in ``staged`` bytes (K1's 2-byte variant, ``_s2``)."""
     if mode == 0:
         _cuda.launch_counts[name] += 1
     else:
-        _cuda.bf16_launch_counts[name + ("_bf16_io" if mode == 2
-                                         else "_bf16")] += 1
+        _cuda.bf16_launch_counts[name + ("_bf16_io" if mode == 2 else "_bf16")
+                                 + ("_s2" if staged == 2 else "")] += 1
+
+
+def _aligned4(t):
+    """``t``, or a copy of it where its data does not start 4-byte aligned
+    (K1's I/O mode copies whole 4-byte words of bfloat16 pairs)."""
+    return t if t.data_ptr() % 4 == 0 else t.clone()
 
 
 def _kind_code(kind):
@@ -235,7 +244,8 @@ def stencil_conv(xc: torch.Tensor, top: torch.Tensor, bot: torch.Tensor,
                  bdt: str = "float32") -> torch.Tensor:
     """K1 on :func:`.fused_stencil._k1_plan`'s plan for this card: the raw
     fused conv (:func:`.fused_stencil.run_stencil_kernel`), (B*Fout, F, n,
-    P_l) in ``xc``'s dtype."""
+    P_l) in ``xc``'s dtype.  A bfloat16 launch takes the 2-byte plan, in
+    the staging :func:`.fused_stencil._k1_bf16_staging` names."""
     io = xc.dtype
     mode = _mode("stencil kernel", io, bdt)
     R, P_l = strip_rows(h, io), cfp_geometry(n, h)[1]
@@ -261,6 +271,9 @@ def stencil_conv(xc: torch.Tensor, top: torch.Tensor, bot: torch.Tensor,
         raise ValueError(f"stencil kernel does not take n={n} h={h} r={r} "
                          f"K={K} B={B} Fout={Fout}: no tile fits shared "
                          "memory or the grid")
+    staged = _k1_bf16_staging(plan, h, r, nplanes, K) if mode else 4
+    if mode == 2 and staged == 4:
+        xc, top, bot, ls, wext = map(_aligned4, (xc, top, bot, ls, wext))
     out = torch.empty((B * Fout, F, n, P_l), dtype=xc.dtype, device=dev)
     with torch.cuda.device(dev):
         rc = _cuda.lib().ds_stencil_conv(
@@ -270,7 +283,7 @@ def stencil_conv(xc: torch.Tensor, top: torch.Tensor, bot: torch.Tensor,
             R, P_l, plan.T, plan.G, plan.GB, plan.FC, mode, _stream(),
         )
     _cuda.check(rc, "ds_stencil_conv")
-    _count("stencil_conv", mode)
+    _count("stencil_conv", mode, staged)
     return out
 
 

@@ -349,13 +349,25 @@ def test_grad_kernel_matches_plain(rng, dev, n, k, kind, scale, K, B, Fin,
 
 # the bfloat16 instantiations of K1-K3 (config.conv_dtype "bfloat16", float32
 # arrays, and "bfloat16_io", bfloat16 arrays): (n, k, kind, scale, K, B,
-# Fin, Fout, F).  h = 9 puts face column 0 at an odd lane; radius 2 (k=20);
-# quick_start conv 3's widths; the arrays of a face shard of 3
+# Fin, Fout, F), at h = (K - 1) x the radius of the k-neighbour grid.
+# h = 9 puts face column 0 at an odd lane; radius 2 (k=20); quick_start
+# conv 3's widths; the arrays of a face shard of 3; quick_start conv 1
+# (two tiles a face row: the first tile's window holds the lane pair
+# h - 1 | h that straddles the west lane strip and the interior, the last
+# one's h + n - 1 | h + n); radius 3 (k=40) and 4 (k=60) at K=5, where
+# K1 holds 2-byte elements (its float32 bytes do not fit the plan's tile),
+# and at K=2, where it holds float32 ones
 _BF16 = [(16, 8, "cheby", 0.75, 10, 2, 3, 9, 12),
          (32, 8, "cheby", 0.75, 5, 2, 4, 4, 12),
          (32, 20, "mono", 1.0, 3, 1, 2, 3, 12),
          (16, 8, "cheby", 0.75, 10, 2, 16, 32, 12),
-         (32, 8, "cheby", 0.75, 5, 2, 4, 4, 3)]
+         (32, 8, "cheby", 0.75, 5, 2, 4, 4, 3),
+         (64, 8, "cheby", 0.75, 10, 1, 1, 8, 12),
+         (32, 40, "cheby", 0.75, 5, 2, 2, 3, 12),
+         (32, 60, "cheby", 0.75, 5, 1, 2, 3, 12),
+         (16, 40, "mono", 1.0, 2, 2, 2, 3, 12),
+         (16, 60, "mono", 1.0, 2, 1, 2, 2, 12)]
+_RADIUS = {8: 1, 20: 2, 40: 3, 60: 4}
 # kernel against its plain version in the same mode: both round at the same
 # points, but sum in other orders, so a bfloat16 term may differ by a step
 # (y, dx); a dW sums a whole map of products in float32
@@ -385,8 +397,8 @@ def _bf16_case(rng, dev, n, k, scale, K, B, Cx, Cdy, F, io):
     (R16) and weight planes (``weights_bf16``) in the I/O mode, float32 in
     the band mode; and, for the float32 kernels on the same values, x, dy,
     their strips and the weight planes rounded to bfloat16, all float32."""
-    st = _stencil(n, scale, (K - 1) * (2 if k == 20 else 1), k)
-    assert fs.cfp_io_available(st)
+    st = _stencil(n, scale, (K - 1) * _RADIUS[k], k)
+    assert st.radius == _RADIUS[k] and fs.cfp_io_available(st)
     h = st.n_steps
     tables = as_tensors(stencil_tables(st, bf16_io=True), dev)
     dt_ = torch.bfloat16 if io else torch.float32
@@ -397,8 +409,9 @@ def _bf16_case(rng, dev, n, k, scale, K, B, Cx, Cdy, F, io):
     w = tables["weights_bf16" if io else "weights"]
     f32 = (cut(tables["weights"].to(torch.bfloat16).float()), cut(x.float()),
            strips(x.float()), cut(dy.float()), strips(dy.float()))
-    return (st, h, cut(w), tables["corr_mask"][:F].contiguous(), cut(x),
-            strips(x), cut(dy), strips(dy), f32)
+    mask = tables.get("corr_mask")  # none where no row needs correcting
+    return (st, h, cut(w), None if mask is None else mask[:F].contiguous(),
+            cut(x), strips(x), cut(dy), strips(dy), f32)
 
 
 @pytest.mark.parametrize("io", [False, True], ids=["band", "io"])
@@ -409,12 +422,20 @@ def test_bf16_kernels_match_plain(rng, dev, n, k, kind, scale, K, B, Fin,
     bfloat16 versions on identical CUDA inputs, to 1e-2 of the plain max
     (1e-3 for a dW), and apart from the float32 kernels on the same
     values; outputs in the arrays' dtype, pad lanes zero, dW float32 and
-    bitwise-equal across two calls; each launch counted as the mode's."""
+    bitwise-equal across two calls; each launch counted as the mode's (K1
+    in 2-byte shared elements apart, where its plan's float32 bytes do not
+    fit: radius 3 and 4 at K=5)."""
     st, h, w, mask, x, sx, dy, sdy, f32 = _bf16_case(
         rng, dev, n, k, scale, K, B, Fin, Fout, F, io)
     kern = torch.from_numpy(
         rng.normal(size=(Fin * K, Fout)).astype(np.float32)).to(dev)
     sfx = "_bf16_io" if io else "_bf16"
+    r, nplanes = st.radius, len(st.offsets)
+    plan = fs._k1_plan(n, h, r, nplanes, K, B, F, Fin, Fout,
+                       torch.cuda.get_device_properties(dev)
+                       .multi_processor_count, 2)
+    two = fs._k1_bf16_staging(plan, h, r, nplanes, K) == 2
+    assert two == (r >= 3 and K == 5)
     a1 = (st, kind, K, x, w, sx, fs._wk3(kern, K), B, "bfloat16")
     y, y_p = fs.run_stencil_kernel(*a1), fs.run_stencil_plain(*a1)
     a2 = (st, kind, K, dy, w, sdy, fs._wk3t(kern, K), x, mask, B, "bfloat16")
@@ -426,7 +447,8 @@ def test_bf16_kernels_match_plain(rng, dev, n, k, kind, scale, K, B, Fin,
     torch.cuda.synchronize()
     assert _cuda.bf16_launch_counts == {
         **{key: 0 for key in _cuda.bf16_launch_counts},
-        "stencil_conv" + sfx: 1, "dxdw" + sfx: 2, "grad" + sfx: 2}
+        "stencil_conv" + sfx + ("_s2" if two else ""): 1, "dxdw" + sfx: 2,
+        "grad" + sfx: 2}
     assert all(v == 0 for v in _cuda.launch_counts.values())
     for got, plain in ((y, y_p), (dx, dx_p)):
         assert got.dtype == x.dtype == plain.dtype
@@ -438,14 +460,46 @@ def test_bf16_kernels_match_plain(rng, dev, n, k, kind, scale, K, B, Fin,
         _close(got, plain, BF_DW_TOL)
         assert torch.equal(got, again)
     wf, xf, sxf, dyf, sdyf = f32
-    yf = fs.run_stencil_kernel(st, kind, K, xf, wf, sxf, fs._wk3(kern, K), B)
-    dxf, dwf = fs.run_dxdw_kernel(st, kind, K, dyf, wf, sdyf,
-                                  fs._wk3t(kern, K), xf, mask, B)
-    gf = fs.run_grad_kernel(st, kind, K, xf, wf, sxf, dyf, B)
+    # the float32 kernels take no deep stencil past radius 2 (their plain
+    # versions on the card are the same function to TOL)
+    k1f, k2f, k3f = ((fs.run_stencil_kernel, fs.run_dxdw_kernel,
+                      fs.run_grad_kernel) if r <= 2 else
+                     (fs.run_stencil_plain, fs.run_dxdw_plain,
+                      fs.run_grad_plain))
+    yf = k1f(st, kind, K, xf, wf, sxf, fs._wk3(kern, K), B)
+    dxf, dwf = k2f(st, kind, K, dyf, wf, sdyf, fs._wk3t(kern, K), xf, mask, B)
+    gf = k3f(st, kind, K, xf, wf, sxf, dyf, B)
     for got, ref in ((y, yf), (dx, dxf)):
         _apart(got[..., h:h + n], ref[..., h:h + n])
     for got, ref in ((dw, dwf), (g, gf)):
         _apart(got, ref, BF_DW_MOVED)
+
+
+def test_bf16_io_conv_kernel_takes_unaligned_inputs(rng, dev):
+    """K1's I/O mode copies whole 4-byte words of its bfloat16 arrays, 16
+    bytes where they are 16-byte aligned: an input that starts 4 bytes
+    past a 16-byte boundary takes the word copies, one that starts 2 bytes
+    past it a 4-byte-aligned copy of itself; all three give the same bits,
+    at h = 9 (odd, words that straddle two arrays) and h = 4."""
+    for n, K in ((16, 10), (32, 5)):
+        st = _stencil(n, 0.75, K - 1)
+        h = st.n_steps
+        tables = as_tensors(stencil_tables(st, bf16_io=True), dev)
+        w = tables["weights_bf16"]
+        x = _xc(rng, dev, n, h, 2 * 3).to(torch.bfloat16)
+        wk3 = torch.from_numpy(
+            rng.normal(size=(K, 3, 4)).astype(np.float32)).to(dev)
+        s = tstrips.strip_arrays(st, x)
+        y = fs.run_stencil_kernel(st, "cheby", K, x, w, s, wk3, 2, "bfloat16")
+        for skip in (2, 1):
+            buf = torch.empty(x.numel() + skip, dtype=x.dtype, device=dev)
+            xu = buf[skip:].view(x.shape).copy_(x)
+            assert xu.is_contiguous() and xu.data_ptr() % 16 == 2 * skip
+            yu = fs.run_stencil_kernel(st, "cheby", K, xu, w, s, wk3, 2,
+                                       "bfloat16")
+            assert torch.equal(y.view(torch.int16), yu.view(torch.int16))
+    torch.cuda.synchronize()
+    assert _cuda.bf16_launch_counts["stencil_conv_bf16_io"] == 6
 
 
 def test_bf16_strips_are_the_plain_strips(rng, dev):

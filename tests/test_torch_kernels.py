@@ -25,6 +25,7 @@ import deepsphere_tpu.graph as jgraph
 import deepsphere_tpu.ops.pallas_stencil as jps
 import deepsphere_tpu.ops.stencil as jstencil
 import deepsphere_tpu_torch.graph as tgraph
+from deepsphere_tpu_torch import config
 from deepsphere_tpu_torch.graph.stencil import stencil_offsets
 from deepsphere_tpu_torch.ops import _cuda, library
 from deepsphere_tpu_torch.ops import fused_stencil as tfs
@@ -290,6 +291,67 @@ def test_k1_plan_batch_group_follows_the_grid():
     assert plan(32, 9, 1, 9, 10, 2, 12, 3, 3).G == 1
     assert plan(32, 9, 1, 9, 10, 2, 12, 4, 3).G == 4
     assert plan(32, 18, 2, 25, 10, 2, 12, 4, 3).G == 2
+
+
+# (label, n, h, r, K, B, Fin, Fout, route in either bf16 mode (float32's),
+# the bf16 K1's tile and lap group, the bytes it stages each value in):
+# phase 15's convs (quick_start's three, their dx role on the K1+K3 route,
+# the headline) and deep stencils of radius 2-4 at nside 256, 4 -> 4
+_BF16_PLANS = [
+    ("quick_start conv 1", 64, 9, 1, 10, 16, 1, 8, "fused", (32, 1), 4),
+    ("quick_start conv 2", 32, 9, 1, 10, 16, 8, 16, "fused", (32, 4), 4),
+    ("quick_start conv 3", 16, 9, 1, 10, 16, 16, 32, "fused", (16, 4), 4),
+    ("dx role of conv 1", 64, 9, 1, 10, 16, 8, 1, "fused", (32, 4), 4),
+    ("dx role of conv 2", 32, 9, 1, 10, 16, 16, 8, "fused", (32, 4), 4),
+    ("dx role of conv 3", 16, 9, 1, 10, 16, 32, 16, "fused", (16, 4), 4),
+    ("headline", 1024, 4, 1, 5, 4, 4, 4, "fused", (32, 4), 4),
+    ("radius 2, h=8", 256, 8, 2, 5, 4, 4, 4, "fused", (32, 2), 2),
+    ("radius 3, h=12", 256, 12, 3, 5, 4, 4, 4, "fused", (16, 1), 2),
+    ("radius 4, h=16", 256, 16, 4, 5, 4, 4, 4, ("fused", "per_step"), (8, 1),
+     2),
+    ("radius 3 lap, h=3", 256, 3, 3, 2, 4, 4, 4, "fused", (16, 1), 4),
+    ("radius 4 lap, h=4", 256, 4, 4, 2, 4, 4, 4, "fused", (16, 1), 4),
+]
+
+
+@pytest.mark.parametrize("label,n,h,r,K,B,Fin,Fout,route,TG,staged",
+                         _BF16_PLANS, ids=[c[0] for c in _BF16_PLANS])
+def test_bf16_k1_staging_keeps_the_route_and_plan(label, n, h, r, K, B, Fin,
+                                                  Fout, route, TG, staged):
+    """The bfloat16 K1 launches on the 2-byte plan (the plan and route of
+    its 2-byte shared elements, under either bf16 mode) and holds its
+    values in 4 bytes wherever the float32 kernel's shared bytes fit that
+    plan's tile, lap group and output channels, else in 2: no route or
+    plan changes with the staging, and where the 4-byte plan differs (a
+    smaller tile or lap group, or none) the 2-byte staging is taken.
+    Plans only: no graph, no launch."""
+    nplanes = (2 * r + 1) ** 2
+    bf16_route, f32_route = route if isinstance(route, tuple) else (route,
+                                                                     route)
+    try:
+        for mode in ("bfloat16", "bfloat16_io"):
+            config.set_conv_dtype(mode)
+            assert tfs.staged_bytes() == 2
+            assert tfs._cface_route(n, h, r, nplanes, K, B, Fin, Fout,
+                                    _H100_SMS, True, tfs.staged_bytes()) \
+                == bf16_route, label
+    finally:
+        config.set_conv_dtype("float32")
+    assert tfs._cface_route(n, h, r, nplanes, K, B, Fin, Fout, _H100_SMS,
+                            True) == f32_route
+    p2 = tfs._k1_plan(n, h, r, nplanes, K, B, 12, Fin, Fout, _H100_SMS, 2)
+    p4 = tfs._k1_plan(n, h, r, nplanes, K, B, 12, Fin, Fout, _H100_SMS, 4)
+    assert (p2.T, p2.G) == TG
+    assert tfs._k1_bf16_staging(p2, h, r, nplanes, K) == staged
+    fits = tfs._k1_smem(p2.T, h, r, nplanes, K, p2.G, p2.FC, 4) <= \
+        tfs._SMEM_MAX
+    assert (staged == 4) == fits
+    # where the float32 bytes fit at the 2-byte plan, the 4-byte plan is
+    # that plan; else it is another one or none
+    if staged == 4:
+        assert p4[:4] == p2[:4] and p4.grid == p2.grid
+    else:
+        assert p4 is None or p4[:4] != p2[:4]
 
 
 @pytest.mark.parametrize("k,r", [(8, 1), (20, 2)])
