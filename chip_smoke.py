@@ -36,8 +36,7 @@ Phases, one result line each (with the elapsed seconds):
    loss (1e-5), every gradient (1e-3) and the BN statistics (1e-5) held to
    one float64 step of a CPU copy (batch norm makes the conv kernels'
    gradients a cancellation that a float32 CPU step resolves only to
-   ~2e-3, so the card is not held to it; its error is printed beside the
-   card's); ``fit`` for 2 epochs
+   ~2e-3, so the card is not held to one); ``fit`` for 2 epochs
    over 64 maps (every loss finite); ms per synchronized step on both
    routes (median of 10, the routes alternating, after warm-up); a
    ``torch.profiler`` window over 3 steps (device ops, device-busy share,
@@ -181,7 +180,11 @@ Phases, one result line each (with the elapsed seconds):
    phase 4's model served in each mode (finite logits, their distance from
    the float32 model's printed), and the
    "bfloat16_io" model exported and replayed by a fresh process under its
-   mode: logits bitwise equal to the live model's.
+   mode: logits bitwise equal to the live model's; (d) phase 9(a)'s
+   radius-3 conv (nside 256, K=5, h=12), where K1, K2 and K3 hold 2-byte
+   shared elements (``_s2``): the raw kernels as in (a), and the conv's
+   forward and train step on both routes in each mode against the
+   float32 conv.
 
 It then prints the card line, one JSON line with every kernel's launches
 (the sum over the main paths, each counted from 0: quick_start training
@@ -201,13 +204,14 @@ Five other modes measure only:
     python3 chip_smoke.py --compare PARENT [OUT.json]
     python3 chip_smoke.py --memory [OUT.json]
     python3 chip_smoke.py --sass PARENT [OUT.json]
-    python3 chip_smoke.py --k1-ab [EDITS.json ...]
+    python3 chip_smoke.py --ab KERNEL [EDITS.json ...]
 
 and ``--replay ARTIFACT X.npy OUT_DIR B...`` is phase 13's serving
 process.
 
 ``--kernel-times`` times K1-K5 and the ``index_select`` of K4's and K5's
-maps at the four phase-3 shapes, and the quick_start train step on both
+maps at the four phase-3 shapes, K1, K2 and K3 in each bfloat16 mode (with
+a digest of each output's bits), and the quick_start train step on both
 backward routes (as phase 5 does), with the package of the checkout ROOT;
 ``--compare`` runs it for the checkout PARENT (another commit, e.g.
 unpacked with ``git archive``) and this one in turns, parent, this, this,
@@ -217,16 +221,21 @@ backward route, with and without remat, and sums the allocations live at
 the step's peak by the code that made them.  ``--sass`` builds the kernel
 library of the checkout PARENT and of this one and counts the parent's
 kernels whose machine code (``cuobjdump -sass``) this library holds
-unchanged.  ``--k1-ab`` builds K1's sources alone (``csrc/stencil_conv*.cu``)
-as they are, as they are with the bfloat16 launches forced to the 2-byte
-kernels (``kBf16``, the code of K1's first bfloat16 version), and with the
-header edits of each EDITS.json (a list of [old, new] strings applied to
-``stencil_conv.cuh``; the variant is named by the file), checks that each
-build's bfloat16 outputs equal the 2-byte kernels' bit for bit in both
-modes at ten shapes (odd and even h, radius 1-4, both stagings), and
-times the float32 K1 and every build's bfloat16 K1 in each mode at the
-four phase-3 shapes, in turns, on random inputs; writes
-``chiprun_out/k1_ab.json``.
+unchanged.  ``--ab KERNEL`` builds the sources of K1 (``k1``:
+``csrc/stencil_conv*.cu``) or of K2 and K3 (``bwd``:
+``csrc/stencil_dxdw*.cu``, ``stencil_grad*.cu``) alone, as they are
+(their bfloat16 launches in the staging the shape gets, and in the 2-byte
+kernels, ``kBf16``, the code of the first bfloat16 version: for K1 by a
+second build with its C entry's pick forced, for K2 and K3 by the C
+entries' prec 3 and 4, which name that staging), and with the header
+edits of each EDITS.json (a list of [old, new] strings applied to
+``stencil_conv.cuh`` or ``stencil_bwd.cuh``; the variant is named by the
+file), checks that each build's bfloat16 outputs (K2's dx and dW, K3's dW)
+equal the 2-byte kernels' bit for bit in both modes at ten shapes (odd and
+even h, radius 1-4, both stagings), and times the float32 kernel and every
+build's bfloat16 kernel in each mode at the four phase-3 shapes (K2 and K3
+each in its role), in turns, on random inputs; writes
+``chiprun_out/ab_KERNEL.json``.
 """
 
 import atexit
@@ -595,10 +604,11 @@ def kernel_times(root):
     """``--kernel-times ROOT``: device times (graph replay) of K1-K5 and of
     the ``index_select`` of K4's and K5's maps at the four phase-3 shapes
     (K5 on the B*Fin channels of the conv's input, 12 faces), of K1 as
-    the dx conv of the K1+K3 route (on dy, through W^T) and of K1 in each
-    bfloat16 mode (phase 15(a)'s inputs: the same activations, as float32
-    or bfloat16, the weight planes rounded into the R16 layout), with a
-    digest of each bfloat16 output's bytes, and the quick_start train step
+    the dx conv of the K1+K3 route (on dy, through W^T) and of K1, K2 and
+    K3 in each bfloat16 mode (phase 15(a)'s inputs: the same activations,
+    as float32 or bfloat16, the weight planes rounded into the R16 layout),
+    with a digest of each bfloat16 output's bytes (K2: dx and dW), and the
+    quick_start train step
     on both routes (:func:`route_steps`), with the package imported from the
     checkout ``ROOT`` (this one or another commit's).  Prints one JSON
     line."""
@@ -672,23 +682,34 @@ def kernel_times(root):
                "k5_ms": graph_ms(lambda: pack_edge_bands(xc, n, h)),
                "k5_index_select_ms": graph_ms(
                    lambda: torch.index_select(bflat, 0, bidx))}
-        # K1 in each bfloat16 mode: the band mode on xc, the I/O mode on xc
-        # in bfloat16 with its R16 strips and weight planes
-        x16 = xc.to(torch.bfloat16)
+        # K1, K2 and K3 in each bfloat16 mode: the band mode on xc and dy,
+        # the I/O mode on them in bfloat16 with their R16 strips and weight
+        # planes
+        x16, dy16 = xc.to(torch.bfloat16), dy.to(torch.bfloat16)
         w16 = fs._io_weights(st, {"weights": w}, torch.bfloat16)
-        for sfx, ab in (("_bf16", (xc, w, strips)),
-                        ("_bf16_io", (x16, w16, strip_arrays(st, x16)))):
-            a1b = (st, "cheby", K, ab[0], ab[1], ab[2], wk3, B, "bfloat16")
-            y = fs.run_stencil_kernel(*a1b)
-            rec["k1" + sfx + "_digest"] = hashlib.sha256(
-                y.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
-            rec["k1" + sfx + "_ms"] = graph_ms(
-                lambda: fs.run_stencil_kernel(*a1b))
-            del y, a1b
+        for sfx, (xb, dyb, wb) in (("_bf16", (xc, dy, w)),
+                                   ("_bf16_io", (x16, dy16, w16))):
+            sxb, sdyb = strip_arrays(st, xb), strip_arrays(st, dyb)
+            calls = {
+                "k1": (fs.run_stencil_kernel, (st, "cheby", K, xb, wb, sxb,
+                                               wk3, B, "bfloat16")),
+                "k2": (fs.run_dxdw_kernel, (st, "cheby", K, dyb, wb, sdyb,
+                                            wk3t, xb, mask, B, "bfloat16")),
+                "k3": (fs.run_grad_kernel, (st, "cheby", K, xb, wb, sxb, dyb,
+                                            B, "bfloat16"))}
+            for kn, (fn, a) in calls.items():
+                got = fn(*a)
+                got = got if isinstance(got, tuple) else (got,)
+                rec[kn + sfx + "_digest"] = hashlib.sha256(b"".join(
+                    o.view(torch.int16).cpu().numpy().tobytes()
+                    for o in got)).hexdigest()[:16]
+                rec[kn + sfx + "_ms"] = graph_ms(lambda: fn(*a))
+                del got
+            del calls, sxb, sdyb
         out["shapes"].append(rec)
         print(json.dumps(rec), file=sys.stderr, flush=True)
         del xc, dy, xz, sel, strips, tables, a1t, a2, a3, args, bflat, bidx
-        del x16, w16
+        del x16, dy16, w16
         torch.cuda.empty_cache()
     out["train_step"] = route_steps(dt, config, hp_nn)
     print(json.dumps(out["train_step"]), file=sys.stderr, flush=True)
@@ -813,8 +834,8 @@ def memory_report(out_path=None):
 def compare(parent, out_path=None):
     """``--compare PARENT [OUT.json]``: :func:`kernel_times` of the checkout
     PARENT and of this one in turns (parent, this, this, parent), each in
-    its own process, and whether the bfloat16 K1's outputs are bit for bit
-    the same in all four runs.  Prints the pairs and writes them to
+    its own process, and whether each bfloat16 kernel's outputs (K1's y,
+    K2's dx and dW, K3's dW) are bit for bit the same in all four runs.  Prints the pairs and writes them to
     ``out_path`` if given."""
     here = os.path.dirname(os.path.abspath(__file__))
     runs = []
@@ -830,17 +851,20 @@ def compare(parent, out_path=None):
         runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
         say("compare", f"{root}: {time.perf_counter() - t:.1f} s")
     keys = ("k1_ms", "k4_ms", "index_select_ms", "k1_dx_ms", "k2_ms", "k3_ms",
-            "k5_ms", "k5_index_select_ms", "k1_bf16_ms", "k1_bf16_io_ms")
+            "k5_ms", "k5_index_select_ms") + tuple(
+                f"{kn}{sfx}_ms" for kn in ("k1", "k2", "k3")
+                for sfx in ("_bf16", "_bf16_io"))
     pairs = []
     for j, shape in enumerate(KERNEL_SHAPES):
         row = {"shape": runs[0]["shapes"][j]["shape"]}
         for k in keys:
             row[k] = {"parent": [runs[0]["shapes"][j][k], runs[3]["shapes"][j][k]],
                       "change": [runs[1]["shapes"][j][k], runs[2]["shapes"][j][k]]}
-        for sfx in ("_bf16", "_bf16_io"):
-            digests = {runs[i]["shapes"][j]["k1" + sfx + "_digest"]
-                       for i in range(4)}
-            row["k1" + sfx + "_bit_equal"] = len(digests) == 1
+        for kn in ("k1", "k2", "k3"):
+            for sfx in ("_bf16", "_bf16_io"):
+                digests = {runs[i]["shapes"][j][kn + sfx + "_digest"]
+                           for i in range(4)}
+                row[kn + sfx + "_bit_equal"] = len(digests) == 1
         pairs.append(row)
         say("compare", json.dumps(row))
     steps = {}
@@ -862,16 +886,32 @@ def compare(parent, out_path=None):
     print(json.dumps(summary), flush=True)
 
 
-K1_AB_BITS = [  # (n, h, r, K, B, Fin, Fout): odd and even h, radius 1-4
+AB_BITS = [  # (n, h, r, K, B, Fin, Fout): odd and even h, radius 1-4
     (16, 9, 1, 10, 2, 3, 9), (32, 4, 1, 5, 2, 4, 4), (64, 9, 1, 10, 1, 1, 8),
     (32, 9, 1, 10, 16, 8, 16), (16, 7, 1, 8, 2, 4, 4), (32, 8, 2, 5, 1, 2, 3),
     (32, 6, 2, 4, 2, 2, 2), (16, 3, 3, 2, 2, 2, 3), (16, 4, 4, 2, 1, 2, 2),
     (32, 12, 3, 5, 2, 2, 3)]
 
+# what ``--ab KERNEL`` builds: the kernels' sources, the header an
+# EDITS.json edits, the C entry points' sources, the roles (K1; K2 and K3,
+# the two modes of the backward template) and how the 2-byte kernels are
+# reached: K1's C entry picks its staging itself, so by a build with that
+# line forced (the file, the line and its forced form); K2's and K3's take
+# it from the caller (prec 3 and 4), so from the same build
+AB_KERNELS = {
+    "k1": (("stencil_conv*.cu",), "stencil_conv.cuh", ("stencil_conv.cu",),
+           ("K1",), ("stencil_conv.cu",
+                     "const bool two = mode && smem_of(sizeof(float)) > "
+                     "kSmemMax;", "const bool two = mode;")),
+    "bwd": (("stencil_dxdw*.cu", "stencil_grad*.cu"), "stencil_bwd.cuh",
+            ("stencil_dxdw.cu", "stencil_grad.cu"), ("K2", "K3"), None),
+}
 
-def k1_ab(edit_files):
-    """``--k1-ab [EDITS.json ...]``: K1's bfloat16 stagings against its
-    2-byte kernels, bit for bit and in turns (module docstring)."""
+
+def ab(kernel, edit_files):
+    """``--ab KERNEL [EDITS.json ...]``: the bfloat16 stagings of K1
+    (``k1``) or of K2 and K3 (``bwd``) against their 2-byte kernels, bit
+    for bit and in turns (module docstring)."""
     import ctypes
     import glob
     import shutil
@@ -882,14 +922,18 @@ def k1_ab(edit_files):
     from deepsphere_tpu_torch.ops import _cuda
     from deepsphere_tpu_torch.ops import fused_stencil as fs
 
+    if kernel not in AB_KERNELS:
+        raise SystemExit(f"--ab: KERNEL is one of {list(AB_KERNELS)}, "
+                         f"got {kernel!r}")
+    globs, header, entries, roles, force = AB_KERNELS[kernel]
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     csrc = os.path.join(here, "deepsphere_tpu_torch", "csrc")
-    k1 = sorted(os.path.basename(f)
-                for f in glob.glob(os.path.join(csrc, "stencil_conv*.cu")))
-    bf32 = [f for f in k1 if f.startswith("stencil_conv_bf16") and "_s2" not in f]
-    work = tempfile.mkdtemp(prefix="ds_k1_ab_")
+    srcs = sorted({os.path.basename(f) for g in globs
+                   for f in glob.glob(os.path.join(csrc, g))})
+    bf32 = [f for f in srcs if "_bf16" in f and "_s2" not in f]
+    work = tempfile.mkdtemp(prefix=f"ds_ab_{kernel}_")
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
                         "nvcc")
 
@@ -899,20 +943,19 @@ def k1_ab(edit_files):
         text = open(os.path.join(d, fn)).read()
         for old, new in edits:
             if old not in text:
-                raise SystemExit(f"--k1-ab {name}: {old!r} not in {fn}")
+                raise SystemExit(f"--ab {name}: {old!r} not in {fn}")
             text = text.replace(old, new)
         open(os.path.join(d, fn), "w").write(text)
         return d
 
     # each variant recompiles only the files its edits can change
-    trees = {"this": (tree("this", "stencil_conv.cu", []), k1),
-             "s2": (tree("s2", "stencil_conv.cu", [(
-                 "const bool two = mode && smem_of(sizeof(float)) > kSmemMax;",
-                 "const bool two = mode;")]), ["stencil_conv.cu"])}
+    trees = {"this": (tree("this", header, []), srcs)}
+    if force:
+        trees["s2"] = (tree("s2", force[0], [force[1:]]), list(entries))
     for path in edit_files:
         name = os.path.splitext(os.path.basename(path))[0]
-        trees[name] = (tree(name, "stencil_conv.cuh", json.load(open(path))),
-                       bf32)
+        trees[name] = (tree(name, header, json.load(open(path))),
+                       sorted(set(bf32) | set(entries)))
     try:
         t = time.perf_counter()
         procs = [(name, d, f, subprocess.Popen(
@@ -923,100 +966,170 @@ def k1_ab(edit_files):
         for name, d, f, proc in procs:
             out = proc.communicate(timeout=900)[0]
             if proc.returncode:
-                raise SystemExit(f"--k1-ab {name}: nvcc {f} failed:\n{out}")
+                raise SystemExit(f"--ab {name}: nvcc {f} failed:\n{out}")
         libs = {}
         vp, ci = ctypes.c_void_p, ctypes.c_int
         for name, (d, own) in trees.items():
-            so = os.path.join(d, "k1.so")
+            so = os.path.join(d, f"{kernel}.so")
             objs = [os.path.join(d if f in own else trees["this"][0], f + ".o")
-                    for f in k1]
+                    for f in srcs]
             subprocess.run([nvcc, *_cuda._FLAGS, "-shared", "-o", so, *objs],
                            check=True, capture_output=True, timeout=600)
             lib = ctypes.CDLL(so)
-            lib.ds_stencil_conv.argtypes = [vp] * 7 + [ci] * 17 + [vp]
-            lib.ds_stencil_conv.restype = ci
+            for fn, nptr in (("ds_stencil_conv", 7), ("ds_stencil_dxdw", 11),
+                             ("ds_stencil_grad", 8)):
+                if hasattr(lib, fn):
+                    getattr(lib, fn).argtypes = [vp] * nptr + [ci] * 17 + [vp]
+                    getattr(lib, fn).restype = ci
             libs[name] = lib
-        say("k1-ab", f"built {list(libs)} in {time.perf_counter() - t:.1f} s")
+        say("ab", f"{kernel}: built {list(libs)} in "
+            f"{time.perf_counter() - t:.1f} s")
+        # variant -> (its library, whether the caller names the 2-byte
+        # staging; None: the staging the shape gets)
+        variants = {k: (lib, None) for k, lib in libs.items()}
+        if not force:
+            variants = {"s2": (libs["this"], True), **variants}
         rng = np.random.RandomState(5)
 
-        def case(n, h, r, K, B, Fin, Fout, io):
+        def case(n, h, r, K, B, Fin, Fout, io, role):
+            """Random arrays of one launch of ``role``: its recursion input
+            ``src`` (C channels) with strips and weight planes, in the
+            mode's dtype, and what the role folds or contracts with."""
             dt_ = torch.bfloat16 if io else torch.float32
             P = fs.cfp_geometry(n, h)[1]
             R = fs.strip_rows(h, dt_)
-            g = lambda *shape: torch.from_numpy(
-                rng.normal(size=shape).astype(np.float32)).to(dev).to(dt_)
-            C = B * Fin
-            return {"xc": g(C, 12, n, P), "top": g(C, 12, R, P),
-                    "bot": g(C, 12, R, P), "ls": g(C, 12, n, 128),
-                    "wext": g((2 * r + 1) ** 2, 12, n + 2 * R, P),
-                    "wk3": torch.from_numpy(rng.normal(size=(K, Fin, Fout))
-                                            .astype(np.float32)).to(dev),
-                    "out": torch.empty((B * Fout, 12, n, P), dtype=dt_,
-                                       device=dev),
-                    "dims": (n, h, r, K, B, Fin, Fout, R, P)}
+            g = lambda *shape, d=dt_: torch.from_numpy(
+                rng.normal(size=shape).astype(np.float32)).to(dev).to(d)
+            # (recursion, other) channels
+            Crec, Cch = (Fout, Fin) if role == "K2" else (Fin, Fout)
+            C = B * Crec
+            c = {"src": g(C, 12, n, P), "top": g(C, 12, R, P),
+                 "bot": g(C, 12, R, P), "ls": g(C, 12, n, 128),
+                 "wext": g((2 * r + 1) ** 2, 12, n + 2 * R, P),
+                 "dims": (n, h, r, K, B, Crec, Cch, R, P)}
+            if role == "K1":
+                c["wk"] = g(K, Fin, Fout, d=torch.float32)
+                c["out"] = torch.empty((B * Fout, 12, n, P), dtype=dt_,
+                                       device=dev)
+            else:
+                c["oth"] = g(B * Cch, 12, n, P)
+            if role == "K2":
+                c["wk"] = g(K, Crec, Cch, d=torch.float32)
+                c["mask"] = torch.from_numpy(
+                    (rng.uniform(size=(12, n, P)) > 0.1).astype(np.float32)
+                ).to(dev)
+                c["out"] = torch.empty((B * Cch, 12, n, P), dtype=dt_,
+                                       device=dev)
+            return c
 
-        def launcher(lib, c, mode):
-            n, h, r, K, B, Fin, Fout, R, P = c["dims"]
+        def launcher(lib, c, mode, role, two=None):
+            """(go, plan, outputs, staged): ``go()`` launches ``role`` on
+            ``c`` in precision ``mode`` with ``lib``'s kernels, the backward
+            in 2-byte staging where ``two`` (None: as the shape gets it);
+            outputs are the tensors it writes, staged the bytes a staged
+            value takes."""
+            n, h, r, K, B, Crec, Cch, R, P = c["dims"]
             npl = (2 * r + 1) ** 2
-            plan = fs._k1_plan(n, h, r, npl, K, B, 12, Fin, Fout, sms,
-                               2 if mode else 4)
-            ptrs = [c[k].data_ptr() for k in ("xc", "top", "bot", "ls",
-                                              "wext", "wk3", "out")]
+            es = 2 if mode else 4
+            head = [c[k].data_ptr() for k in ("src", "top", "bot", "ls",
+                                              "wext")]
+            tail = (n, h, R, P)
+            prec = mode
+            if role == "K1":
+                plan = fs._k1_plan(n, h, r, npl, K, B, 12, Crec, Cch, sms, es)
+                staged = mode and fs._k1_bf16_staging(plan, h, r, npl, K)
+                outs = (c["out"],)
+                fn = lib.ds_stencil_conv
+                ptrs = head + [c["wk"].data_ptr(), c["out"].data_ptr()]
+            else:
+                dx = role == "K2"
+                plan = fs._bwd_plan(n, h, r, npl, K, B, 12, Crec, Cch, dx, sms,
+                                    es)
+                staged = mode and fs._bwd_bf16_staging(plan, h, r, npl, K,
+                                                       Crec, dx)
+                if mode and (staged == 2 if two is None else two):
+                    prec += 2
+                ncol = -(-B // plan.GB) * 12 * (n // plan.T) ** 2
+                part = torch.empty((K * Crec * Cch, ncol), device=dev)
+                dw = torch.empty((K * Crec * Cch,), device=dev)
+                if dx:
+                    fn = lib.ds_stencil_dxdw
+                    outs = (c["out"], dw)
+                    ptrs = head + [c["wk"].data_ptr(), c["oth"].data_ptr(),
+                                   c["mask"].data_ptr(), c["out"].data_ptr(),
+                                   part.data_ptr(), dw.data_ptr()]
+                else:
+                    fn = lib.ds_stencil_grad
+                    outs = (dw,)
+                    ptrs = head + [c["oth"].data_ptr(), part.data_ptr(),
+                                   dw.data_ptr()]
 
             def go():
-                _cuda.check(lib.ds_stencil_conv(
-                    *ptrs, 0, K, r, npl, B, 12, Fin, Fout, n, h, R, P, plan.T,
-                    plan.G, plan.GB, plan.FC, mode,
-                    torch.cuda.current_stream().cuda_stream), "k1-ab")
-            return go, plan
+                rc = fn(*ptrs, 0, K, r, npl, B, 12, Crec, Cch, *tail, plan.T,
+                        plan.G, plan.GB, plan.FC, prec,
+                        torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise SystemExit(f"--ab {role}: CUDA error {rc}")
+            # the launch writes its scratch by pointer: keep the tensors
+            # alive as long as go is (freed, a later empty_cache unmaps them)
+            go.keep = (c, None if role == "K1" else (part, dw))
+            return go, plan, outs, staged
 
-        out = {"card": card_line(), "bits": [], "times": []}
-        for shape in K1_AB_BITS:
-            for io in (False, True):
-                c = case(*shape, io)
-                got = {}
-                for name, lib in libs.items():
-                    c["out"].fill_(7.0)
-                    go, plan = launcher(lib, c, 2 if io else 1)
-                    go()
-                    got[name] = c["out"].view(torch.int16).clone()
-                staged = fs._k1_bf16_staging(plan, shape[1], shape[2],
-                                             (2 * shape[2] + 1) ** 2, shape[3])
-                equal = {k: bool(torch.equal(v, got["s2"]))
-                         for k, v in got.items() if k != "s2"}
-                out["bits"].append({"shape": shape, "io": io,
-                                    "plan": list(plan[:4]), "staged": staged,
-                                    "equal": equal})
-                del c, got
-        say("k1-ab", "bit for bit against the 2-byte kernels: " + "; ".join(
-            f"{b['shape']} {'I/O' if b['io'] else 'band'} staged "
+        out = {"card": card_line(), "kernel": kernel, "bits": [], "times": []}
+        for shape in AB_BITS:
+            for role in roles:
+                for io in (False, True):
+                    c = case(*shape, io, role)
+                    got = {}
+                    for name, (lib, two) in variants.items():
+                        if "out" in c:
+                            c["out"].fill_(7.0)
+                        go, plan, outs, staged = launcher(
+                            lib, c, 2 if io else 1, role, two)
+                        go()
+                        got[name] = [o.view(torch.int16).clone() for o in outs]
+                        if name == "this":
+                            staged_this = staged
+                    equal = {k: all(torch.equal(a, b)
+                                    for a, b in zip(v, got["s2"]))
+                             for k, v in got.items() if k != "s2"}
+                    out["bits"].append({
+                        "shape": shape, "role": role, "io": io,
+                        "plan": list(plan[:4]),
+                        "staged": staged_this, "equal": equal})
+                    del c, got
+        say("ab", "bit for bit against the 2-byte kernels: " + "; ".join(
+            f"{b['shape']} {b['role']} {'I/O' if b['io'] else 'band'} staged "
             f"{b['staged']} {b['equal']}" for b in out["bits"]))
-        for shape in KERNEL_SHAPES:
-            n, Fin, Fout, B, K = shape
+        for n, Fin, Fout, B, K in KERNEL_SHAPES:
             h, r = (K - 1), 1
-            row = {"shape": f"nside={n} B={B} Fin={Fin} Fout={Fout} K={K}"}
-            c32 = case(n, h, r, K, B, Fin, Fout, False)
-            row["f32"] = graph_ms(launcher(libs["this"], c32, 0)[0])
-            for io in (False, True):
-                c = case(n, h, r, K, B, Fin, Fout, True) if io else c32
-                fns = {k: launcher(lib, c, 2 if io else 1)[0]
-                       for k, lib in libs.items()}
-                order = ["s2"] + [k for k in fns if k != "s2"]
-                times = {k: [] for k in fns}
-                for k in order + order[::-1]:
-                    times[k].append(graph_ms(fns[k]))
-                row["I/O" if io else "band"] = times
-                del c
-            del c32
-            torch.cuda.empty_cache()
-            out["times"].append(row)
-            say("k1-ab", json.dumps(row))
+            shape = (n, h, r, K, B, Fin, Fout)
+            for role in roles:
+                row = {"shape": f"nside={n} B={B} Fin={Fin} Fout={Fout} K={K}",
+                       "role": role}
+                c32 = case(*shape, False, role)
+                row["f32"] = graph_ms(launcher(libs["this"], c32, 0, role)[0])
+                for io in (False, True):
+                    c = case(*shape, True, role) if io else c32
+                    fns = {k: launcher(lib, c, 2 if io else 1, role, two)[0]
+                           for k, (lib, two) in variants.items()}
+                    order = ["s2"] + [k for k in fns if k != "s2"]
+                    times = {k: [] for k in fns}
+                    for k in order + order[::-1]:
+                        times[k].append(graph_ms(fns[k]))
+                    row["I/O" if io else "band"] = times
+                    del c, fns
+                del c32
+                torch.cuda.empty_cache()
+                out["times"].append(row)
+                say("ab", json.dumps(row))
         os.makedirs(os.path.join(here, "chiprun_out"), exist_ok=True)
-        with open(os.path.join(here, "chiprun_out", "k1_ab.json"), "w") as fh:
+        with open(os.path.join(here, "chiprun_out", f"ab_{kernel}.json"),
+                  "w") as fh:
             json.dump(out, fh, indent=1)
         bad = [b for b in out["bits"] if not all(b["equal"].values())]
-        print(json.dumps({"k1_ab": out["times"], "bits_differ": bad}),
-              flush=True)
+        print(json.dumps({"ab": kernel, "times": out["times"],
+                          "bits_differ": bad}), flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2655,7 +2768,9 @@ def bf16_phase(dev, card, rng, qs_st, st1024, results, serve_ms):
     values; (b) the headline conv's forward and train step in each mode
     against the float32 conv; (c) quick_start's first train step on each
     route and its served logits in each mode against float32's, three
-    train steps, and the model exported and replayed under "bfloat16_io".
+    train steps, and the model exported and replayed under "bfloat16_io";
+    (d) the radius-3 conv's 2-byte kernels as in (a), and its forward and
+    train step in each mode against the float32 conv.
     Every bf16 result must also lie farther than ``BF_MOVED`` from the
     float32 one.  Returns the paths' launches (each counted from 0)."""
     import shutil
@@ -2682,10 +2797,14 @@ def bf16_phase(dev, card, rng, qs_st, st1024, results, serve_ms):
 
     t_phase = time.perf_counter()
     for k in ("strips_bf16", "stencil_conv_bf16", "stencil_conv_bf16_io",
-              "dxdw_bf16", "dxdw_bf16_io", "grad_bf16", "grad_bf16_io"):
+              "dxdw_bf16", "dxdw_bf16_io", "grad_bf16", "grad_bf16_io",
+              "stencil_conv_bf16_s2", "stencil_conv_bf16_io_s2",
+              "dxdw_bf16_s2", "dxdw_bf16_io_s2", "grad_bf16_s2",
+              "grad_bf16_io_s2"):
         results[k] = []
     f32_ms = {(k, r[0]): r[2] for k in ("stencil_conv", "dxdw", "grad",
                                           "strips") for r in results[k]}
+    nan = float("nan")  # no float32 time in phase 3 at this shape
 
     def counts():
         return {**_cuda.launch_counts, **_cuda.bf16_launch_counts}
@@ -2704,13 +2823,26 @@ def bf16_phase(dev, card, rng, qs_st, st1024, results, serve_ms):
             raise AssertionError(f"{what}: rel err {err:.3e} (tol {tol})")
         return err, (got.float() - want.float()).abs().max().item()
 
-    def kernels_case(label, st, B, Fin, Fout, K):
+    def launched(fn, *a):
+        """``fn(*a)`` and the one kernel count it raised."""
+        before = counts()
+        out = fn(*a)
+        keys = list(since(before))
+        if len(keys) != 1:
+            raise AssertionError(f"{fn.__name__}: launched {keys}")
+        return out, keys[0]
+
+    def kernels_case(label, st, B, Fin, Fout, K, strips=True):
+        """K1, K2 and K3 in each mode (and K4 on 2-byte strips, where
+        ``strips``) against their plain versions and apart from the float32
+        kernels, timed, into ``results`` under the count each launch raised
+        (the 2-byte stagings' "_s2" where the shape takes them)."""
         n, h = st.nside, st.n_steps
         _, P_l = fs.cfp_geometry(n, h)
         if not fs.cfp_io_available(st):
             raise AssertionError(f"{label}: no bf16 I/O for this conv")
         tables = as_tensors(stencil_tables(st, bf16_io=True), dev)
-        mask = tables["corr_mask"]
+        mask = tables.get("corr_mask")
         x32 = torch.from_numpy(
             rng.normal(size=(B * Fin, 12, n, P_l)).astype(np.float32)).to(dev)
         dy32 = torch.from_numpy(
@@ -2725,12 +2857,11 @@ def bf16_phase(dev, card, rng, qs_st, st1024, results, serve_ms):
         line = []
         for io in (False, True):
             es = 2 if io else 4
-            sfx = "_bf16_io" if io else "_bf16"
             xc = x32.to(torch.bfloat16) if io else x32
             dy = dy32.to(torch.bfloat16) if io else dy32
             w = tables["weights_bf16" if io else "weights"]
             sx, sdy = strip_arrays(st, xc), strip_arrays(st, dy)
-            if io:  # K4 on 2-byte elements, against the plain strips
+            if io and strips:  # K4 on 2-byte elements, against plain
                 idx = tables["strip_idx_bf16"]
                 got = build_strips(st, xc, idx)
                 for g, want in zip(got, sx):
@@ -2765,68 +2896,69 @@ def bf16_phase(dev, card, rng, qs_st, st1024, results, serve_ms):
             g_f = fs.run_grad_kernel(st, "cheby", K, xf, wf, sxf, dyf, B)
             # K1
             a1 = (st, "cheby", K, xc, w, sx, wk3, B, "bfloat16")
-            y_k, y_p = fs.run_stencil_kernel(*a1), fs.run_stencil_plain(*a1)
+            y_k, k1 = launched(fs.run_stencil_kernel, *a1)
+            y_p = fs.run_stencil_plain(*a1)
             torch.cuda.synchronize()
-            e1, abs1 = check(f"{label} K1{sfx}", y_k[..., inner],
+            e1, abs1 = check(f"{label} {k1}", y_k[..., inner],
                              y_p[..., inner], BF_TOL)
             if (y_k.dtype != xc.dtype or y_k[..., :h].abs().max() != 0
                     or y_k[..., h + n:].abs().max() != 0):
-                raise AssertionError(f"{label} K1{sfx}: dtype {y_k.dtype} "
+                raise AssertionError(f"{label} {k1}: dtype {y_k.dtype} "
                                      "or pad lanes")
-            d1 = bf16_apart(f"{label} K1{sfx}", y_k[..., inner],
+            d1 = bf16_apart(f"{label} {k1}", y_k[..., inner],
                             y_f[..., inner])
             ms1 = graph_ms(lambda: fs.run_stencil_kernel(*a1))
             ms1p = cuda_ms(lambda: fs.run_stencil_plain(*a1), iters=3,
                            warmup=1)
             b1 = k1_bound(st, K, B, Fin, Fout, es)
-            results["stencil_conv" + sfx].append((label, abs1, ms1, ms1p, *b1,
-                                                  None))
+            results[k1].append((label, abs1, ms1, ms1p, *b1, None))
             # K2
             a2 = (st, "cheby", K, dy, w, sdy, wk3t, xc, mask, B, "bfloat16")
-            (dx_k, dw_k), (_, dw_k2) = (fs.run_dxdw_kernel(*a2),
-                                        fs.run_dxdw_kernel(*a2))
+            (dx_k, dw_k), k2 = launched(fs.run_dxdw_kernel, *a2)
+            _, dw_k2 = fs.run_dxdw_kernel(*a2)
             dx_p, dw_p = fs.run_dxdw_plain(*a2)
             torch.cuda.synchronize()
-            e2x, abs2x = check(f"{label} K2{sfx} dx", dx_k[..., inner],
+            e2x, abs2x = check(f"{label} {k2} dx", dx_k[..., inner],
                                dx_p[..., inner], BF_TOL)
-            e2w, abs2w = check(f"{label} K2{sfx} dW", dw_k, dw_p, BF_DW_TOL)
+            e2w, abs2w = check(f"{label} {k2} dW", dw_k, dw_p, BF_DW_TOL)
             if not torch.equal(dw_k, dw_k2):
-                raise AssertionError(f"{label} K2{sfx}: dW not repeatable")
-            d2x = bf16_apart(f"{label} K2{sfx} dx", dx_k[..., inner],
+                raise AssertionError(f"{label} {k2}: dW not repeatable")
+            d2x = bf16_apart(f"{label} {k2} dx", dx_k[..., inner],
                              dx_f[..., inner])
-            d2w = bf16_apart(f"{label} K2{sfx} dW", dw_k, dw_f, BF_DW_MOVED)
+            d2w = bf16_apart(f"{label} {k2} dW", dw_k, dw_f, BF_DW_MOVED)
             ms2 = graph_ms(lambda: fs.run_dxdw_kernel(*a2))
             ms2p = cuda_ms(lambda: fs.run_dxdw_plain(*a2), iters=3, warmup=1)
             tb, tf = tile_work(st, K, B * Fout, es)
             b2 = bound(es * M * B * Fout + tb + wk3t.numel() * 4
                        + es * M * B * Fin + M * 4 + es * M * B * Fin
                        + dw_k.numel() * 4, tf + 2 * cells + B * Fin * M)
-            results["dxdw" + sfx].append((label, max(abs2x, abs2w), ms2, ms2p,
-                                          *b2, None))
+            results[k2].append((label, max(abs2x, abs2w), ms2, ms2p, *b2,
+                                None))
             # K3
             a3 = (st, "cheby", K, xc, w, sx, dy, B, "bfloat16")
-            g_k, g_k2 = fs.run_grad_kernel(*a3), fs.run_grad_kernel(*a3)
+            g_k, k3 = launched(fs.run_grad_kernel, *a3)
+            g_k2 = fs.run_grad_kernel(*a3)
             g_p = fs.run_grad_plain(*a3)
             torch.cuda.synchronize()
-            e3, abs3 = check(f"{label} K3{sfx} dW", g_k, g_p, BF_DW_TOL)
+            e3, abs3 = check(f"{label} {k3} dW", g_k, g_p, BF_DW_TOL)
             if not torch.equal(g_k, g_k2):
-                raise AssertionError(f"{label} K3{sfx}: dW not repeatable")
-            d3 = bf16_apart(f"{label} K3{sfx} dW", g_k, g_f, BF_DW_MOVED)
+                raise AssertionError(f"{label} {k3}: dW not repeatable")
+            d3 = bf16_apart(f"{label} {k3} dW", g_k, g_f, BF_DW_MOVED)
             del xf, dyf, wf, sxf, sdyf, y_f, dx_f, dw_f, g_f
             ms3 = graph_ms(lambda: fs.run_grad_kernel(*a3))
             ms3p = cuda_ms(lambda: fs.run_grad_plain(*a3), iters=3, warmup=1)
             tb, tf = tile_work(st, K, B * Fin, es)
             b3 = bound(es * M * B * Fin + tb + es * M * B * Fout
                        + g_k.numel() * 4, tf + cells)
-            results["grad" + sfx].append((label, abs3, ms3, ms3p, *b3, None))
+            results[k3].append((label, abs3, ms3, ms3p, *b3, None))
             line.append(
-                f"{'I/O' if io else 'band'}: K1 rel {e1:.2e} {ms1:.4f} ms "
-                f"(f32 {f32_ms[('stencil_conv', label)]:.4f}, plain "
-                f"{ms1p:.4f}, bound {b1[0]:.4f} {b1[1]}) | K2 dx rel "
+                f"{'I/O' if io else 'band'}: {k1} rel {e1:.2e} {ms1:.4f} ms "
+                f"(f32 {f32_ms.get(('stencil_conv', label), nan):.4f}, plain "
+                f"{ms1p:.4f}, bound {b1[0]:.4f} {b1[1]}) | {k2} dx rel "
                 f"{e2x:.2e} dW rel {e2w:.2e} {ms2:.4f} ms (f32 "
-                f"{f32_ms[('dxdw', label)]:.4f}, plain {ms2p:.4f}, bound "
-                f"{b2[0]:.4f} {b2[1]}) | K3 dW rel {e3:.2e} {ms3:.4f} ms (f32 "
-                f"{f32_ms[('grad', label)]:.4f}, plain {ms3p:.4f}, bound "
+                f"{f32_ms.get(('dxdw', label), nan):.4f}, plain {ms2p:.4f}, bound "
+                f"{b2[0]:.4f} {b2[1]}) | {k3} dW rel {e3:.2e} {ms3:.4f} ms (f32 "
+                f"{f32_ms.get(('grad', label), nan):.4f}, plain {ms3p:.4f}, bound "
                 f"{b3[0]:.4f} {b3[1]}) | from f32: y {d1:.2e} dx {d2x:.2e} "
                 f"dW {d2w:.2e} / {d3:.2e}")
         say("bf16", f"{label}: " + " || ".join(line))
@@ -2996,9 +3128,12 @@ def bf16_phase(dev, card, rng, qs_st, st1024, results, serve_ms):
             config.set_fused_dw(True)
             s_ = sfx[mode]
             io = mode == "bfloat16_io"
-            # conv 1's input needs no gradient: its K1+K3 route skips dx
+            # conv 1's input needs no gradient: its K1+K3 route skips dx.
+            # Conv 1's K2 stages 2-byte elements (float32 ones would cost
+            # it a block an SM: fused_stencil._bwd_bf16_staging)
             want_k2 = {"strips" + ("_bf16" if io else ""): 6,
-                       "stencil_conv" + s_: 3, "dxdw" + s_: 3}
+                       "stencil_conv" + s_: 3, "dxdw" + s_: 2,
+                       "dxdw" + s_ + "_s2": 1}
             want_k13 = {"strips" + ("_bf16" if io else ""): 5,
                         "stencil_conv" + s_: 5, "grad" + s_: 3}
             if (step_counts != [want_k2, want_k13, want_k2]
@@ -3087,57 +3222,53 @@ def bf16_phase(dev, card, rng, qs_st, st1024, results, serve_ms):
     torch.cuda.empty_cache()
 
     # (d) radius 3: phase 9(a)'s one-shot k=40 conv (nside 256, K=5, 4 -> 4,
-    # batch 4) in each mode, where K1's float32 bytes do not fit the 2-byte
-    # plan's tile, so it holds 2-byte elements (counted apart, "_s2"): the
-    # raw kernel against its plain version and apart from the float32
-    # kernel on the same values, and the conv against the float32 conv
+    # batch 4) in each mode, where the float32 bytes of K1, K2 and K3 do
+    # not fit their 2-byte plans' tiles, so they hold 2-byte elements
+    # (counted apart, "_s2"): the raw kernels against their plain versions
+    # and apart from the float32 kernels on the same values, and the conv's
+    # forward and its train step on each route against the float32 conv
     n, k40, K = K40_GRAPH
     B, Fin, Fout = 4, 4, 4
     st = build_sphere_graph(n, k=k40, method="grid", cache_dir=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), ".bench_cache")
     ).deep_stencil(0.75, K)
-    h, r = st.n_steps, st.radius
-    plan = fs._k1_plan(n, h, r, len(st.offsets), K, B, 12, Fin, Fout,
-                       torch.cuda.get_device_properties(dev)
-                       .multi_processor_count, 2)
-    if (r, h) != (3, 12) or fs._k1_bf16_staging(plan, h, r, len(st.offsets),
-                                                K) != 2:
-        raise AssertionError(f"radius-3 conv: radius {r}, h {h}, plan {plan}")
-    _, P_l = fs.cfp_geometry(n, h)
+    h, r, npl = st.n_steps, st.radius, len(st.offsets)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = fs._k1_plan(n, h, r, npl, K, B, 12, Fin, Fout, sms, 2)
+    staged = [fs._k1_bf16_staging(plan, h, r, npl, K)] + [
+        fs._bwd_bf16_staging(fs._bwd_plan(n, h, r, npl, K, B, 12, Crec, Cch,
+                                          dx, sms, 2), h, r, npl, K, Crec, dx)
+        for Crec, Cch, dx in ((Fout, Fin, True), (Fin, Fout, False))]
+    if (r, h) != (3, 12) or staged != [2, 2, 2]:
+        raise AssertionError(f"radius-3 conv: radius {r}, h {h}, K1 plan "
+                             f"{plan}, stagings {staged}")
+    kernels_case(f"radius 3 nside={n} B={B} Fin={Fin} Fout={Fout} K={K}", st,
+                 B, Fin, Fout, K, strips=False)
     tables = as_tensors(stencil_tables(st, bf16_io=True), dev)
+    _, P_l = fs.cfp_geometry(n, h)
     x32 = torch.from_numpy(
         rng.normal(size=(B * Fin, 12, n, P_l)).astype(np.float32)).to(dev)
     kernel = torch.from_numpy((rng.normal(size=(Fin * K, Fout))
                                / np.sqrt(Fin * K)).astype(np.float32)).to(dev)
-    wk3 = fs._wk3(kernel, K)
+    cot = torch.from_numpy(
+        rng.normal(size=(B * Fout, 12, n, P_l)).astype(np.float32)).to(dev)
     inner = slice(h, h + n)
+    xl = x32.clone().requires_grad_()
+    kl = kernel.clone().requires_grad_()
+
+    def conv_step():
+        y = fs.fused_stencil_conv_cfp(st, tables, xl, kl, K, "cheby", B)
+        return (y,) + torch.autograd.grad(y, (xl, kl), cot.to(y.dtype))
+
     with torch.no_grad():
         y32 = fs.fused_stencil_conv_cfp(st, tables, x32, kernel, K, "cheby", B)
+    _, dx32, dk32 = conv_step()
     paths["bf16_radius3"] = {}
     line = []
     for mode in BF_MODES:
         io = mode == "bfloat16_io"
         sfx = ("_bf16_io" if io else "_bf16") + "_s2"
-        xc = x32.to(torch.bfloat16) if io else x32
-        w = tables["weights_bf16" if io else "weights"]
-        sx = strip_arrays(st, xc)
-        a1 = (st, "cheby", K, xc, w, sx, wk3, B, "bfloat16")
-        y_k, y_p = fs.run_stencil_kernel(*a1), fs.run_stencil_plain(*a1)
-        xf = xc.float()
-        y_f = fs.run_stencil_kernel(st, "cheby", K, xf,
-                                    tables["weights"].to(torch.bfloat16)
-                                    .float(), strip_arrays(st, xf), wk3, B)
-        torch.cuda.synchronize()
-        e1, abs1 = check(f"radius 3 K1{sfx}", y_k[..., inner],
-                         y_p[..., inner], BF_TOL)
-        d1 = bf16_apart(f"radius 3 K1{sfx}", y_k[..., inner], y_f[..., inner])
-        ms1 = graph_ms(lambda: fs.run_stencil_kernel(*a1))
-        ms1p = cuda_ms(lambda: fs.run_stencil_plain(*a1), iters=3, warmup=1)
-        b1 = k1_bound(st, K, B, Fin, Fout, 2 if io else 4)
-        results["stencil_conv" + sfx] = [(f"radius 3 nside={n} B={B} "
-                                          f"Fin={Fin} Fout={Fout} K={K}",
-                                          abs1, ms1, ms1p, *b1, None)]
-        del y_k, y_p, y_f, xf
+        sk = "strips" + ("_bf16" if io else "")
         config.set_conv_dtype(mode)
         try:
             with torch.no_grad():
@@ -3145,23 +3276,41 @@ def bf16_phase(dev, card, rng, qs_st, st1024, results, serve_ms):
                 y = fs.fused_stencil_conv_cfp(st, tables, x32, kernel, K,
                                               "cheby", B)
                 torch.cuda.synchronize()
-                got = since(before, paths["bf16_radius3"])
+                got = [since(before, paths["bf16_radius3"])]
+            errs = [check(f"radius 3 conv {mode} y", y[..., inner],
+                          y32[..., inner], BF_F32_TOL)[0]]
+            bf16_apart(f"radius 3 conv {mode} y", y[..., inner],
+                       y32[..., inner])
+            for fused_dw in (True, False):
+                config.set_fused_dw(fused_dw)
+                before = counts()
+                _, dx, dk = conv_step()
+                torch.cuda.synchronize()
+                got.append(since(before, paths["bf16_radius3"]))
+                for what, a, b in (("dx", dx[..., inner], dx32[..., inner]),
+                                   ("dW", dk, dk32)):
+                    tag = f"radius 3 conv {mode} fused_dw={fused_dw} {what}"
+                    errs.append(check(tag, a, b, BF_F32_TOL)[0])
+                    bf16_apart(tag, a, b)
         finally:
+            config.set_fused_dw(True)
             config.set_conv_dtype("float32")
-        ey, _ = check(f"radius 3 conv {mode}", y[..., inner],
-                      y32[..., inner], BF_F32_TOL)
-        bf16_apart(f"radius 3 conv {mode}", y[..., inner], y32[..., inner])
-        want = {"strips" + ("_bf16" if io else ""): 1, "stencil_conv" + sfx: 1}
+        # the forward; a train step on the K2 route (the forward, dy's
+        # strips, K2) and on the K1+K3 route (the forward, dy's strips, K1
+        # on dy, K3)
+        want = [{sk: 1, "stencil_conv" + sfx: 1},
+                {sk: 2, "stencil_conv" + sfx: 1, "dxdw" + sfx: 1},
+                {sk: 2, "stencil_conv" + sfx: 2, "grad" + sfx: 1}]
         if got != want:
             raise AssertionError(f"radius 3 conv {mode}: launches {got}")
-        line.append(f"{mode}: K1{sfx} rel {e1:.2e} {ms1:.4f} ms (plain "
-                    f"{ms1p:.4f}, bound {b1[0]:.4f} {b1[1]}), {d1:.2e} from "
-                    f"f32; conv rel {ey:.2e} from f32, launches {got}")
-        del y
+        line.append(f"{mode}: y, dx, dW (K2 route), dx, dW (K1+K3 route) rel "
+                    f"{', '.join(f'{e:.2e}' for e in errs)} from f32, "
+                    f"launches {got}")
+        del y, dx, dk
     say("bf16", f"(d) radius-3 conv nside {n} K={K} h={h} {Fin} -> {Fout} B="
         f"{B}, 2-byte plan T={plan.T} G={plan.G}: " + "; ".join(line)
         + f" on {card}")
-    del tables, x32, y32
+    del tables, x32, y32, xl, kl, cot, dx32, dk32
     torch.cuda.empty_cache()
     say("bf16", f"phase 15 done in {time.perf_counter() - t_phase:.1f} s")
     return paths
@@ -3449,24 +3598,19 @@ def main():
     # the reference is a float64 copy on the CPU.  A conv followed by batch
     # norm (no affine) gives the same loss for any scale of its kernel, so
     # its gradient is orthogonal to the kernel: a cancellation, which
-    # float32 rounding in any order disturbs at ~1e-3 of its max.  The card
-    # is held to float64 at fixed limits; a float32 CPU step's distance
-    # from float64 is printed beside it, not used as a limit.
-    cpu32 = copy.deepcopy(model).to("cpu")
+    # float32 rounding in any order disturbs at ~1e-3 of its max (a float32
+    # CPU step read 2.21e-3 from float64 on the same batch).  The card is
+    # held to float64 at fixed limits.
     cpu64 = copy.deepcopy(model).to("cpu").double()
-    cpu32.compile(optimizer=1e-3, loss=loss_name, metrics=["accuracy"])
     t = time.perf_counter()
-    cpu_logs = cpu32._trainer.train_on_batch(xt[:16], yt[:16])
-    cpu_s = time.perf_counter() - t
     cpu64.train()
     out64 = cpu64(torch.from_numpy(xt[:16].astype(np.float64)))
     loss64 = resolve_loss(loss_name)(torch.from_numpy(yt[:16]), out64)
     loss64.backward()
     loss64 = float(loss64.detach())
     g64, s64 = grads_of(cpu64), stats_of(cpu64)
-    g_cpu = tree_errs(grads_of(cpu32), g64)
-    s_cpu = tree_errs(stats_of(cpu32), s64)
-    del cpu32, cpu64, out64
+    cpu_s = time.perf_counter() - t
+    del cpu64, out64
 
     # the main path of this slice, counted from 0: one step on each route
     route_want = {
@@ -3505,10 +3649,8 @@ def main():
                          max(s_err.values()), counts)
     route_err = max(tree_errs(routes[False][1], routes[True][1]).values())
     say("train", f"one train_on_batch of 16 maps: float64 CPU loss "
-        f"{loss64:.6f}, float32 CPU loss {cpu_logs['loss']:.6f} (step "
-        f"{cpu_s:.1f} s); float32 CPU against float64: gradients "
-        f"{max(g_cpu.values()):.2e} (per tensor {g_cpu}), BN "
-        f"{max(s_cpu.values()):.2e}; K2 route: loss rel {routes[True][3]:.2e}"
+        f"{loss64:.6f} (step {cpu_s:.1f} s); K2 route: loss rel "
+        f"{routes[True][3]:.2e}"
         f", gradients {routes[True][4]:.2e}, BN {routes[True][5]:.2e}, "
         f"launches {routes[True][6]}; K1+K3 route: loss rel "
         f"{routes[False][3]:.2e}, gradients {routes[False][4]:.2e}, BN "
@@ -4003,21 +4145,17 @@ def main():
         entry("bands", "cuda", "deepsphere_tpu_torch/csrc/bands.cu",
               "deepsphere_tpu/ops/stencil.py:82"),
     ]
-    # the bfloat16 instantiations (phase 15): band mode and I/O mode, and
-    # K4 on the I/O mode's 2-byte strips
-    for kname, src, line in (
-            ("stencil_conv", "stencil_conv_bf16.cu", "pallas_stencil.py:522"),
-            ("dxdw", "stencil_dxdw_bf16.cu", "pallas_stencil.py:688"),
-            ("grad", "stencil_grad_bf16.cu", "pallas_stencil.py:614")):
-        for sfx in ("_bf16", "_bf16_io"):
+    # the bfloat16 instantiations (phase 15): band mode and I/O mode, each
+    # staged in float32 or (_s2) in 2-byte shared elements, and K4 on the
+    # I/O mode's 2-byte strips
+    for kname, line in (("stencil_conv", "pallas_stencil.py:522"),
+                        ("dxdw", "pallas_stencil.py:688"),
+                        ("grad", "pallas_stencil.py:614")):
+        for sfx in ("_bf16", "_bf16_io", "_bf16_s2", "_bf16_io_s2"):
+            src = kname + sfx.replace("_io_s2", "_s2")
             kernels.append(entry(kname + sfx, "cuda",
-                                 f"deepsphere_tpu_torch/csrc/{src}",
+                                 f"deepsphere_tpu_torch/csrc/{src}.cu",
                                  f"deepsphere_tpu/ops/{line}"))
-    # K1 in 2-byte shared elements (phase 15(d), the radius-3 conv)
-    for sfx in ("_bf16_s2", "_bf16_io_s2"):
-        kernels.append(entry("stencil_conv" + sfx, "cuda",
-                             "deepsphere_tpu_torch/csrc/stencil_conv_bf16_s2.cu",
-                             "deepsphere_tpu/ops/pallas_stencil.py:522"))
     kernels.append(entry("strips_bf16", "cuda",
                          "deepsphere_tpu_torch/csrc/strips.cu",
                          "deepsphere_tpu/ops/pallas_strips.py:183"))
@@ -4051,8 +4189,8 @@ if __name__ == "__main__":
             memory_report(*sys.argv[2:3])
         elif sys.argv[1] == "--sass":
             sass_check(sys.argv[2], sys.argv[3] if len(sys.argv) > 3 else None)
-        elif sys.argv[1] == "--k1-ab":
-            k1_ab(sys.argv[2:])
+        elif sys.argv[1] == "--ab" and len(sys.argv) > 2:
+            ab(sys.argv[2], sys.argv[3:])
         else:
             raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
     else:

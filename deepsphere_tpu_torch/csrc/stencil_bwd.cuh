@@ -42,15 +42,31 @@
 // interior lanes [K2]; partial (K*Crec*Cch, ncol), ncol = F * tiles^2 *
 // ceil(B / GB).
 //
-// The bfloat16 instantiations (BF; stencil_dxdw_bf16*.cu and
-// stencil_grad_bf16*.cu) round at K1's points (stencil_conv.cuh) and stage
-// as K1's 2-byte variant (kBf16), in every shape: the windows, weights and
-// terms in bfloat16 shared elements, copied through registers (several
-// loads in flight a thread, no cp.async, so the next step's windows do not
-// overlap the last lap's fold), the channel kernel and the fold operand
-// rounded to bfloat16 as they are loaded, every sum in float32; src, its
-// strips, wext, oth and out are bfloat16 arrays where io (the bf16 I/O
-// mode), else float32; wk, mask, partial and dW stay float32.
+// The bfloat16 instantiations round at K1's points (stencil_conv.cuh): the
+// windows, the weights, the channel kernel and each stored term rounded to
+// bfloat16, the fold operand rounded to bfloat16 as it is loaded into
+// registers, every sum in float32; src, its strips, wext, oth and out are
+// bfloat16 arrays in the bf16 I/O mode, else float32; wk, mask, partial and
+// dW stay float32.  They come in K1's stagings (ds_k1::Staging), the same
+// function bit for bit:
+// * kBf32 (band; stencil_*_bf16.cu, _bf16_r*.cu) and kBf32Io (I/O;
+//   stencil_*_bf16_io*.cu), wherever the float32 kernel's shared bytes fit
+//   at the plan's tile, lap group and fold channels and keep the blocks an
+//   SM holds (ops/fused_stencil.py::_bwd_bf16_staging picks, launch_bwd's
+//   prec names it):
+//   the bfloat16 values held in float32 shared memory and staged as K1's
+//   kBf32 / kBf32Io stage them (cp.async halo windows and channel-kernel
+//   slice, rounded or widened in place by the copying thread before the
+//   barrier that publishes them; the weight window by 16-byte register
+//   loads while the first window's copies fly), so the laps are K1's
+//   float32 laps that round each stored term in pairs, and the next step's
+//   windows overlap the last fold as in float32.  One instantiation a mode.
+// * kBf16 (stencil_*_bf16_s2*.cu) elsewhere, the first bfloat16 version's
+//   code: the windows, weights and terms in bfloat16 shared elements,
+//   copied through registers (several loads in flight a thread, no
+//   cp.async), either mode by the runtime io flag.
+// The fold, the dW reduction and the dx store are the same in every
+// bfloat16 staging, so the dW sums come out in the same order.
 
 #pragma once
 
@@ -64,6 +80,10 @@ using ds_k1::bf16;
 using ds_k1::cp_async_commit;
 using ds_k1::cp_async_wait_all;
 using ds_k1::ld;
+using ds_k1::kF32;
+using ds_k1::kBf32;
+using ds_k1::kBf16;
+using ds_k1::kBf32Io;
 
 constexpr int kWarps = NT / 32;
 
@@ -81,7 +101,7 @@ struct BwdArgs {
   float* out;         // (B*Cch, F, n, P)            [kDxDw]
   float* partial;     // (K*Crec*Cch, ncol)
   int cheby, K, B, F, Crec, Cch, n, h, Rs, P, T, GB, chunks, vec, ncol;
-  int io;             // BF: src, its strips, wext, oth, out are bfloat16
+  int io;             // bfloat16 arrays: src, its strips, wext, oth, out
 };
 
 __host__ __device__ constexpr int ilog2(int v) {
@@ -186,9 +206,13 @@ constexpr int min_blocks() {
   return (MODE == kDxDw ? 2 : 1) * PP * FC <= 32 ? 2 : 1;
 }
 
-template <int MODE, int R, int G, int PP, int FC, bool BF = false>
+template <int MODE, int R, int G, int PP, int FC, int S = kF32>
 __global__ void __launch_bounds__(NT, (min_blocks<MODE, PP, FC>()))
 stencil_bwd_kernel(const BwdArgs a) {
+  constexpr bool BF = S == kBf16;
+  // bfloat16 values in float32: each mode its own instantiation, as K1's
+  constexpr bool F32S = S == kBf32 || S == kBf32Io;
+  constexpr bool IO = S == kBf32Io;
   using E = typename ds_k1::Staged<BF>::type;
   extern __shared__ __align__(16) float smem[];
   constexpr bool kDx = MODE == kDxDw;
@@ -231,6 +255,8 @@ stencil_bwd_kernel(const BwdArgs a) {
     else
       ds_k1::stage_weights_bf<R>(s_w, a.wext, a.F, f, n, a.Rs, P, h, x0, y0,
                                  Ww);
+  } else if constexpr (F32S) {
+    // after the first window's copies (below)
   } else {
     ds_k1::stage_weights<R>(s_w, a.wext, a.F, f, n, a.Rs, P, h, x0, y0, Ww);
   }
@@ -248,6 +274,10 @@ stencil_bwd_kernel(const BwdArgs a) {
       else
         ds_k1::stage_window_bf<G>(bufs + set * G * BW, halo, cf0, a.F, x0,
                                   y0, W0, WS, BW);
+    } else if constexpr (IO) {
+      ds_k1::stage_window_io<G>(bufs + set * G * BW, ds_k1::as_bf16(halo),
+                                ((long long)b * a.Crec + rc0) * a.F + f, a.F,
+                                x0, y0, W0, WS, BW, a.vec);
     } else {
       ds_k1::stage_window<G>(bufs + set * G * BW, halo,
                              ((long long)b * a.Crec + rc0) * a.F + f, a.F, x0,
@@ -255,7 +285,7 @@ stencil_bwd_kernel(const BwdArgs a) {
     }
   };
   // step s's slice of wk, zero past Cch: s_wk[slot][k][g][c] (rounded to
-  // bfloat16 by BF)
+  // bfloat16 by BF, and by F32S once it lands)
   auto stage_wk = [&](int s, int slot) {
     if constexpr (BF)
       ds_k1::stage_slice_bf<G, FC>(s_wk + slot * wkn, a.wk, K, a.Crec, a.Cch,
@@ -263,6 +293,19 @@ stencil_bwd_kernel(const BwdArgs a) {
     else
       ds_k1::stage_slice<G, FC>(s_wk + slot * wkn, a.wk, K, a.Crec, a.Cch,
                                 (s % ngroups) * G, c0);
+  };
+  // F32S: what this thread copied into buffer set `set` (and channel-kernel
+  // slot `slot`), rounded to bfloat16 (band mode) or widened (I/O mode) in
+  // place once its copies have landed, before the barrier that publishes
+  // them
+  auto land_step = [&](int set, int slot) {
+    if constexpr (F32S) {
+      if constexpr (IO)
+        ds_k1::widen_window_io<G>(bufs + set * G * BW, W0, WS, BW);
+      else
+        ds_k1::round_window<G>(bufs + set * G * BW, W0, WS, BW);
+      if constexpr (kDx) ds_k1::round_slice<G, FC>(s_wk + slot * wkn, K);
+    }
   };
 
   const int lgT = 31 - __clz(T);  // T is 8, 16 or 32
@@ -284,12 +327,13 @@ stencil_bwd_kernel(const BwdArgs a) {
 #pragma unroll
     for (int c = 0; c < FC; ++c) acc[p][c] = 0.f;
   // the fold operand of batch index b at this thread's pixels, 0 past Cch
-  // (rounded to bfloat16 by BF, as the TPU kernel's bf16 dot operand)
+  // (rounded to bfloat16 in the bfloat16 modes, as the TPU kernel's bf16
+  // dot operand)
   auto load_oth = [&](int b) {
 #pragma unroll
     for (int c = 0; c < FC; ++c) {
       const bool ok = c0 + c < a.Cch;
-      if constexpr (BF) {
+      if constexpr (S != kF32) {
         const long long base =
             ((long long)(b * a.Cch + c0 + c) * a.F + f) * n * P;
         const bf16* ob = reinterpret_cast<const bf16*>(a.oth) + base;
@@ -297,7 +341,8 @@ stencil_bwd_kernel(const BwdArgs a) {
 #pragma unroll
         for (int p = 0; p < PP; ++p)
           oth[p][c] = ok && gof[p] >= 0
-              ? msk[p] * (a.io ? ld(ob[gof[p]]) : ds_k1::rnd(of[gof[p]]))
+              ? msk[p] * (IO || (BF && a.io) ? ld(ob[gof[p]])
+                                             : ds_k1::rnd(of[gof[p]]))
               : 0.f;
       } else {
         const float* oc = a.oth + ((long long)(b * a.Cch + c0 + c) * a.F + f) * n * P;
@@ -321,8 +366,18 @@ stencil_bwd_kernel(const BwdArgs a) {
 
   stage_step(0, 0);
   if (kDx) stage_wk(0, 0);
+  if constexpr (F32S) {  // the weight window while those copies fly
+    const bool wvec = (reinterpret_cast<size_t>(a.wext) & 15) == 0;
+    if constexpr (IO)
+      ds_k1::stage_weights_reg<R>(s_w, reinterpret_cast<const bf16*>(a.wext),
+                                  a.F, f, n, a.Rs, P, h, x0, y0, Ww, wvec);
+    else
+      ds_k1::stage_weights_reg<R>(s_w, a.wext, a.F, f, n, a.Rs, P, h, x0, y0,
+                                  Ww, wvec);
+  }
   cp_async_commit();
   cp_async_wait_all();
+  if constexpr (F32S) land_step(0, 0);
   __syncthreads();
 
   // buffer sets as K1's: the next step's windows go to the set of T_{K-2}
@@ -353,9 +408,9 @@ stencil_bwd_kernel(const BwdArgs a) {
       E* src = (k & 1) ? P0 : P1;
       E* dst = (k & 1) ? P1 : P0;
       if (a.cheby && k >= 2)
-        ds_k1::lap<R, G, true>(src, dst, s_w, W0, WS, Ww, BW, k);
+        ds_k1::lap<R, G, true, E, F32S>(src, dst, s_w, W0, WS, Ww, BW, k);
       else
-        ds_k1::lap<R, G, false>(src, dst, s_w, W0, WS, Ww, BW, k);
+        ds_k1::lap<R, G, false, E, F32S>(src, dst, s_w, W0, WS, Ww, BW, k);
       __syncthreads();
       flush(k - 1, rc0, (s * K + k - 1) & 1);
       if (k == K - 1 && more) stage_step(s + 1, next);
@@ -364,11 +419,11 @@ stencil_bwd_kernel(const BwdArgs a) {
                            lgT, lane);
     }
 
-    if constexpr (BF) {
+    if constexpr (S != kF32) {
       if (kDx && gi == ngroups - 1) {  // the batch index's dx is complete
         const long long ch0 = (long long)(b0 + s / ngroups) * a.Cch + c0;
         const int nc = min(FC, a.Cch - c0);
-        if (a.io) {
+        if (IO || (BF && a.io)) {
           bf16* out = reinterpret_cast<bf16*>(a.out);
           ds_k1::store_sums(out, acc, gof, ch0, nc, a.F, f, n, P);
           ds_k1::zero_pad_lanes(out, ch0, nc, a.F, f, n, P, h, T, x0, y0);
@@ -397,6 +452,9 @@ stencil_bwd_kernel(const BwdArgs a) {
 
     cp_async_commit();
     cp_async_wait_all();
+    if constexpr (F32S) {
+      if (more) land_step(next, (s + 1) & 1);
+    }
     __syncthreads();
     cur ^= flip;
     prev_rc0 = rc0;
@@ -438,80 +496,89 @@ reduce_partials(const float* __restrict__ partial, float* __restrict__ out,
   if (threadIdx.x == 0) out[blockIdx.x] = s[0];
 }
 
-template <int MODE, int R, int G, int PP, int FC, bool BF>
+template <int MODE, int R, int G, int PP, int FC, int S>
 int launch(const BwdArgs& a, dim3 grid, size_t smem, cudaStream_t stream) {
-  return ds_k1::launch_kernel(stencil_bwd_kernel<MODE, R, G, PP, FC, BF>, a,
+  return ds_k1::launch_kernel(stencil_bwd_kernel<MODE, R, G, PP, FC, S>, a,
                               grid, smem, stream);
 }
 
 // FC fold channels a block: 4 or 8 with 4 pixels a thread (32-tile), up
 // to 32 with 1
-template <int MODE, int R, int G, int PP, bool BF>
+template <int MODE, int R, int G, int PP, int S>
 int launch_fc(int FC, const BwdArgs& a, dim3 grid, size_t smem,
               cudaStream_t stream) {
   switch (FC) {
-    case 4: return launch<MODE, R, G, PP, 4, BF>(a, grid, smem, stream);
-    case 8: return launch<MODE, R, G, PP, 8, BF>(a, grid, smem, stream);
+    case 4: return launch<MODE, R, G, PP, 4, S>(a, grid, smem, stream);
+    case 8: return launch<MODE, R, G, PP, 8, S>(a, grid, smem, stream);
     case 16:
-      return launch<MODE, R, G, PP, (PP == 1 ? 16 : 8), BF>(a, grid, smem,
-                                                            stream);
+      return launch<MODE, R, G, PP, (PP == 1 ? 16 : 8), S>(a, grid, smem,
+                                                           stream);
     default:
-      return launch<MODE, R, G, PP, (PP == 1 ? 32 : 8), BF>(a, grid, smem,
-                                                            stream);
+      return launch<MODE, R, G, PP, (PP == 1 ? 32 : 8), S>(a, grid, smem,
+                                                           stream);
   }
 }
 
 // T x T tiles: 4 pixels a thread on a 32-tile (radius <= 2 only), 1 on
 // smaller tiles
-template <int MODE, int R, int G, bool BF = false>
+template <int MODE, int R, int G, int S = kF32>
 int launch_t(int T, int FC, const BwdArgs& a, dim3 grid, size_t smem,
              cudaStream_t stream) {
   if constexpr (R <= 2) {
-    if (T == 32) return launch_fc<MODE, R, G, 4, BF>(FC, a, grid, smem, stream);
+    if (T == 32) return launch_fc<MODE, R, G, 4, S>(FC, a, grid, smem, stream);
   }
-  return launch_fc<MODE, R, G, 1, BF>(FC, a, grid, smem, stream);
+  return launch_fc<MODE, R, G, 1, S>(FC, a, grid, smem, stream);
 }
 
 // one per (mode, radius, lap group G): the instantiations of
-// stencil_dxdw*.cu and stencil_grad*.cu, the bfloat16 ones in their
-// *_bf16*.cu
+// stencil_dxdw*.cu and stencil_grad*.cu; the bfloat16 ones of
+// *_bf16.cu and *_bf16_r*.cu (kBf32, band mode), *_bf16_io*.cu (kBf32Io,
+// I/O mode) and *_bf16_s2*.cu (kBf16, either mode)
 #define DS_BWD_LAUNCH(NAME)                                                \
   int NAME(int T, int FC, const BwdArgs& a, dim3 grid, size_t smem,        \
            cudaStream_t stream)
-DS_BWD_LAUNCH(dxdw_r1_g1);
-DS_BWD_LAUNCH(dxdw_r1_g2);
-DS_BWD_LAUNCH(dxdw_r1_g4);
-DS_BWD_LAUNCH(dxdw_r2_g1);
-DS_BWD_LAUNCH(dxdw_r2_g2);
-DS_BWD_LAUNCH(dxdw_r3_g1);
-DS_BWD_LAUNCH(dxdw_r4_g1);
-DS_BWD_LAUNCH(grad_r1_g1);
-DS_BWD_LAUNCH(grad_r1_g2);
-DS_BWD_LAUNCH(grad_r1_g4);
-DS_BWD_LAUNCH(grad_r2_g1);
-DS_BWD_LAUNCH(grad_r2_g2);
-DS_BWD_LAUNCH(grad_r3_g1);
-DS_BWD_LAUNCH(grad_r4_g1);
-DS_BWD_LAUNCH(dxdw_bf16_r1_g1);
-DS_BWD_LAUNCH(dxdw_bf16_r1_g2);
-DS_BWD_LAUNCH(dxdw_bf16_r1_g4);
-DS_BWD_LAUNCH(dxdw_bf16_r2_g1);
-DS_BWD_LAUNCH(dxdw_bf16_r2_g2);
-DS_BWD_LAUNCH(dxdw_bf16_r3_g1);
-DS_BWD_LAUNCH(dxdw_bf16_r4_g1);
-DS_BWD_LAUNCH(grad_bf16_r1_g1);
-DS_BWD_LAUNCH(grad_bf16_r1_g2);
-DS_BWD_LAUNCH(grad_bf16_r1_g4);
-DS_BWD_LAUNCH(grad_bf16_r2_g1);
-DS_BWD_LAUNCH(grad_bf16_r2_g2);
-DS_BWD_LAUNCH(grad_bf16_r3_g1);
-DS_BWD_LAUNCH(grad_bf16_r4_g1);
+#define DS_BWD_FAMILY(P)                                                   \
+  DS_BWD_LAUNCH(P##_r1_g1);                                                \
+  DS_BWD_LAUNCH(P##_r1_g2);                                                \
+  DS_BWD_LAUNCH(P##_r1_g4);                                                \
+  DS_BWD_LAUNCH(P##_r2_g1);                                                \
+  DS_BWD_LAUNCH(P##_r2_g2);                                                \
+  DS_BWD_LAUNCH(P##_r3_g1);                                                \
+  DS_BWD_LAUNCH(P##_r4_g1)
+DS_BWD_FAMILY(dxdw);
+DS_BWD_FAMILY(grad);
+DS_BWD_FAMILY(dxdw_bf16);
+DS_BWD_FAMILY(grad_bf16);
+DS_BWD_FAMILY(dxdw_bf16_io);
+DS_BWD_FAMILY(grad_bf16_io);
+DS_BWD_FAMILY(dxdw_bf16_s2);
+DS_BWD_FAMILY(grad_bf16_s2);
+
+// rc = the launch of family P's (radius, G) instantiation
+#define DS_BWD_PICK(P)                                                     \
+  switch (radius * 8 + G) {                                                \
+    case 9: rc = P##_r1_g1(T, FC, a, grid, smem, stream); break;           \
+    case 10: rc = P##_r1_g2(T, FC, a, grid, smem, stream); break;          \
+    case 12: rc = P##_r1_g4(T, FC, a, grid, smem, stream); break;          \
+    case 17: rc = P##_r2_g1(T, FC, a, grid, smem, stream); break;          \
+    case 18: rc = P##_r2_g2(T, FC, a, grid, smem, stream); break;          \
+    case 25: rc = P##_r3_g1(T, FC, a, grid, smem, stream); break;          \
+    default: rc = P##_r4_g1(T, FC, a, grid, smem, stream); break;          \
+  }
+
+// the dynamic shared bytes a launch may ask for (ops/fused_stencil.py's
+// _SMEM_MAX: an H100 block's 227 KB less 1 KB)
+constexpr size_t kSmemMax = 232448 - 1024;
 
 // Checks the shape (T, G, GB and FC as ops/fused_stencil.py::_bwd_plan
 // picks them), launches the kernel on its plan, then the reduction of its
-// partial sums into dw (K*Crec*Cch floats).  prec: 0 float32, 1 the
-// bfloat16 band on float32 arrays, 2 on bfloat16 arrays.  Returns
-// cudaGetLastError() after the launches (or the first error).
+// partial sums into dw (K*Crec*Cch floats).  prec: 0 float32; the
+// bfloat16 band on float32 arrays, 1 staged in float32 shared memory or 3
+// in bfloat16; on bfloat16 arrays, 2 staged in float32 (every array
+// 4-byte aligned) or 4 in bfloat16.  The caller picks the staging
+// (ops/fused_stencil.py::_bwd_bf16_staging); a float32 staging whose
+// bytes do not fit is refused.  Returns cudaGetLastError() after the
+// launches (or the first error).
 inline int launch_bwd(int mode, BwdArgs a, int radius, int nplanes, int G,
                       int FC, int prec, float* dw, cudaStream_t stream) {
   const int T = a.T;
@@ -519,7 +586,7 @@ inline int launch_bwd(int mode, BwdArgs a, int radius, int nplanes, int G,
   const bool fc_ok =
       FC == 4 || FC == 8 || ((FC == 16 || FC == 32) && T != 32);
   if (T == 32 && radius > 2) return (int)cudaErrorInvalidValue;
-  if ((mode != kDxDw && mode != kGrad) || prec < 0 || prec > 2
+  if ((mode != kDxDw && mode != kGrad) || prec < 0 || prec > 4
       || (T != 8 && T != 16 && T != 32)
       || a.n % T || radius < 1 || radius > 4
       || nplanes != (2 * radius + 1) * (2 * radius + 1) || a.K < 1
@@ -540,57 +607,38 @@ inline int launch_bwd(int mode, BwdArgs a, int radius, int nplanes, int G,
   a.vec = ((reinterpret_cast<size_t>(a.src) | reinterpret_cast<size_t>(a.top)
             | reinterpret_cast<size_t>(a.bot) | reinterpret_cast<size_t>(a.ls))
            & 15) == 0;
-  a.io = prec == 2;
+  a.io = prec == 2 || prec == 4;
+  const bool two = prec > 2;
   // the windows in the staged type, the rest in float32
-  const size_t es = prec ? sizeof(bf16) : sizeof(float);
-  const size_t smem =
-      sizeof(float)
-          * ((mode == kDxDw ? (size_t)2 * a.K * G * FC : 0)
-             + (size_t)2 * kWarps * G * FC + (size_t)a.K * a.Crec * FC)
-      + es * ((((size_t)(Ww + kRun - 1) * Ww * nplanes + 3) & ~(size_t)3)
-              + (size_t)2 * G * (W0 + kRun - 1) * WS);
+  auto smem_of = [&](size_t es) {
+    return sizeof(float)
+               * ((mode == kDxDw ? (size_t)2 * a.K * G * FC : 0)
+                  + (size_t)2 * kWarps * G * FC + (size_t)a.K * a.Crec * FC)
+           + es * ((((size_t)(Ww + kRun - 1) * Ww * nplanes + 3) & ~(size_t)3)
+                   + (size_t)2 * G * (W0 + kRun - 1) * WS);
+  };
+  const size_t smem = smem_of(two ? sizeof(bf16) : sizeof(float));
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  // the I/O mode's cp.async copies move whole 4-byte words, a window row
+  // at most 32 of 8 lanes
+  if (prec == 2 && W0 > 256) return (int)cudaErrorInvalidValue;
+  if (prec == 2
+      && ((reinterpret_cast<size_t>(a.src) | reinterpret_cast<size_t>(a.top)
+           | reinterpret_cast<size_t>(a.bot) | reinterpret_cast<size_t>(a.ls)
+           | reinterpret_cast<size_t>(a.wext)) & 3))
+    return (int)cudaErrorMisalignedAddress;
   dim3 grid(tiles * tiles, a.F, (unsigned)gz);
   int rc;
-  if (prec && mode == kDxDw) {
-    switch (radius * 8 + G) {
-      case 9: rc = dxdw_bf16_r1_g1(T, FC, a, grid, smem, stream); break;
-      case 10: rc = dxdw_bf16_r1_g2(T, FC, a, grid, smem, stream); break;
-      case 12: rc = dxdw_bf16_r1_g4(T, FC, a, grid, smem, stream); break;
-      case 17: rc = dxdw_bf16_r2_g1(T, FC, a, grid, smem, stream); break;
-      case 18: rc = dxdw_bf16_r2_g2(T, FC, a, grid, smem, stream); break;
-      case 25: rc = dxdw_bf16_r3_g1(T, FC, a, grid, smem, stream); break;
-      default: rc = dxdw_bf16_r4_g1(T, FC, a, grid, smem, stream); break;
-    }
-  } else if (prec) {
-    switch (radius * 8 + G) {
-      case 9: rc = grad_bf16_r1_g1(T, FC, a, grid, smem, stream); break;
-      case 10: rc = grad_bf16_r1_g2(T, FC, a, grid, smem, stream); break;
-      case 12: rc = grad_bf16_r1_g4(T, FC, a, grid, smem, stream); break;
-      case 17: rc = grad_bf16_r2_g1(T, FC, a, grid, smem, stream); break;
-      case 18: rc = grad_bf16_r2_g2(T, FC, a, grid, smem, stream); break;
-      case 25: rc = grad_bf16_r3_g1(T, FC, a, grid, smem, stream); break;
-      default: rc = grad_bf16_r4_g1(T, FC, a, grid, smem, stream); break;
-    }
-  } else if (mode == kDxDw) {
-    switch (radius * 8 + G) {
-      case 9: rc = dxdw_r1_g1(T, FC, a, grid, smem, stream); break;
-      case 10: rc = dxdw_r1_g2(T, FC, a, grid, smem, stream); break;
-      case 12: rc = dxdw_r1_g4(T, FC, a, grid, smem, stream); break;
-      case 17: rc = dxdw_r2_g1(T, FC, a, grid, smem, stream); break;
-      case 18: rc = dxdw_r2_g2(T, FC, a, grid, smem, stream); break;
-      case 25: rc = dxdw_r3_g1(T, FC, a, grid, smem, stream); break;
-      default: rc = dxdw_r4_g1(T, FC, a, grid, smem, stream); break;
-    }
+  if (mode == kDxDw) {
+    if (two) DS_BWD_PICK(dxdw_bf16_s2)
+    else if (prec == 2) DS_BWD_PICK(dxdw_bf16_io)
+    else if (prec) DS_BWD_PICK(dxdw_bf16)
+    else DS_BWD_PICK(dxdw)
   } else {
-    switch (radius * 8 + G) {
-      case 9: rc = grad_r1_g1(T, FC, a, grid, smem, stream); break;
-      case 10: rc = grad_r1_g2(T, FC, a, grid, smem, stream); break;
-      case 12: rc = grad_r1_g4(T, FC, a, grid, smem, stream); break;
-      case 17: rc = grad_r2_g1(T, FC, a, grid, smem, stream); break;
-      case 18: rc = grad_r2_g2(T, FC, a, grid, smem, stream); break;
-      case 25: rc = grad_r3_g1(T, FC, a, grid, smem, stream); break;
-      default: rc = grad_r4_g1(T, FC, a, grid, smem, stream); break;
-    }
+    if (two) DS_BWD_PICK(grad_bf16_s2)
+    else if (prec == 2) DS_BWD_PICK(grad_bf16_io)
+    else if (prec) DS_BWD_PICK(grad_bf16)
+    else DS_BWD_PICK(grad)
   }
   if (rc != 0) return rc;
   reduce_partials<<<a.K * a.Crec * a.Cch, NT, 0, stream>>>(a.partial, dw,

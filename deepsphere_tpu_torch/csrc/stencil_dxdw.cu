@@ -50,9 +50,12 @@ extern "C" {
 // (8, 16 or 32, dividing n), G (recursion channels per lap, dividing Fc), GB
 // (batch indices per block) and FC (x channels per block: 4 or 8 on a
 // 32-tile, up to 32 on smaller ones): the plan of
-// ops/fused_stencil.py::_bwd_plan.  prec: 0 float32, 1 the bfloat16 band
-// on float32 arrays, 2 on bfloat16 arrays (dy, its strips, wext, xr, dx;
-// the bfloat16 instantiations of stencil_dxdw_bf16*.cu).  Returns
+// ops/fused_stencil.py::_bwd_plan.  prec: 0 float32; the bfloat16 band
+// on float32 arrays staged in float32 shared memory (1) or in bfloat16
+// (3); on bfloat16 arrays (dy, its strips, wext, xr, dx) staged in float32
+// (2: dy, its strips and wext 4-byte aligned) or in bfloat16 (4): the
+// bfloat16 instantiations of stencil_dxdw_bf16*.cu, in the staging
+// ops/fused_stencil.py::_bwd_bf16_staging picks from the shape.  Returns
 // cudaGetLastError() after the two launches (or the first error).
 int ds_stencil_dxdw(const float* dy, const float* top, const float* bot,
                     const float* ls, const float* wext, const float* wk3t,

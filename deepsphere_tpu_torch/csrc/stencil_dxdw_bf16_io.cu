@@ -1,0 +1,13 @@
+// bfloat16 instantiations of the fused backward dx + dW kernel (K2,
+// stencil_dxdw.cu; bfloat16 values in float32 shared memory, I/O mode) for
+// radius 1 lap group 4.
+
+#include "stencil_bwd.cuh"
+
+namespace ds_bwd {
+
+DS_BWD_LAUNCH(dxdw_bf16_io_r1_g4) {
+  return launch_t<kDxDw, 1, 4, kBf32Io>(T, FC, a, grid, smem, stream);
+}
+
+}  // namespace ds_bwd

@@ -42,7 +42,8 @@ extern "C" {
 // kind: 0 Chebyshev, 1 monomial.  F: faces in the arrays.  T, G (dividing
 // Fin), GB and FC (dy channels per block): the plan of
 // ops/fused_stencil.py::_bwd_plan, as for ds_stencil_dxdw; prec as its
-// (xc, its strips, wext and dy bfloat16 at 2).  Returns
+// (xc, its strips, wext and dy bfloat16 at 2 and 4; xc, its strips and
+// wext 4-byte aligned at 2).  Returns
 // cudaGetLastError() after the two launches (or the first error).
 int ds_stencil_grad(const float* xc, const float* top, const float* bot,
                     const float* ls, const float* wext, const float* dy,

@@ -1,15 +1,16 @@
 // bfloat16 instantiations of the dW kernel of the two-kernel backward (K3,
-// stencil_grad.cu) for radius 1 lap group 1 and radius 1 lap group 2.
+// stencil_grad.cu; bfloat16 values in float32 shared memory, band mode) for
+// radius 1 lap group 1 and radius 1 lap group 2.
 
 #include "stencil_bwd.cuh"
 
 namespace ds_bwd {
 
 DS_BWD_LAUNCH(grad_bf16_r1_g1) {
-  return launch_t<kGrad, 1, 1, true>(T, FC, a, grid, smem, stream);
+  return launch_t<kGrad, 1, 1, kBf32>(T, FC, a, grid, smem, stream);
 }
 DS_BWD_LAUNCH(grad_bf16_r1_g2) {
-  return launch_t<kGrad, 1, 2, true>(T, FC, a, grid, smem, stream);
+  return launch_t<kGrad, 1, 2, kBf32>(T, FC, a, grid, smem, stream);
 }
 
 }  // namespace ds_bwd

@@ -1,15 +1,16 @@
 // bfloat16 instantiations of the dW kernel of the two-kernel backward (K3,
-// stencil_grad.cu) for radius 3 lap group 1 and radius 4 lap group 1.
+// stencil_grad.cu; bfloat16 values in float32 shared memory, band mode) for
+// radius 3 lap group 1 and radius 4 lap group 1.
 
 #include "stencil_bwd.cuh"
 
 namespace ds_bwd {
 
 DS_BWD_LAUNCH(grad_bf16_r3_g1) {
-  return launch_t<kGrad, 3, 1, true>(T, FC, a, grid, smem, stream);
+  return launch_t<kGrad, 3, 1, kBf32>(T, FC, a, grid, smem, stream);
 }
 DS_BWD_LAUNCH(grad_bf16_r4_g1) {
-  return launch_t<kGrad, 4, 1, true>(T, FC, a, grid, smem, stream);
+  return launch_t<kGrad, 4, 1, kBf32>(T, FC, a, grid, smem, stream);
 }
 
 }  // namespace ds_bwd

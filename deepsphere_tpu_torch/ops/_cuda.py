@@ -22,8 +22,9 @@ where it launches its kernel, and nowhere else, so a run (a replayed
 the kernels; a bfloat16 instantiation counts in :data:`bf16_launch_counts`
 instead, by kernel and mode (``_bf16``: the band mode on float32 arrays,
 ``_bf16_io``: bfloat16 arrays; ``strips_bf16``: K4 on 2-byte elements),
-K1's launches in 2-byte shared elements apart (``_s2``: the shapes where
-only those fit, ``fused_stencil._k1_bf16_staging``).
+K1's, K2's and K3's launches in 2-byte shared elements apart (``_s2``:
+the shapes where only those fit, ``fused_stencil._k1_bf16_staging`` and
+``_bwd_bf16_staging``).
 Beside them, :data:`route_counts` counts
 the routes chosen from a shape that launch none of these kernels (the
 cface conv's per-step route, ``ops/stencil.py::_cface_per_step``) or that
@@ -58,7 +59,9 @@ launch_counts = {"strips": 0, "stencil_conv": 0, "dxdw": 0, "grad": 0,
 bf16_launch_counts = {"strips_bf16": 0, "stencil_conv_bf16": 0,
                       "stencil_conv_bf16_io": 0, "stencil_conv_bf16_s2": 0,
                       "stencil_conv_bf16_io_s2": 0, "dxdw_bf16": 0,
-                      "dxdw_bf16_io": 0, "grad_bf16": 0, "grad_bf16_io": 0}
+                      "dxdw_bf16_io": 0, "dxdw_bf16_s2": 0,
+                      "dxdw_bf16_io_s2": 0, "grad_bf16": 0, "grad_bf16_io": 0,
+                      "grad_bf16_s2": 0, "grad_bf16_io_s2": 0}
 #: route name -> times taken since the last :func:`reset_launch_counts`
 route_counts = {"per_step_cface": 0, "chain_cface": 0, "lap_chain": 0,
                 "smooth_fused": 0, "smooth_per_step": 0}

@@ -84,6 +84,8 @@ __all__ = [
 # the dynamic shared-memory ceiling of a block (an H100 block gets 227 KB;
 # the kernels' static arrays take the rest)
 _SMEM_MAX = 232448 - 1024
+# an SM's shared memory (an H100 SM's 228 KB; each block reserves 1 KB)
+_SMEM_SM = 233472
 
 
 # K1's own launch plan (``csrc/stencil_conv.cu``): its lap points per
@@ -193,6 +195,37 @@ def _bwd_smem(T, h, r, nplanes, K, G, FC, Crec, dx, es=4):
                  + 2 * _BWD_WARPS * G * FC + K * Crec * FC)
             + es * (_round_up((Ww + _K1_RUN - 1) * Ww * nplanes, 4)
                     + 2 * G * (W0 + _K1_RUN - 1) * _round_up(W0, 4)))
+
+
+def _bwd_blocks(plan, r, dx, smem):
+    """Blocks of K2 (``dx``) or K3 an SM holds on ``plan`` at ``smem``
+    dynamic shared bytes: the fewer of what its launch bounds leave the
+    registers (2 where a thread's dx sums and fold operand, PP x FC each,
+    PP = 4 pixels a thread on a 32-tile, fit 128 registers, else 1) and
+    what ``_SMEM_SM`` allows at 1 KB reserved a block."""
+    pp = 4 if plan.T == 32 and r <= 2 else 1
+    by_regs = 2 if (2 if dx else 1) * pp * plan.FC <= 32 else 1
+    return min(by_regs, _SMEM_SM // (smem + 1024))
+
+
+def _bwd_bf16_staging(plan, h, r, nplanes, K, Crec, dx):
+    """Bytes a bfloat16 K2 (``dx``) or K3 launch on ``plan`` (its 2-byte
+    plan, which :func:`_bwd_plan` gives with ``es=2``) holds each staged
+    value in: 4 (bfloat16 values in float32 shared memory, staged with
+    cp.async as the float32 kernel) where the float32 kernel's shared bytes
+    fit at the plan's tile, lap group and fold channels and keep the blocks
+    an SM holds at 2 bytes (:func:`_bwd_blocks`), else 2 (bfloat16 shared
+    elements, staged through registers).  K2 at quick_start's conv 1,
+    whose float32 bytes leave room for one block an SM where 2 bytes hold
+    two, ran 17% slower staged in float32 on an H100 (PERF.md).  The same
+    function bit for bit; chosen from the shape before the launch and
+    passed to the C entry points (``csrc/stencil_bwd.cuh::launch_bwd``
+    only checks that the bytes fit), so the route and the plan are those
+    of the 2-byte plan in every case."""
+    s2, s4 = (_bwd_smem(plan.T, h, r, nplanes, K, plan.G, plan.FC, Crec, dx,
+                        es) for es in (2, 4))
+    return (4 if s4 <= _SMEM_MAX and _bwd_blocks(plan, r, dx, s4)
+            >= _bwd_blocks(plan, r, dx, s2) else 2)
 
 
 def _bwd_plan(n, h, r, nplanes, K, B, F, Crec, Cch, dx, sms, es=4):

@@ -32,8 +32,8 @@ points of :func:`.fused_stencil._plain_terms`) and device arrays that are
 all float32 (K1-K3 in float32, or the bf16 band mode) or all bfloat16 (the
 bf16 I/O mode, ``bdt`` "bfloat16"); any other dtype raises.  The strips op
 copies float32 or bfloat16.  A bfloat16 launch counts in
-:data:`._cuda.bf16_launch_counts`, by mode (and K1's 2-byte staging apart,
-``_s2``).  The ops are registered when :mod:`deepsphere_tpu_torch.ops`
+:data:`._cuda.bf16_launch_counts`, by mode (and the 2-byte stagings of
+K1-K3 apart, ``_s2``).  The ops are registered when :mod:`deepsphere_tpu_torch.ops`
 is imported; the kernel library itself builds at the first launch, never
 at import (:mod:`._cuda`).
 """
@@ -45,6 +45,7 @@ import torch
 from ..graph.stencil import stencil_offsets
 from . import _cuda
 from .fused_stencil import (
+    _bwd_bf16_staging,
     _bwd_plan,
     _k1_bf16_staging,
     _k1_plan,
@@ -107,7 +108,7 @@ def _mode(what, io, bdt):
 
 def _count(name, mode, staged=4):
     """One launch of kernel ``name`` in precision ``mode``, holding its
-    staged values in ``staged`` bytes (K1's 2-byte variant, ``_s2``)."""
+    staged values in ``staged`` bytes (the 2-byte stagings, ``_s2``)."""
     if mode == 0:
         _cuda.launch_counts[name] += 1
     else:
@@ -117,7 +118,7 @@ def _count(name, mode, staged=4):
 
 def _aligned4(t):
     """``t``, or a copy of it where its data does not start 4-byte aligned
-    (K1's I/O mode copies whole 4-byte words of bfloat16 pairs)."""
+    (the I/O mode of K1-K3 copies whole 4-byte words of bfloat16 pairs)."""
     return t if t.data_ptr() % 4 == 0 else t.clone()
 
 
@@ -309,13 +310,17 @@ def _bwd_launch(what, n, h, r, kind, K, src, strips3, wext, oth, B, Crec,
                 Cch, dx, bdt):
     """Checks and plan shared by K2 (``dx``) and K3: the recursion over the
     B*Crec channels of ``src`` through ``strips3``, the fold over the B*Cch
-    channels of ``oth``.
+    channels of ``oth``.  A bfloat16 launch takes the 2-byte plan, in the
+    staging :func:`.fused_stencil._bwd_bf16_staging` names.
 
-    :return: (partial, dw, ints): the scratch of per-block dW sums (each
-        block writes its own column, a second launch reduces the rows in a
-        fixed order: no float atomics, so two calls give bitwise-equal dW),
-        dW, and the C entry points' ints (kind, K, radius, nplanes, B, F,
-        Crec, Cch, n, h, Rs, P, T, G, GB, FC, mode)
+    :return: (arrays, partial, dw, ints, staged): (src, top, bot, ls,
+        wext), each copied where the I/O mode's word copies need it 4-byte
+        aligned; the scratch of per-block dW sums (each block writes its own
+        column, a second launch reduces the rows in a fixed order: no float
+        atomics, so two calls give bitwise-equal dW); dW; the C entry
+        points' ints (kind, K, radius, nplanes, B, F, Crec, Cch, n, h, Rs,
+        P, T, G, GB, FC, prec: the mode, plus 2 for a 2-byte staging); the
+        mode; and the bytes a staged value takes
     """
     io = src.dtype
     mode = _mode(what, io, bdt)
@@ -340,13 +345,18 @@ def _bwd_launch(what, n, h, r, kind, K, src, strips3, wext, oth, B, Crec,
         raise ValueError(f"{what} does not take n={n} h={h} r={r} K={K} B={B}"
                          f" channels {Crec} x {Cch}: no tile fits shared "
                          "memory or the grid")
+    staged = (_bwd_bf16_staging(p, h, r, nplanes, K, Crec, dx) if mode
+              else 4)
+    arrays = (src, top, bot, ls, wext)
+    if mode == 2 and staged == 4:
+        arrays = tuple(map(_aligned4, arrays))
     ncol = -(-B // p.GB) * F * (n // p.T) ** 2
     partial = torch.empty((K * Crec * Cch, ncol), dtype=torch.float32,
                           device=dev)
     dw = torch.empty((K * Crec * Cch,), dtype=torch.float32, device=dev)
     ints = (code, K, r, nplanes, B, F, Crec, Cch, n, h, R, P_l, p.T, p.G,
-            p.GB, p.FC, mode)
-    return partial, dw, ints
+            p.GB, p.FC, mode + (2 if staged == 2 else 0))
+    return arrays, partial, dw, ints, mode, staged
 
 
 @torch.library.custom_op(f"{_NS}::stencil_dxdw", mutates_args=(),
@@ -363,9 +373,9 @@ def stencil_dxdw(dy: torch.Tensor, top: torch.Tensor, bot: torch.Tensor,
     K, Fc, Fx = wk3t.shape
     F = dy.shape[1]
     dev = dy.device
-    partial, dw, ints = _bwd_launch("dxdw kernel", n, h, r, kind, K, dy,
-                                    (top, bot, ls), wext, xr, B, Fc, Fx, True,
-                                    bdt)
+    arrays, partial, dw, ints, mode, staged = _bwd_launch(
+        "dxdw kernel", n, h, r, kind, K, dy, (top, bot, ls), wext, xr, B, Fc,
+        Fx, True, bdt)
     want = {"wk3t": (wk3t, (K, Fc, Fx))}
     if mask is not None:
         want["mask"] = (mask, (F, n, P_l))
@@ -373,13 +383,12 @@ def stencil_dxdw(dy: torch.Tensor, top: torch.Tensor, bot: torch.Tensor,
     dx = torch.empty((B * Fx, F, n, P_l), dtype=dy.dtype, device=dev)
     with torch.cuda.device(dev):
         rc = _cuda.lib().ds_stencil_dxdw(
-            dy.data_ptr(), top.data_ptr(), bot.data_ptr(), ls.data_ptr(),
-            wext.data_ptr(), wk3t.data_ptr(), xr.data_ptr(),
+            *(t.data_ptr() for t in arrays), wk3t.data_ptr(), xr.data_ptr(),
             0 if mask is None else mask.data_ptr(), dx.data_ptr(),
             partial.data_ptr(), dw.data_ptr(), *ints, _stream(),
         )
     _cuda.check(rc, "ds_stencil_dxdw")
-    _count("dxdw", ints[-1])
+    _count("dxdw", mode, staged)
     return dx, dw.reshape(K * Fx, Fc)
 
 
@@ -414,17 +423,17 @@ def stencil_grad(xc: torch.Tensor, top: torch.Tensor, bot: torch.Tensor,
     (K*Fin, Fout), float32, of the two-kernel backward
     (:func:`.fused_stencil.run_grad_kernel`)."""
     Fin, Fout = xc.shape[0] // B, dy.shape[0] // B
-    partial, dw, ints = _bwd_launch("grad kernel", n, h, r, kind, K, xc,
-                                    (top, bot, ls), wext, dy, B, Fin, Fout,
-                                    False, bdt)
+    arrays, partial, dw, ints, mode, staged = _bwd_launch(
+        "grad kernel", n, h, r, kind, K, xc, (top, bot, ls), wext, dy, B, Fin,
+        Fout, False, bdt)
     with torch.cuda.device(xc.device):
         rc = _cuda.lib().ds_stencil_grad(
-            xc.data_ptr(), top.data_ptr(), bot.data_ptr(), ls.data_ptr(),
-            wext.data_ptr(), dy.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+            *(t.data_ptr() for t in arrays), dy.data_ptr(), partial.data_ptr(),
+            dw.data_ptr(),
             *ints, _stream(),
         )
     _cuda.check(rc, "ds_stencil_grad")
-    _count("grad", ints[-1])
+    _count("grad", mode, staged)
     return dw.reshape(K * Fin, Fout)
 
 

@@ -422,20 +422,26 @@ def test_bf16_kernels_match_plain(rng, dev, n, k, kind, scale, K, B, Fin,
     bfloat16 versions on identical CUDA inputs, to 1e-2 of the plain max
     (1e-3 for a dW), and apart from the float32 kernels on the same
     values; outputs in the arrays' dtype, pad lanes zero, dW float32 and
-    bitwise-equal across two calls; each launch counted as the mode's (K1
-    in 2-byte shared elements apart, where its plan's float32 bytes do not
-    fit: radius 3 and 4 at K=5)."""
+    bitwise-equal across two calls; each launch counted as the mode's (K1,
+    K2 and K3 in 2-byte shared elements apart where their staging rules
+    take them: radius 3 and 4 at K=5, and for K2 and K3 also where float32
+    bytes would cost a block an SM)."""
     st, h, w, mask, x, sx, dy, sdy, f32 = _bf16_case(
         rng, dev, n, k, scale, K, B, Fin, Fout, F, io)
     kern = torch.from_numpy(
         rng.normal(size=(Fin * K, Fout)).astype(np.float32)).to(dev)
     sfx = "_bf16_io" if io else "_bf16"
     r, nplanes = st.radius, len(st.offsets)
-    plan = fs._k1_plan(n, h, r, nplanes, K, B, F, Fin, Fout,
-                       torch.cuda.get_device_properties(dev)
-                       .multi_processor_count, 2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = fs._k1_plan(n, h, r, nplanes, K, B, F, Fin, Fout, sms, 2)
     two = fs._k1_bf16_staging(plan, h, r, nplanes, K) == 2
     assert two == (r >= 3 and K == 5)
+    # K2 recurs over Fout and folds Fin, K3 the other way (their stagings
+    # at these shapes: tests/test_torch_kernels.py pins the rule)
+    two_bwd = [fs._bwd_bf16_staging(
+        fs._bwd_plan(n, h, r, nplanes, K, B, F, Crec, Cch, dx_, sms, 2), h, r,
+        nplanes, K, Crec, dx_) == 2
+        for Crec, Cch, dx_ in ((Fout, Fin, True), (Fin, Fout, False))]
     a1 = (st, kind, K, x, w, sx, fs._wk3(kern, K), B, "bfloat16")
     y, y_p = fs.run_stencil_kernel(*a1), fs.run_stencil_plain(*a1)
     a2 = (st, kind, K, dy, w, sdy, fs._wk3t(kern, K), x, mask, B, "bfloat16")
@@ -447,8 +453,9 @@ def test_bf16_kernels_match_plain(rng, dev, n, k, kind, scale, K, B, Fin,
     torch.cuda.synchronize()
     assert _cuda.bf16_launch_counts == {
         **{key: 0 for key in _cuda.bf16_launch_counts},
-        "stencil_conv" + sfx + ("_s2" if two else ""): 1, "dxdw" + sfx: 2,
-        "grad" + sfx: 2}
+        "stencil_conv" + sfx + ("_s2" if two else ""): 1,
+        "dxdw" + sfx + ("_s2" if two_bwd[0] else ""): 2,
+        "grad" + sfx + ("_s2" if two_bwd[1] else ""): 2}
     assert all(v == 0 for v in _cuda.launch_counts.values())
     for got, plain in ((y, y_p), (dx, dx_p)):
         assert got.dtype == x.dtype == plain.dtype
@@ -500,6 +507,46 @@ def test_bf16_io_conv_kernel_takes_unaligned_inputs(rng, dev):
             assert torch.equal(y.view(torch.int16), yu.view(torch.int16))
     torch.cuda.synchronize()
     assert _cuda.bf16_launch_counts["stencil_conv_bf16_io"] == 6
+
+
+def test_bf16_io_bwd_kernels_take_unaligned_inputs(rng, dev):
+    """K2's and K3's I/O mode copy whole 4-byte words of their recursion
+    input, its strips and the weight planes, 16 bytes where they are
+    16-byte aligned: a recursion input that starts 4 bytes past a 16-byte
+    boundary takes the word copies, one that starts 2 bytes past it a
+    4-byte-aligned copy of itself; all three give the same dx and dW bits,
+    at h = 9 (odd, words that straddle two arrays) and h = 4."""
+    for n, K in ((16, 10), (32, 5)):
+        st = _stencil(n, 0.75, K - 1)
+        h = st.n_steps
+        tables = as_tensors(stencil_tables(st, bf16_io=True), dev)
+        w, mask = tables["weights_bf16"], tables.get("corr_mask")
+        x = _xc(rng, dev, n, h, 2 * 3).to(torch.bfloat16)
+        dy = _xc(rng, dev, n, h, 2 * 4).to(torch.bfloat16)
+        wk3t = torch.from_numpy(
+            rng.normal(size=(K, 4, 3)).astype(np.float32)).to(dev)
+        k2 = lambda d: fs.run_dxdw_kernel(st, "cheby", K, d,
+                                          w, tstrips.strip_arrays(st, d),
+                                          wk3t, x, mask, 2, "bfloat16")
+        k3 = lambda a: fs.run_grad_kernel(st, "cheby", K, a, w,
+                                          tstrips.strip_arrays(st, a), dy, 2,
+                                          "bfloat16")
+        dx, dw = k2(dy)
+        g = k3(x)
+        for skip in (2, 1):
+            moved = []
+            for a in (dy, x):
+                buf = torch.empty(a.numel() + skip, dtype=a.dtype, device=dev)
+                moved.append(buf[skip:].view(a.shape).copy_(a))
+                assert moved[-1].is_contiguous()
+                assert moved[-1].data_ptr() % 16 == 2 * skip
+            dxu, dwu = k2(moved[0])
+            assert torch.equal(dx.view(torch.int16), dxu.view(torch.int16))
+            assert torch.equal(dw, dwu)
+            assert torch.equal(g, k3(moved[1]))
+    torch.cuda.synchronize()
+    assert _cuda.bf16_launch_counts["dxdw_bf16_io"] == 6
+    assert _cuda.bf16_launch_counts["grad_bf16_io"] == 6
 
 
 def test_bf16_strips_are_the_plain_strips(rng, dev):

@@ -354,6 +354,73 @@ def test_bf16_k1_staging_keeps_the_route_and_plan(label, n, h, r, K, B, Fin,
         assert p4 is None or p4[:4] != p2[:4]
 
 
+# the bf16 K2's and K3's 2-byte plans (T, G, FC) at _BF16_PLANS's shapes,
+# and the bytes they stage each value in: K2 recurs over Fout and folds
+# Fin, K3 the other way.  2 where the float32 bytes do not fit the plan
+# (radius 2 at h = 8, radius 3 at h = 12, radius 4 at h = 16), or fit one
+# block an SM where 2 bytes fit the two its registers allow (K2 at
+# quick_start's conv 1, K3 in the dx roles of convs 1 and 2)
+_BF16_BWD_PLANS = {
+    "quick_start conv 1": {"K2": (32, 4, 4, 2), "K3": (32, 1, 8, 4)},
+    "quick_start conv 2": {"K2": (32, 4, 8, 4), "K3": (16, 4, 16, 4)},
+    "quick_start conv 3": {"K2": (16, 4, 16, 4), "K3": (16, 4, 32, 4)},
+    "dx role of conv 1": {"K2": (32, 1, 8, 4), "K3": (32, 4, 4, 2)},
+    "dx role of conv 2": {"K2": (16, 4, 16, 4), "K3": (32, 4, 8, 2)},
+    "dx role of conv 3": {"K2": (16, 4, 32, 4), "K3": (16, 4, 16, 4)},
+    "headline": {"K2": (32, 4, 4, 4), "K3": (32, 4, 4, 4)},
+    "radius 2, h=8": {"K2": (32, 2, 4, 2), "K3": (32, 2, 4, 2)},
+    "radius 3, h=12": {"K2": (16, 1, 4, 2), "K3": (16, 1, 4, 2)},
+    "radius 4, h=16": {"K2": (8, 1, 4, 2), "K3": (8, 1, 4, 2)},
+    "radius 3 lap, h=3": {"K2": (16, 1, 4, 4), "K3": (16, 1, 4, 4)},
+    "radius 4 lap, h=4": {"K2": (16, 1, 4, 4), "K3": (16, 1, 4, 4)},
+}
+
+
+@pytest.mark.parametrize("role", ["K2", "K3"])
+@pytest.mark.parametrize("label,n,h,r,K,B,Fin,Fout,route,TG,staged",
+                         _BF16_PLANS, ids=[c[0] for c in _BF16_PLANS])
+def test_bf16_bwd_staging_keeps_the_route_and_plan(label, n, h, r, K, B, Fin,
+                                                   Fout, route, TG, staged,
+                                                   role):
+    """The bfloat16 K2 and K3 launch on their 2-byte plans, as K1 does,
+    and hold their values in 4 bytes exactly where the float32 kernel's
+    shared bytes fit that plan's tile, lap group and fold channels and
+    keep the blocks an SM holds at 2 bytes, else in 2: the plan and the
+    route do not change with the staging.  Plans only: no graph, no
+    launch."""
+    nplanes = (2 * r + 1) ** 2
+    dx = role == "K2"
+    Crec, Cch = (Fout, Fin) if dx else (Fin, Fout)
+    p2 = tfs._bwd_plan(n, h, r, nplanes, K, B, 12, Crec, Cch, dx, _H100_SMS,
+                       2)
+    p4 = tfs._bwd_plan(n, h, r, nplanes, K, B, 12, Crec, Cch, dx, _H100_SMS,
+                       4)
+    T, G, FC, bwd_staged = _BF16_BWD_PLANS[label][role]
+    assert (p2.T, p2.G, p2.FC) == (T, G, FC)
+    assert tfs._bwd_bf16_staging(p2, h, r, nplanes, K, Crec, dx) == bwd_staged
+    s2, s4 = (tfs._bwd_smem(T, h, r, nplanes, K, G, FC, Crec, dx, es)
+              for es in (2, 4))
+    assert p2.smem == s2
+    fits = s4 <= tfs._SMEM_MAX
+    keeps = tfs._bwd_blocks(p2, r, dx, s4) >= tfs._bwd_blocks(p2, r, dx, s2)
+    assert (bwd_staged == 4) == (fits and keeps)
+    # where the float32 bytes fit, the 4-byte plan is the 2-byte one; else
+    # it is another one or none
+    if fits:
+        assert p4[:4] == p2[:4] and p4.grid == p2.grid
+    else:
+        assert p4 is None or p4[:4] != p2[:4]
+    bf16_route = route[0] if isinstance(route, tuple) else route
+    try:
+        for mode in ("bfloat16", "bfloat16_io"):
+            config.set_conv_dtype(mode)
+            assert tfs._cface_route(n, h, r, nplanes, K, B, Fin, Fout,
+                                    _H100_SMS, True, tfs.staged_bytes()) \
+                == bf16_route, label
+    finally:
+        config.set_conv_dtype("float32")
+
+
 @pytest.mark.parametrize("k,r", [(8, 1), (20, 2)])
 def test_stencil_offsets_are_the_kernels_taps(k, r):
     """K1 compiles its taps in the order of ``stencil_offsets``: radius 1 in
