@@ -28,15 +28,16 @@ Phases, one result line each (with the elapsed seconds):
    weights from a seed, answers 4 requests of 16 maps through
    ``model.predict`` on the card; each of the three cface convs must launch
    K4 and K1 once per forward (the fused route: the per-step route's count
-   stays 0), and the logits must match the same model on the CPU (plain
-   path, one request) to max rel 1e-4;
+   stays 0), and the logits must match the same model on the CPU (a float64
+   copy planned in NEST, one request) to max rel 1e-4;
 5. training: the same classifier (weights from another seed), batch 16:
    one ``train_on_batch`` on each backward route (``config.fused_dw`` True:
    K2; False: K1 on dy + K3), with the launches of each step counted; the
    loss (1e-5), every gradient (1e-3) and the BN statistics (1e-5) held to
-   one float64 step of a CPU copy (batch norm makes the conv kernels'
-   gradients a cancellation that a float32 CPU step resolves only to
-   ~2e-3, so the card is not held to one); ``fit`` for 2 epochs
+   one float64 step of a CPU copy planned in NEST (its convs per step;
+   batch norm makes the conv kernels' gradients a cancellation that a
+   float32 CPU step resolves only to ~2e-3, so the card is not held to
+   one); ``fit`` for 2 epochs
    over 64 maps (every loss finite); ms per synchronized step on both
    routes (median of 10, the routes alternating, after warm-up); a
    ``torch.profiler`` window over 3 steps (device ops, device-busy share,
@@ -200,19 +201,25 @@ the CPU, and imports no JAX.
 
 Five other modes measure only:
 
-    python3 chip_smoke.py --kernel-times ROOT
-    python3 chip_smoke.py --compare PARENT [OUT.json]
+    python3 chip_smoke.py --kernel-times ROOT [--s2]
+    python3 chip_smoke.py --compare PARENT [OUT.json] [--s2]
     python3 chip_smoke.py --memory [OUT.json]
     python3 chip_smoke.py --sass PARENT [OUT.json]
-    python3 chip_smoke.py --ab KERNEL [EDITS.json ...]
+    python3 chip_smoke.py --ab KERNEL [EDITS.json ...] [--parent DIR] [--s2]
 
 and ``--replay ARTIFACT X.npy OUT_DIR B...`` is phase 13's serving
 process.
 
 ``--kernel-times`` times K1-K5 and the ``index_select`` of K4's and K5's
 maps at the four phase-3 shapes, K1, K2 and K3 in each bfloat16 mode (with
-a digest of each output's bits), and the quick_start train step on both
-backward routes (as phase 5 does), with the package of the checkout ROOT;
+a digest of each output's bits), K1 at the five shapes of its 2-byte
+bfloat16 body (``S2_SHAPES``: phase 15(d)'s radius-3 conv, radius 4 at h =
+16, radius 2 at h = 8, radius 1 at h = 13, on random arrays) in each mode
+with digests, beside the float32 K1 where it has a plan and the bounds,
+phase 15(d)'s radius-3 conv (forward and train step on each route, float32
+and each bfloat16 mode, device time and host clock), and the quick_start
+train step on both backward routes (as phase 5 does), with the package of
+the checkout ROOT (``--s2``: only the 2-byte shapes and the radius-3 conv);
 ``--compare`` runs it for the checkout PARENT (another commit, e.g.
 unpacked with ``git archive``) and this one in turns, parent, this, this,
 parent, and also writes the pairs to OUT.json.  ``--memory`` records the
@@ -234,8 +241,12 @@ file), checks that each build's bfloat16 outputs (K2's dx and dW, K3's dW)
 equal the 2-byte kernels' bit for bit in both modes at ten shapes (odd and
 even h, radius 1-4, both stagings), and times the float32 kernel and every
 build's bfloat16 kernel in each mode at the four phase-3 shapes (K2 and K3
-each in its role), in turns, on random inputs; writes
-``chiprun_out/ab_KERNEL.json``.
+each in its role; K1 also at ``S2_SHAPES``, where its bfloat16 launches
+take the 2-byte body), in turns, on random inputs; with ``--parent DIR``
+the same kernels' sources of the checkout DIR (another commit, e.g.
+unpacked with ``git archive``) are built as they are and checked and timed
+beside them (variant ``parent``), and ``--s2`` times at ``S2_SHAPES``
+only; writes ``chiprun_out/ab_KERNEL.json``.
 """
 
 import atexit
@@ -587,6 +598,116 @@ def route_steps(dt, config, hp_nn):
 # and the headline conv
 KERNEL_SHAPES = [(64, 1, 8, 16, 10), (32, 8, 16, 16, 10), (16, 16, 32, 16, 10),
                  (1024, 4, 4, 4, 5)]
+# (n, h, r, K, B, Fin, Fout) where the bfloat16 K1 takes its 2-byte body
+# (the float32 bytes do not fit the 2-byte plan): phase 15(d)'s radius-3
+# conv, and radius 4 at h = 16, radius 2 at h = 8 and radius 1 at h = 13
+# (G = 4) at its widths, and radius 1 at h = 13 at nside 64 (few tiles)
+S2_SHAPES = [(256, 12, 3, 5, 4, 4, 4), (256, 16, 4, 5, 4, 4, 4),
+             (256, 8, 2, 5, 4, 4, 4), (256, 13, 1, 14, 4, 4, 4),
+             (64, 13, 1, 14, 4, 4, 4)]
+
+
+def r3_conv_times(fs, config, dev, rng, cache):
+    """Phase 15(d)'s radius-3 conv (the k=40 graph at nside 256, K=5, 4 ->
+    4, batch 4, the cface layout) in float32 and each bfloat16 mode: of a
+    forward and of a train step (forward and ``autograd.grad`` with a fixed
+    cotangent) on each backward route, after warm-up, the device time of
+    one call (``*_ms``: the kernels' time, from ``torch.profiler`` over 20
+    calls, so that the host's pace does not enter) and its time on the
+    host's clock (``*_wall_ms``: CUDA events around 20 calls)."""
+    from deepsphere_tpu_torch.graph import build_sphere_graph
+    from deepsphere_tpu_torch.ops.stencil import as_tensors, stencil_tables
+
+    n, k40, K = K40_GRAPH
+    B, Fin, Fout = 4, 4, 4
+    st = build_sphere_graph(n, k=k40, method="grid",
+                            cache_dir=cache).deep_stencil(0.75, K)
+    tables = as_tensors(stencil_tables(st, bf16_io=True), dev)
+    P = fs.cfp_geometry(n, st.n_steps)[1]
+    g = lambda *shape: torch.from_numpy(
+        rng.normal(size=shape).astype(np.float32)).to(dev)
+    x, cot = g(B * Fin, 12, n, P), g(B * Fout, 12, n, P)
+    kernel = g(Fin * K, Fout) / np.sqrt(Fin * K)
+    xl, kl = x.clone().requires_grad_(), kernel.clone().requires_grad_()
+
+    def fwd():
+        with torch.no_grad():
+            return fs.fused_stencil_conv_cfp(st, tables, x, kernel, K,
+                                             "cheby", B)
+
+    def step():
+        y = fs.fused_stencil_conv_cfp(st, tables, xl, kl, K, "cheby", B)
+        return torch.autograd.grad(y, (xl, kl), cot.to(y.dtype))
+
+    def times(rec, name, fn):
+        rec[name + "_wall_ms"] = cuda_ms(fn, iters=20, warmup=3)
+        rec[name + "_ms"] = device_profile(lambda i: fn(), 20)[1]
+
+    out = {}
+    try:
+        for mode in ("float32",) + BF_MODES:
+            config.set_conv_dtype(mode)
+            rec = {}
+            times(rec, "forward", fwd)
+            for fused_dw, route in ROUTES:
+                config.set_fused_dw(fused_dw)
+                times(rec, route, step)
+            config.set_fused_dw(True)
+            out[mode] = rec
+    finally:
+        config.set_fused_dw(True)
+        config.set_conv_dtype("float32")
+    return out
+
+
+def s2_times(fs, dev, rng):
+    """K1 at :data:`S2_SHAPES` on random arrays (no graph): in each
+    bfloat16 mode its 2-byte body's device time (graph replay) and a digest
+    of its output's bits, the float32 K1 where it has a plan, and the
+    bound of each."""
+    from types import SimpleNamespace
+
+    from deepsphere_tpu_torch.graph.stencil import stencil_offsets
+    from deepsphere_tpu_torch.ops.strips import strip_arrays
+
+    recs = []
+    for n, h, r, K, B, Fin, Fout in S2_SHAPES:
+        st = SimpleNamespace(nside=n, n_steps=h, radius=r,
+                             offsets=stencil_offsets(r))
+        npl = (2 * r + 1) ** 2
+        P = fs.cfp_geometry(n, h)[1]
+        g = lambda *shape: torch.from_numpy(
+            rng.normal(size=shape).astype(np.float32)).to(dev)
+        xc = g(B * Fin, 12, n, P)
+        w32 = g(npl, 12, n + 2 * fs.strip_rows(h, torch.float32), P)
+        w16 = fs.reextend_weights(w32, n, fs.strip_rows(h, torch.float32),
+                                  fs.strip_rows(h, torch.bfloat16))
+        wk3 = g(K, Fin, Fout)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        rec = {"shape": f"n={n} h={h} r={r} K={K} B={B} Fin={Fin} "
+                        f"Fout={Fout}"}
+        if fs._k1_plan(n, h, r, npl, K, B, 12, Fin, Fout, sms) is not None:
+            a = (st, "cheby", K, xc, w32, strip_arrays(st, xc), wk3, B)
+            rec["k1_f32_ms"] = graph_ms(lambda: fs.run_stencil_kernel(*a))
+        else:
+            rec["k1_f32_ms"] = None
+        # float32 arrays (float32 and the band mode), bfloat16 ones (I/O)
+        rec["bound_ms"] = {"f32": k1_bound(st, K, B, Fin, Fout),
+                           "io": k1_bound(st, K, B, Fin, Fout, es=2)}
+        for sfx, (xb, wb) in (("_bf16", (xc, w32)),
+                              ("_bf16_io", (xc.to(torch.bfloat16),
+                                            w16.to(torch.bfloat16)))):
+            a = (st, "cheby", K, xb, wb, strip_arrays(st, xb), wk3, B,
+                 "bfloat16")
+            rec["k1" + sfx + "_digest"] = hashlib.sha256(
+                fs.run_stencil_kernel(*a).view(torch.int16).cpu().numpy()
+                .tobytes()).hexdigest()[:16]
+            rec["k1" + sfx + "_ms"] = graph_ms(
+                lambda: fs.run_stencil_kernel(*a))
+        recs.append(rec)
+        print(json.dumps(rec), file=sys.stderr, flush=True)
+        torch.cuda.empty_cache()
+    return recs
 
 
 def band_map(C, F, n, h, P, dev):
@@ -600,7 +721,7 @@ def band_map(C, F, n, h, P, dev):
     return (((c * F + f) * n + rows) * P + cols).reshape(-1)
 
 
-def kernel_times(root):
+def kernel_times(root, s2_only=False):
     """``--kernel-times ROOT``: device times (graph replay) of K1-K5 and of
     the ``index_select`` of K4's and K5's maps at the four phase-3 shapes
     (K5 on the B*Fin channels of the conv's input, 12 faces), of K1 as
@@ -610,8 +731,9 @@ def kernel_times(root):
     with a digest of each bfloat16 output's bytes (K2: dx and dW), and the
     quick_start train step
     on both routes (:func:`route_steps`), with the package imported from the
-    checkout ``ROOT`` (this one or another commit's).  Prints one JSON
-    line."""
+    checkout ``ROOT`` (this one or another commit's); with ``s2_only``
+    (``--s2``) only K1 at :data:`S2_SHAPES` and the radius-3 conv.  Prints
+    one JSON line."""
     import inspect
 
     sys.path.insert(0, os.path.abspath(root))
@@ -638,7 +760,7 @@ def kernel_times(root):
            "card": card_line(), "shapes": []}
     # a checkout whose kernels still read device tap offsets takes them
     takes = lambda fn: "offsets" in inspect.signature(fn).parameters
-    for n, Fin, Fout, B, K in KERNEL_SHAPES:
+    for n, Fin, Fout, B, K in [] if s2_only else KERNEL_SHAPES:
         st = build_sphere_graph(n, k=8, method="grid",
                                 cache_dir=cache).deep_stencil(0.75, K)
         h = st.n_steps
@@ -711,8 +833,12 @@ def kernel_times(root):
         del xc, dy, xz, sel, strips, tables, a1t, a2, a3, args, bflat, bidx
         del x16, dy16, w16
         torch.cuda.empty_cache()
-    out["train_step"] = route_steps(dt, config, hp_nn)
-    print(json.dumps(out["train_step"]), file=sys.stderr, flush=True)
+    out["s2_shapes"] = s2_times(fs, dev, rng)
+    out["r3_conv"] = r3_conv_times(fs, config, dev, rng, cache)
+    print(json.dumps(out["r3_conv"]), file=sys.stderr, flush=True)
+    if not s2_only:
+        out["train_step"] = route_steps(dt, config, hp_nn)
+        print(json.dumps(out["train_step"]), file=sys.stderr, flush=True)
     print(json.dumps(out), flush=True)
 
 
@@ -831,17 +957,18 @@ def memory_report(out_path=None):
         "fused_dw", "remat", "peak_step1", "peak_step2")} for r in rows]}))
 
 
-def compare(parent, out_path=None):
-    """``--compare PARENT [OUT.json]``: :func:`kernel_times` of the checkout
-    PARENT and of this one in turns (parent, this, this, parent), each in
-    its own process, and whether each bfloat16 kernel's outputs (K1's y,
-    K2's dx and dW, K3's dW) are bit for bit the same in all four runs.  Prints the pairs and writes them to
-    ``out_path`` if given."""
+def compare(parent, out_path=None, s2_only=False):
+    """``--compare PARENT [OUT.json] [--s2]``: :func:`kernel_times` of the
+    checkout PARENT and of this one in turns (parent, this, this, parent),
+    each in its own process, and whether each bfloat16 kernel's outputs
+    (K1's y, K2's dx and dW, K3's dW) are bit for bit the same in all four
+    runs; with ``--s2`` only K1 at :data:`S2_SHAPES` and the radius-3 conv.
+    Prints the pairs and writes them to ``out_path`` if given."""
     here = os.path.dirname(os.path.abspath(__file__))
     runs = []
     for root in (parent, here, here, parent):
         cmd = [sys.executable, os.path.abspath(__file__), "--kernel-times",
-               root]
+               root] + (["--s2"] if s2_only else [])
         t = time.perf_counter()
         res = subprocess.run(cmd, capture_output=True, text=True,
                              timeout=1800)
@@ -855,7 +982,7 @@ def compare(parent, out_path=None):
                 f"{kn}{sfx}_ms" for kn in ("k1", "k2", "k3")
                 for sfx in ("_bf16", "_bf16_io"))
     pairs = []
-    for j, shape in enumerate(KERNEL_SHAPES):
+    for j, shape in enumerate([] if s2_only else KERNEL_SHAPES):
         row = {"shape": runs[0]["shapes"][j]["shape"]}
         for k in keys:
             row[k] = {"parent": [runs[0]["shapes"][j][k], runs[3]["shapes"][j][k]],
@@ -867,18 +994,39 @@ def compare(parent, out_path=None):
                 row[kn + sfx + "_bit_equal"] = len(digests) == 1
         pairs.append(row)
         say("compare", json.dumps(row))
+    s2 = []
+    for j, _ in enumerate(S2_SHAPES):
+        recs = [run["s2_shapes"][j] for run in runs]
+        row = {"shape": recs[0]["shape"], "bound_ms": recs[0]["bound_ms"]}
+        for k in ("k1_f32_ms", "k1_bf16_ms", "k1_bf16_io_ms"):
+            row[k] = {"parent": [recs[0][k], recs[3][k]],
+                      "change": [recs[1][k], recs[2][k]]}
+        for sfx in ("_bf16", "_bf16_io"):
+            row["k1" + sfx + "_bit_equal"] = len(
+                {rec["k1" + sfx + "_digest"] for rec in recs}) == 1
+        s2.append(row)
+        say("compare", json.dumps(row))
+    conv = {mode: {k: {"parent": [runs[0]["r3_conv"][mode][k],
+                                  runs[3]["r3_conv"][mode][k]],
+                       "change": [runs[1]["r3_conv"][mode][k],
+                                  runs[2]["r3_conv"][mode][k]]}
+                   for k in runs[0]["r3_conv"][mode]}
+            for mode in runs[0]["r3_conv"]}
+    say("compare", "radius-3 conv, ms: " + json.dumps(conv))
     steps = {}
-    for _, route in ROUTES:
+    for _, route in [] if s2_only else ROUTES:
         steps[route] = {
             k: {"parent": [runs[0]["train_step"][route][k],
                            runs[3]["train_step"][route][k]],
                 "change": [runs[1]["train_step"][route][k],
                            runs[2]["train_step"][route][k]]}
             for k in ("ms", "busy_ms", "device_ops", "steps_ms", "host_top")}
-    say("compare", "quick_start train step, ms: " + json.dumps(
-        {r: v["ms"] for r, v in steps.items()}))
+    if steps:
+        say("compare", "quick_start train step, ms: " + json.dumps(
+            {r: v["ms"] for r, v in steps.items()}))
     summary = {"card": runs[0]["card"], "order": "parent, change, change, parent",
-               "shapes": pairs, "train_step": steps}
+               "shapes": pairs, "s2_shapes": s2, "r3_conv": conv,
+               "train_step": steps}
     if out_path:
         os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
         with open(out_path, "w") as fh:
@@ -908,10 +1056,14 @@ AB_KERNELS = {
 }
 
 
-def ab(kernel, edit_files):
-    """``--ab KERNEL [EDITS.json ...]``: the bfloat16 stagings of K1
-    (``k1``) or of K2 and K3 (``bwd``) against their 2-byte kernels, bit
-    for bit and in turns (module docstring)."""
+def ab(kernel, edit_files, parent=None, s2_only=False):
+    """``--ab KERNEL [EDITS.json ...] [--parent DIR] [--s2]``: the
+    bfloat16 stagings of K1 (``k1``) or of K2 and K3 (``bwd``) against
+    their 2-byte kernels, bit for bit and in turns (module docstring).  A
+    variant recompiles the bfloat16 sources and the C entries, so its edits
+    may change either staging.  ``--parent DIR`` adds the same kernels'
+    sources of the checkout DIR (another commit) as they are, variant
+    ``parent``; ``--s2`` times only at :data:`S2_SHAPES`."""
     import ctypes
     import glob
     import shutil
@@ -932,7 +1084,7 @@ def ab(kernel, edit_files):
     csrc = os.path.join(here, "deepsphere_tpu_torch", "csrc")
     srcs = sorted({os.path.basename(f) for g in globs
                    for f in glob.glob(os.path.join(csrc, g))})
-    bf32 = [f for f in srcs if "_bf16" in f and "_s2" not in f]
+    bf16 = [f for f in srcs if "_bf16" in f]
     work = tempfile.mkdtemp(prefix=f"ds_ab_{kernel}_")
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
                         "nvcc")
@@ -948,14 +1100,29 @@ def ab(kernel, edit_files):
         open(os.path.join(d, fn), "w").write(text)
         return d
 
-    # each variant recompiles only the files its edits can change
+    # each variant recompiles only the files its edits can change;
+    # the parent's tree builds its own sources
     trees = {"this": (tree("this", header, []), srcs)}
+    psrcs = []
+    if parent:
+        d = os.path.join(work, "parent")
+        shutil.copytree(os.path.join(os.path.abspath(parent),
+                                     "deepsphere_tpu_torch", "csrc"), d)
+        psrcs = sorted({os.path.basename(f) for g in globs
+                        for f in glob.glob(os.path.join(d, g))})
+        trees["parent"] = (d, psrcs)
     if force:
         trees["s2"] = (tree("s2", force[0], [force[1:]]), list(entries))
+    # an edit inside K1's 2-byte body changes only its sources
+    hdr = open(os.path.join(csrc, header)).read()
+    s2_at = hdr.find("// The 2-byte body of the bfloat16 K1")
     for path in edit_files:
         name = os.path.splitext(os.path.basename(path))[0]
-        trees[name] = (tree(name, header, json.load(open(path))),
-                       sorted(set(bf32) | set(entries)))
+        edits = json.load(open(path))
+        own = bf16
+        if s2_at >= 0 and all(hdr.find(old) > s2_at for old, _ in edits):
+            own = [f for f in bf16 if "_s2" in f]
+        trees[name] = (tree(name, header, edits), sorted(set(own) | set(entries)))
     try:
         t = time.perf_counter()
         procs = [(name, d, f, subprocess.Popen(
@@ -963,16 +1130,18 @@ def ab(kernel, edit_files):
              os.path.join(d, f + ".o"), os.path.join(d, f)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
             for name, (d, own) in trees.items() for f in own]
+        ptxas = []
         for name, d, f, proc in procs:
             out = proc.communicate(timeout=900)[0]
             if proc.returncode:
                 raise SystemExit(f"--ab {name}: nvcc {f} failed:\n{out}")
+            ptxas.append(f"== {name} {f}\n{out}")
         libs = {}
         vp, ci = ctypes.c_void_p, ctypes.c_int
         for name, (d, own) in trees.items():
             so = os.path.join(d, f"{kernel}.so")
             objs = [os.path.join(d if f in own else trees["this"][0], f + ".o")
-                    for f in srcs]
+                    for f in (psrcs if name == "parent" else srcs)]
             subprocess.run([nvcc, *_cuda._FLAGS, "-shared", "-o", so, *objs],
                            check=True, capture_output=True, timeout=600)
             lib = ctypes.CDLL(so)
@@ -1101,14 +1270,22 @@ def ab(kernel, edit_files):
         say("ab", "bit for bit against the 2-byte kernels: " + "; ".join(
             f"{b['shape']} {b['role']} {'I/O' if b['io'] else 'band'} staged "
             f"{b['staged']} {b['equal']}" for b in out["bits"]))
-        for n, Fin, Fout, B, K in KERNEL_SHAPES:
-            h, r = (K - 1), 1
-            shape = (n, h, r, K, B, Fin, Fout)
+        # the phase-3 shapes, and for K1 the shapes of its 2-byte body
+        shapes = [(n, K - 1, 1, K, B, Fin, Fout)
+                  for n, Fin, Fout, B, K in ([] if s2_only else KERNEL_SHAPES)]
+        if kernel == "k1":
+            shapes += S2_SHAPES
+        for shape in shapes:
+            n, h, r, K, B, Fin, Fout = shape
             for role in roles:
-                row = {"shape": f"nside={n} B={B} Fin={Fin} Fout={Fout} K={K}",
-                       "role": role}
+                row = {"shape": f"nside={n} h={h} r={r} B={B} Fin={Fin} "
+                                f"Fout={Fout} K={K}", "role": role}
                 c32 = case(*shape, False, role)
-                row["f32"] = graph_ms(launcher(libs["this"], c32, 0, role)[0])
+                # the float32 kernel where it has a plan
+                row["f32"] = (None if fs._k1_plan(
+                    n, h, r, (2 * r + 1) ** 2, K, B, 12, Fin, Fout, sms)
+                    is None and role == "K1" else
+                    graph_ms(launcher(libs["this"], c32, 0, role)[0]))
                 for io in (False, True):
                     c = case(*shape, True, role) if io else c32
                     fns = {k: launcher(lib, c, 2 if io else 1, role, two)[0]
@@ -1127,6 +1304,9 @@ def ab(kernel, edit_files):
         with open(os.path.join(here, "chiprun_out", f"ab_{kernel}.json"),
                   "w") as fh:
             json.dump(out, fh, indent=1)
+        with open(os.path.join(here, "chiprun_out",
+                               f"ab_{kernel}_ptxas.log"), "w") as fh:
+            fh.write("".join(ptxas))
         bad = [b for b in out["bits"] if not all(b["equal"].values())]
         print(json.dumps({"ab": kernel, "times": out["times"],
                           "bits_differ": bad}), flush=True)
@@ -3543,7 +3723,11 @@ def main():
     if next(model.parameters()).device.type != "cuda":
         raise AssertionError("build did not place the model on the card")
     plan = [type(m).__name__ for m in model.layers.values()]
-    cpu_model = copy.deepcopy(model).to("cpu")
+    # the reference: a float64 copy on the CPU planned in NEST (its convs
+    # per step: 0.6 s for a request on an 8-core CPU against 28 s for the
+    # cface plain versions in float32)
+    cpu_model = nest_reference(dt, model, nside, quick_start_layers(hp_nn))
+    cpu_model.eval()
     say("serving", f"model built on the card in {time.perf_counter() - t:.2f}"
         f" s; plan {plan}")
     for key, st in cface_convs:
@@ -3567,7 +3751,8 @@ def main():
     if logits.shape != (64, 4) or not np.all(np.isfinite(logits)):
         raise AssertionError(f"bad logits: shape {logits.shape}")
     t = time.perf_counter()
-    ref = cpu_model.predict(x[:16], batch_size=16)  # 1 request on the CPU
+    with torch.no_grad():  # 1 request on the CPU
+        ref = cpu_model(torch.from_numpy(x[:16].astype(np.float64))).numpy()
     cpu_s = time.perf_counter() - t
     rel = float(np.abs(logits[:16] - ref).max() / np.abs(ref).max())
     if not rel <= 1e-4:
@@ -3595,13 +3780,15 @@ def main():
     yt = data.randint(0, 4, size=64)
     say("train", f"model built in {time.perf_counter() - t:.2f} s")
 
-    # the reference is a float64 copy on the CPU.  A conv followed by batch
-    # norm (no affine) gives the same loss for any scale of its kernel, so
-    # its gradient is orthogonal to the kernel: a cancellation, which
-    # float32 rounding in any order disturbs at ~1e-3 of its max (a float32
-    # CPU step read 2.21e-3 from float64 on the same batch).  The card is
-    # held to float64 at fixed limits.
-    cpu64 = copy.deepcopy(model).to("cpu").double()
+    # the reference is a float64 copy on the CPU, planned in NEST (its
+    # convs per step: the same model by another route, 1.8 s a step on an
+    # 8-core host against 49 s for the cface plain versions).  A conv
+    # followed by batch norm (no affine) gives the same loss for any scale
+    # of its kernel, so its gradient is orthogonal to the kernel: a
+    # cancellation, which float32 rounding in any order disturbs at ~1e-3
+    # of its max (a float32 CPU step read 2.21e-3 from float64 on the same
+    # batch).  The card is held to float64 at fixed limits.
+    cpu64 = nest_reference(dt, model, nside, quick_start_layers(hp_nn))
     t = time.perf_counter()
     cpu64.train()
     out64 = cpu64(torch.from_numpy(xt[:16].astype(np.float64)))
@@ -4180,9 +4367,11 @@ if __name__ == "__main__":
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
         if sys.argv[1] == "--kernel-times":
-            kernel_times(sys.argv[2])
+            kernel_times(sys.argv[2], "--s2" in sys.argv[3:])
         elif sys.argv[1] == "--compare":
-            compare(sys.argv[2], sys.argv[3] if len(sys.argv) > 3 else None)
+            rest = [a for a in sys.argv[3:] if a != "--s2"]
+            compare(sys.argv[2], rest[0] if rest else None,
+                    "--s2" in sys.argv[3:])
         elif sys.argv[1] == "--replay":
             replay(*sys.argv[2:])
         elif sys.argv[1] == "--memory":
@@ -4190,7 +4379,13 @@ if __name__ == "__main__":
         elif sys.argv[1] == "--sass":
             sass_check(sys.argv[2], sys.argv[3] if len(sys.argv) > 3 else None)
         elif sys.argv[1] == "--ab" and len(sys.argv) > 2:
-            ab(sys.argv[2], sys.argv[3:])
+            rest, parent = sys.argv[3:], None
+            if "--parent" in rest:
+                i = rest.index("--parent")
+                parent = rest[i + 1]
+                rest = rest[:i] + rest[i + 2:]
+            ab(sys.argv[2], [a for a in rest if a != "--s2"], parent,
+               "--s2" in rest)
         else:
             raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
     else:

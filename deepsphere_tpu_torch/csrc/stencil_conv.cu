@@ -55,9 +55,10 @@
 // stencil_conv_bf16.cu and _bf16_r*.cu (band) and of stencil_conv_bf16_io*.cu
 // (I/O) hold the bfloat16 values in float32 shared memory and copy the
 // windows with cp.async, as the float32 kernel; where the float32 kernel's
-// shared bytes do not fit at the plan's tile and lap group, those of
-// stencil_conv_bf16_s2*.cu hold 2-byte elements, staged through registers,
-// in either mode.  See stencil_conv.cuh.
+// shared bytes do not fit at the plan's tile and lap group, the 2-byte
+// body of stencil_conv_bf16_s2*.cu holds 2-byte elements in either mode,
+// several batch indices' windows a lap (stencil_conv_s2.h).  See
+// stencil_conv.cuh.
 
 #include "stencil_conv.cuh"
 
@@ -81,9 +82,11 @@ extern "C" {
 // batch indices per block; FC: output channels per block (4, 8, 16, or 32
 // for T <= 16).  mode: 0 float32; 1 the bfloat16 band on float32 arrays;
 // 2 the bfloat16 band on bfloat16 arrays (xc, the strips, wext, out; wk3
-// stays float32; every array 4-byte aligned).  The bfloat16 modes hold
-// their staged values in float32 shared memory where those bytes fit, else
-// in bfloat16 (the rule of ops/fused_stencil.py::_k1_bf16_staging).
+// stays float32; every array 4-byte aligned where the values are staged in
+// float32).  The bfloat16 modes hold their staged values in float32 shared
+// memory where those bytes fit, else in bfloat16 (the rule of
+// ops/fused_stencil.py::_k1_bf16_staging; the 2-byte body's window sets
+// and bytes: stencil_conv_s2.h).
 // Returns cudaGetLastError() after the launch (or the attribute error).
 int ds_stencil_conv(const float* xc, const float* top, const float* bot,
                     const float* ls, const float* wext, const float* wk3,
@@ -135,14 +138,22 @@ int ds_stencil_conv(const float* xc, const float* top, const float* bot,
   dim3 grid((n / T) * (n / T), F, (unsigned)gz);
   cudaStream_t st = (cudaStream_t)stream;
   if (two) {
+    // the 2-byte body: as many window sets a lap as fit (one set: smem),
+    // and in the band mode the landing zone where it fits beside them
+    const int ns = s2_sets(T, h, radius, nplanes, K, G, FC, GB, kSmemMax);
+    if (ns < 1) return (int)cudaErrorInvalidValue;
+    const int land =
+        s2_land(T, h, radius, nplanes, K, G, FC, ns, mode == 2, kSmemMax);
+    const size_t sm2 = s2_smem(T, h, radius, nplanes, K, G, FC, ns)
+                       + (land ? s2_zone(T, h, G, ns) : 0);
     switch (radius * 8 + G) {
-      case 9: return launch_bf16_s2_r1_g1(T, FC, a, grid, smem, st);
-      case 10: return launch_bf16_s2_r1_g2(T, FC, a, grid, smem, st);
-      case 12: return launch_bf16_s2_r1_g4(T, FC, a, grid, smem, st);
-      case 17: return launch_bf16_s2_r2_g1(T, FC, a, grid, smem, st);
-      case 18: return launch_bf16_s2_r2_g2(T, FC, a, grid, smem, st);
-      case 25: return launch_bf16_s2_r3_g1(T, FC, a, grid, smem, st);
-      default: return launch_bf16_s2_r4_g1(T, FC, a, grid, smem, st);
+      case 9: return launch_bf16_s2_r1_g1(T, FC, a, ns, land, grid, sm2, st);
+      case 10: return launch_bf16_s2_r1_g2(T, FC, a, ns, land, grid, sm2, st);
+      case 12: return launch_bf16_s2_r1_g4(T, FC, a, ns, land, grid, sm2, st);
+      case 17: return launch_bf16_s2_r2_g1(T, FC, a, ns, land, grid, sm2, st);
+      case 18: return launch_bf16_s2_r2_g2(T, FC, a, ns, land, grid, sm2, st);
+      case 25: return launch_bf16_s2_r3_g1(T, FC, a, ns, land, grid, sm2, st);
+      default: return launch_bf16_s2_r4_g1(T, FC, a, ns, land, grid, sm2, st);
     }
   }
   if (mode == 2) {

@@ -32,10 +32,23 @@
 //   thread, issued while the first window's copies fly and stored
 //   interleaved (rounded in pairs in band mode).  One instantiation a mode:
 //   in one kernel the two stagings cost each other registers (measured).
-// * kBf16, where only the 2-byte plan fits: bfloat16 shared elements,
-//   staged through registers (several loads in flight a thread), either
-//   mode by a runtime flag.
-// The float32 kernels' code is unchanged (if constexpr).
+// * the 2-byte body (stencil_conv_s2_kernel, below), where only the 2-byte
+//   plan fits: bfloat16 shared elements, either mode by a runtime flag.
+//   At radius 3 and 4 one lap runs the windows of 2 or 4 batch indices of
+//   a channel group (window sets, as many as the registers, the block's
+//   batch indices and the free shared bytes allow: stencil_conv_s2.h; one
+//   instantiation a count), so each weight read from shared memory feeds
+//   every set; each output keeps its own tap order and its own sums, so
+//   the bits are those of the first bfloat16 version.  Its staging: the
+//   weight window by 16-byte loads (several in flight a thread, no divide
+//   an element) while the first windows fly; the next pass's windows by
+//   cp.async into a float32 landing zone during the laps, rounded four
+//   lanes at a time after the last fold, in the band mode where the zone
+//   fits, else by 16-byte register loads after the last lap; by 8-byte
+//   cp.async after the last lap in the I/O mode.
+// K2's and K3's kBf16 stagings (stencil_bwd.cuh) keep the first version's
+// device functions: stage_weights_bf, stage_window_bf, stage_slice_bf and
+// lap<..., bf16>.  The float32 kernels' code is unchanged (if constexpr).
 
 #pragma once
 
@@ -45,6 +58,8 @@
 #include <map>
 #include <mutex>
 #include <utility>
+
+#include "stencil_conv_s2.h"
 
 namespace ds_k1 {
 
@@ -769,19 +784,19 @@ constexpr int min_blocks() {
 enum Staging {
   kF32 = 0,     // float32 (the float32 kernel)
   kBf32 = 1,    // bfloat16 values in float32, from float32 arrays (band)
-  kBf16 = 2,    // bfloat16, both bfloat16 modes (where only 2 bytes fit)
+  kBf16 = 2,    // bfloat16, both bfloat16 modes (K2 and K3 where only 2
+                // bytes fit; K1's is stencil_conv_s2_kernel)
   kBf32Io = 3,  // bfloat16 values in float32, from bfloat16 arrays (I/O)
 };
 
 template <int R, int G, int PP, int FC, int S = kF32>
 __global__ void __launch_bounds__(NT, (min_blocks<PP, FC>()))
 stencil_conv_kernel(const ConvArgs a) {
-  constexpr bool BF = S == kBf16;
   // bfloat16 values in float32: each mode its own instantiation (the two
   // stagings in one kernel cost each other registers)
   constexpr bool F32S = S == kBf32 || S == kBf32Io;
   constexpr bool IO = S == kBf32Io;
-  using E = typename Staged<BF>::type;
+  using E = float;
   extern __shared__ __align__(16) float smem[];
   constexpr int NP = (2 * R + 1) * (2 * R + 1);
   const int T = a.T, h = a.h, n = a.n, P = a.P, K = a.K;
@@ -806,13 +821,7 @@ stencil_conv_kernel(const ConvArgs a) {
   const int nsteps = nb * ngroups;
 
   const Halo halo{a.xc, a.top, a.bot, a.ls, n, h, a.Rs, P};
-  if constexpr (BF) {
-    if (a.io)
-      stage_weights_bf<R>(s_w, reinterpret_cast<const bf16*>(a.wext), a.F,
-                          f, n, a.Rs, P, h, x0, y0, Ww);
-    else
-      stage_weights_bf<R>(s_w, a.wext, a.F, f, n, a.Rs, P, h, x0, y0, Ww);
-  } else if constexpr (F32S) {
+  if constexpr (F32S) {
     // after the first window's copies (below)
   } else {
     stage_weights<R>(s_w, a.wext, a.F, f, n, a.Rs, P, h, x0, y0, Ww);
@@ -822,14 +831,7 @@ stencil_conv_kernel(const ConvArgs a) {
     const int b = b0 + s / ngroups;
     const int fi0 = (s % ngroups) * G;
     const long long cf0 = ((long long)b * a.Fin + fi0) * a.F + f;
-    if constexpr (BF) {
-      if (a.io)
-        stage_window_bf<G>(bufs + set * G * BW, as_bf16(halo), cf0, a.F, x0,
-                           y0, W0, WS, BW);
-      else
-        stage_window_bf<G>(bufs + set * G * BW, halo, cf0, a.F, x0, y0, W0,
-                           WS, BW);
-    } else if constexpr (IO) {
+    if constexpr (IO) {
       stage_window_io<G>(bufs + set * G * BW, as_bf16(halo), cf0, a.F, x0,
                          y0, W0, WS, BW, a.vec);
     } else {
@@ -838,15 +840,11 @@ stencil_conv_kernel(const ConvArgs a) {
     }
   };
   // step s's slice of wk3, zero past Fout: s_wk[slot][k][g][fo], copied
-  // asynchronously like the windows (rounded to bfloat16 by BF, and by
-  // F32S once it lands)
+  // asynchronously like the windows (rounded to bfloat16 by F32S once it
+  // lands)
   auto stage_wk = [&](int s, int slot) {
-    if constexpr (BF)
-      stage_slice_bf<G, FC>(s_wk + slot * wkn, a.wk3, K, a.Fin, a.Fout,
-                            (s % ngroups) * G, fo0);
-    else
-      stage_slice<G, FC>(s_wk + slot * wkn, a.wk3, K, a.Fin, a.Fout,
-                         (s % ngroups) * G, fo0);
+    stage_slice<G, FC>(s_wk + slot * wkn, a.wk3, K, a.Fin, a.Fout,
+                       (s % ngroups) * G, fo0);
   };
   // F32S: what this thread copied into buffer set `set` and channel-kernel
   // slot `slot`, rounded to bfloat16 (band mode) or widened (I/O mode) in
@@ -927,7 +925,7 @@ stencil_conv_kernel(const ConvArgs a) {
                                : -1;
         }
         const long long ch0 = (long long)b * a.Fout + fo0;
-        if (IO || (BF && a.io)) {
+        if (IO) {
           bf16* out = reinterpret_cast<bf16*>(a.out);
           store_sums(out, acc, gof, ch0, nfo, a.F, f, n, P);
           zero_pad_lanes(out, ch0, nfo, a.F, f, n, P, h, T, x0, y0);
@@ -960,6 +958,537 @@ stencil_conv_kernel(const ConvArgs a) {
     cp_async_wait_all();
     if constexpr (F32S) {
       if (more) land_step(next, (s + 1) & 1);
+    }
+    __syncthreads();
+    cur ^= flip;
+  }
+}
+
+// The 2-byte body of the bfloat16 K1 (stencil_conv_s2_kernel): bfloat16
+// shared elements where only those fit, either mode by a runtime flag.
+
+// 8 bytes; both addresses 8-byte aligned
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+// two float32 as one word of two bfloat16, each rounded to nearest even
+// (the rounding of to_bf16), the first in the low half
+__device__ __forceinline__ unsigned bf16x2_bits(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&p);
+}
+
+// The tile's weight window in bfloat16, laid out as stage_weights lays it,
+// from float32 planes (band mode, rounded) or bfloat16 ones (I/O mode):
+// each plane row's W0 lanes from y0 in 16-byte loads where wext is 16-byte
+// aligned (vec), else element by element, kLoads of them in flight a
+// thread and no divide an element (16 or 32 in flight measured 2-10%
+// slower on an H100); stored lane by lane.
+template <int R, class S>
+__device__ __forceinline__ void stage_weights_s2(bf16* s_w,
+                                                 const S* __restrict__ wext,
+                                                 int F, int f, int n, int Rs,
+                                                 int P, int h, int x0, int y0,
+                                                 int Ww, bool vec) {
+  constexpr int NP = (2 * R + 1) * (2 * R + 1);
+  constexpr int CL = 16 / sizeof(S);  // lanes a 16-byte load
+  const int W0 = Ww + 2 * R;
+  const int upr = (W0 + CL - 1) / CL;
+  const int tot = NP * Ww * upr;
+  const long long nr = n + 2 * Rs;
+  for (int e0 = threadIdx.x; e0 < tot; e0 += kLoads * NT) {
+    uint4 v[kLoads];
+    int base[kLoads];  // s_w index of lane j0 (window position j0 - R)
+    int j0[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int e = e0 + u * NT;
+      j0[u] = -1;
+      if (e < tot) {
+        const int q = e / upr;  // plane d, window row i
+        const int d = q / Ww;
+        const int i = q - d * Ww;
+        const int j = CL * (e - q * upr);
+        const int x = x0 - h + R + i;
+        const int wr = x < 0 ? n + Rs + x : (x >= n ? Rs + x : x);
+        const S* src = wext + ((long long)(d * F + f) * nr + wr) * P + y0 + j;
+        if (vec && j + CL <= W0) {
+          v[u] = *reinterpret_cast<const uint4*>(src);
+        } else {
+          unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+          for (int t = 0; t < CL; ++t) {
+            if (j + t < W0) {
+              if constexpr (sizeof(S) == 4)
+                w[t] = __float_as_uint(src[t]);
+              else
+                w[t >> 1] |= (unsigned)__bfloat16_as_ushort(src[t])
+                             << (16 * (t & 1));
+            }
+          }
+          v[u] = make_uint4(w[0], w[1], w[2], w[3]);
+        }
+        j0[u] = j;
+        base[u] = (i * Ww + j - R) * NP + d;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      if (j0[u] >= 0) {
+        unsigned w[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+        if constexpr (sizeof(S) == 4) {  // float32, rounded in pairs
+          w[0] = bf16x2_bits(__uint_as_float(v[u].x), __uint_as_float(v[u].y));
+          w[1] = bf16x2_bits(__uint_as_float(v[u].z), __uint_as_float(v[u].w));
+        }
+#pragma unroll
+        for (int t = 0; t < CL; ++t) {
+          const int jj = j0[u] + t - R;  // window position
+          if (jj >= 0 && jj < Ww)
+            s_w[base[u] + t * NP] = __ushort_as_bfloat16(
+                (unsigned short)(w[t >> 1] >> (16 * (t & 1))));
+        }
+      }
+    }
+  }
+}
+
+// One round of the band mode's window staging: kLoads 4-lane groups a
+// thread (16 bytes of float32 each) in registers, and where each goes in
+// the buffers (-1: none).  Loaded by stage_band_load, rounded and stored
+// by stage_band_store.
+struct BandRound {
+  uint4 v[kLoads];
+  int o[kLoads];
+};
+
+// lanes y to y + 3 of a face row come from one array (the west lane strip,
+// the interior or the east lane strip)
+template <class S>
+__device__ __forceinline__ bool one_source4(const HaloT<S>& s, int y) {
+  return (y < s.h) == (y + 3 < s.h)
+      && (y >= s.h + s.n) == (y + 3 >= s.h + s.n);
+}
+
+// The 4-lane groups [e0, e0 + kLoads * NT) of a pass's halo windows, group
+// e = ((set * G + g) * W0 + i) * (WS / 4) + jg: lanes 4 jg to 4 jg + 3 of
+// window row i of channel g of window set `set` (channel cfb + (set * Fin
+// + g) * F of the arrays), into the set's buffer at set * SS + g * BW + i *
+// WS + 4 jg.  Lanes past W0 are not read (zeros).
+template <int G>
+__device__ __forceinline__ void stage_band_load(BandRound& r, const Halo& s,
+                                                int e0, int tot, int c4,
+                                                int W0, int WS, int BW,
+                                                int SS, long long cfb,
+                                                int Fin, int F, int x0,
+                                                int y0, bool vec) {
+#pragma unroll
+  for (int u = 0; u < kLoads; ++u) {
+    const int e = e0 + u * NT;
+    r.o[u] = -1;
+    if (e < tot) {
+      const int q = e / c4;
+      const int j = 4 * (e - q * c4);
+      const int ch = q / W0;  // set * G + g
+      const int i = q - ch * W0;
+      const int set = ch / G;
+      const int g = ch - set * G;
+      const long long cf = cfb + ((long long)set * Fin + g) * F;
+      const int x = x0 - s.h + i;
+      const int y = y0 + j;
+      if (vec && j + 4 <= W0 && (x < 0 || x >= s.n || one_source4(s, y))) {
+        r.v[u] = *reinterpret_cast<const uint4*>(window_src(s, cf, x, y));
+      } else {
+        unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          if (j + t < W0) w[t] = __float_as_uint(*window_src(s, cf, x, y + t));
+        r.v[u] = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+      r.o[u] = set * SS + g * BW + i * WS + j;
+    }
+  }
+}
+
+// the groups of a round rounded to bfloat16 (as to_bf16 rounds) and
+// stored, 8 bytes a group, into the buffers at dst
+__device__ __forceinline__ void stage_band_store(const BandRound& r,
+                                                 bf16* dst) {
+#pragma unroll
+  for (int u = 0; u < kLoads; ++u)
+    if (r.o[u] >= 0)
+      *reinterpret_cast<uint2*>(dst + r.o[u]) = make_uint2(
+          bf16x2_bits(__uint_as_float(r.v[u].x), __uint_as_float(r.v[u].y)),
+          bf16x2_bits(__uint_as_float(r.v[u].z), __uint_as_float(r.v[u].w)));
+}
+
+// The I/O mode's windows of a pass (the groups of stage_band_load, all of
+// them): 8-byte cp.async copies where the four lanes share a source and the
+// arrays are 16-byte aligned (vec), else loaded lane by lane and stored.
+template <int G>
+__device__ __forceinline__ void stage_io_copy(bf16* dst,
+                                              const HaloT<bf16>& s, int tot,
+                                              int c4, int W0, int WS, int BW,
+                                              int SS, long long cfb, int Fin,
+                                              int F, int x0, int y0,
+                                              bool vec) {
+  for (int e = threadIdx.x; e < tot; e += NT) {
+    const int q = e / c4;
+    const int j = 4 * (e - q * c4);
+    const int ch = q / W0;
+    const int i = q - ch * W0;
+    const int set = ch / G;
+    const int g = ch - set * G;
+    const long long cf = cfb + ((long long)set * Fin + g) * F;
+    const int x = x0 - s.h + i;
+    const int y = y0 + j;
+    bf16* d = dst + set * SS + g * BW + i * WS + j;
+    if (vec && j + 4 <= W0 && (x < 0 || x >= s.n || one_source4(s, y))) {
+      cp_async8(d, window_src(s, cf, x, y));
+    } else {
+      for (int t = 0; t < 4 && j + t < W0; ++t) d[t] = *window_src(s, cf, x, y + t);
+    }
+  }
+}
+
+// The band mode's windows of a pass (the groups of stage_band_load) into
+// the landing zone by cp.async, float32 as they are, group e at zone + (e /
+// c4) * WS + 4 (e % c4): 16-byte copies where the four lanes share a source
+// and the arrays are 16-byte aligned (vec), else 4-byte ones (lanes past
+// W0 are not copied).
+template <int G>
+__device__ __forceinline__ void stage_band_copy(float* zone, const Halo& s,
+                                                int tot, int c4, int W0,
+                                                long long cfb, int Fin, int F,
+                                                int x0, int y0, bool vec) {
+  const int WS = 4 * c4;
+  for (int e = threadIdx.x; e < tot; e += NT) {
+    const int q = e / c4;
+    const int j = 4 * (e - q * c4);
+    const int ch = q / W0;  // set * G + g
+    const int i = q - ch * W0;
+    const int set = ch / G;
+    const long long cf = cfb + ((long long)set * Fin + ch - set * G) * F;
+    const int x = x0 - s.h + i;
+    const int y = y0 + j;
+    float* d = zone + q * WS + j;
+    if (vec && j + 4 <= W0 && (x < 0 || x >= s.n || one_source4(s, y))) {
+      cp_async16(d, window_src(s, cf, x, y));
+    } else {
+      for (int t = 0; t < 4 && j + t < W0; ++t)
+        cp_async4(d + t, window_src(s, cf, x, y + t));
+    }
+  }
+}
+
+// The groups this thread copied into the landing zone (stage_band_copy),
+// once its copies have landed, into the term buffers at dst as
+// stage_band_store puts them, rounded to bfloat16.
+template <int G>
+__device__ __forceinline__ void land_zone(const float* zone, bf16* dst,
+                                          int tot, int c4, int W0, int BW,
+                                          int SS) {
+  const int WS = 4 * c4;
+  for (int e = threadIdx.x; e < tot; e += NT) {
+    const int q = e / c4;
+    const int j = 4 * (e - q * c4);
+    const int ch = q / W0;
+    const int i = q - ch * W0;
+    const int set = ch / G;
+    const float4 v = *reinterpret_cast<const float4*>(zone + q * WS + j);
+    *reinterpret_cast<uint2*>(dst + set * SS + (ch - set * G) * BW + i * WS
+                              + j) =
+        make_uint2(bf16x2_bits(v.x, v.y), bf16x2_bits(v.z, v.w));
+  }
+}
+
+// One lap of lap<R, G, TWICE, bf16> (TWICE a runtime flag, twice: one body
+// to compile) over the first nl of NS window sets (set u's buffers u * SS
+// elements past src and dst): each weight read from shared memory feeds
+// the G channels of every set.  With fewer than NS sets
+// the first set's window runs in place of the others and only the nl sets
+// are stored, so the unrolled body holds no per-set branch (guarding each
+// set's loads and sums instead cost 1.7x at 15(d)'s radius-3 conv on an
+// H100).  Splitting the sets over idle threads in the small regions
+// measured 5% slower: the unrolled body costs NS sets whatever a thread
+// keeps.  Each output sums its taps in the order of lap's, so a set's
+// terms are lap's bit for bit.
+template <int R, int G, int NS>
+__device__ __forceinline__ void lap_sets(const bf16* __restrict__ src,
+                                         bf16* __restrict__ dst,
+                                         const bf16* __restrict__ s_w,
+                                         int W0, int WS, int Ww, int BW,
+                                         int SS, int k, int nl, bool twice) {
+  constexpr int NP = (2 * R + 1) * (2 * R + 1);
+  const int lo = R * k;
+  const int L = W0 - 2 * lo;
+  const int hi = lo + L;
+  const int nq = (L + kRun - 1) / kRun;
+  int off[NS];  // set u's buffers, or the first set's past nl
+#pragma unroll
+  for (int u = 0; u < NS; ++u) off[u] = (u < nl ? u : 0) * SS;
+  const int dq = NT / L;
+  const int dj = NT - dq * L;
+  int q = threadIdx.x / L;
+  int jj = threadIdx.x - q * L;
+  const int wrow = Ww * NP;
+  while (q < nq) {
+    const int i0 = lo + kRun * q;
+    const int j = lo + jj;
+    float s[NS][G][kRun];
+#pragma unroll
+    for (int u = 0; u < NS; ++u)
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int o = 0; o < kRun; ++o) s[u][g][o] = 0.f;
+    const bf16* wb = s_w + ((i0 - R) * Ww + (j - R)) * NP;
+    const bf16* xb = src + (i0 - R) * WS + (j - R);
+#pragma unroll
+    for (int a = 0; a < kRun + 2 * R; ++a) {  // input row i0 - R + a
+#pragma unroll
+      for (int c = 0; c <= 2 * R; ++c) {  // input lane j - R + c
+        float v[NS][G];
+#pragma unroll
+        for (int u = 0; u < NS; ++u)
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+            v[u][g] = ld(xb[off[u] + g * BW + a * WS + c]);
+#pragma unroll
+        for (int o = 0; o < kRun; ++o) {
+          const int dx = a - R - o;
+          if (dx >= -R && dx <= R) {
+            const float w = ld(wb[o * wrow + plane_of<R>(dx, c - R)]);
+#pragma unroll
+            for (int u = 0; u < NS; ++u)
+#pragma unroll
+              for (int g = 0; g < G; ++g)
+                s[u][g][o] = fmaf(w, v[u][g], s[u][g][o]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 0; o < kRun; ++o) {
+      const int i = i0 + o;
+      if (i < hi) {
+#pragma unroll
+        for (int u = 0; u < NS; ++u) {
+          if (u < nl) {
+#pragma unroll
+            for (int g = 0; g < G; ++g) {
+              bf16* d = dst + off[u] + g * BW + i * WS + j;
+              *d = to<bf16>(twice ? fmaf(2.f, s[u][g][o], -ld(*d))
+                                  : s[u][g][o]);
+            }
+          }
+        }
+      }
+    }
+    jj += dj;
+    q += dq;
+    if (jj >= L) {
+      jj -= L;
+      ++q;
+    }
+  }
+}
+
+// K1's 2-byte launch: its arguments and whether the next pass's windows
+// land in a zone of their own (s2_land, stencil_conv_s2.h)
+struct S2Args {
+  ConvArgs c;
+  int land;
+};
+
+// One block per (face, T x T tile, group of GB batch indices, chunk of FC
+// output channels), as stencil_conv_kernel; its batch indices run NS at a
+// time (NS window sets a lap: s2_sets, stencil_conv_s2.h; the last chunk
+// of a block may hold fewer), and each chunk's passes take the channel
+// groups in order, each pass one lap a term over the chunk's windows,
+// folded into each batch index's own sums.  With a landing zone (land)
+// the next pass's windows are copied there by cp.async at the start of
+// each pass, under all its laps, and moved into the term buffers after
+// its last fold; without one they are staged after the last lap.
+template <int R, int G, int PP, int FC, int NS>
+__global__ void __launch_bounds__(NT, 1)
+stencil_conv_s2_kernel(const S2Args sa) {
+  const ConvArgs& a = sa.c;
+  const bool land = sa.land && !a.io;  // the band mode's only (s2_land)
+  extern __shared__ __align__(16) float smem[];
+  constexpr int NP = (2 * R + 1) * (2 * R + 1);
+  const int T = a.T, h = a.h, n = a.n, P = a.P, K = a.K;
+  const int W0 = T + 2 * h;          // halo window side
+  const int WS = (W0 + 3) & ~3;      // its row stride: rows 8-byte aligned
+  const int c4 = WS / 4;             // 4-lane groups a row
+  const int Ww = W0 - 2 * R;         // weight window side (lap 1's region)
+  const int BW = (W0 + kRun - 1) * WS;  // one channel's buffer (+ run slack)
+  const int SS = 2 * G * BW;         // one window set's two term buffers
+  const int wkn = K * G * FC;        // one group's channel-kernel slice
+  float* s_wk = smem;                               // 2 x K x G x FC
+  float* zone = s_wk + 2 * wkn;  // land: NS x G x W0 x WS, 16-byte aligned
+  // (Ww+kRun-1) x Ww x NP
+  bf16* s_w = reinterpret_cast<bf16*>(zone + (land ? NS * G * W0 * WS : 0));
+  // ns x 2 x G x BW, 8-byte aligned: set u's even and odd terms at
+  // u * SS and u * SS + G * BW
+  bf16* bufs = s_w + (((Ww + kRun - 1) * Ww * NP + 3) & ~3);
+
+  const int tiles = n / T;
+  const int f = blockIdx.y;
+  const int x0 = (blockIdx.x / tiles) * T;
+  const int y0 = (blockIdx.x % tiles) * T;
+  const int fo0 = (blockIdx.z % a.chunks) * FC;
+  const int b0 = (blockIdx.z / a.chunks) * a.GB;
+  const int nb = min(a.GB, a.B - b0);
+  const int ns = s2_block_sets(NS, nb);  // window sets a lap
+  const int ngroups = a.Fin / G;           // G divides Fin
+  const int npass = s2_chunks(nb, ns) * ngroups;
+  const Halo halo{a.xc, a.top, a.bot, a.ls, n, h, a.Rs, P};
+
+  // pass p: the channel group p % ngroups of chunk p / ngroups, batch
+  // indices b0 + bc(p) .., sets(p) of them
+  auto bc = [&](int p) { return (p / ngroups) * ns; };
+  auto sets = [&](int p) { return s2_chunk_sets(nb, ns, p / ngroups); };
+  auto groups_of = [&](int p) { return sets(p) * G * W0 * c4; };
+  auto cfb = [&](int p) {
+    return ((long long)(b0 + bc(p)) * a.Fin + (p % ngroups) * G) * a.F + f;
+  };
+  // pass p's windows into the buffers of parity `par` (0: even terms): the
+  // I/O mode's copies all issued here; the band mode's first round loaded
+  // into registers (stored by stage_end), the rest after it
+  BandRound br;
+  auto stage_begin = [&](int p, int par) {
+    if (a.io)
+      stage_io_copy<G>(bufs + par * G * BW, as_bf16(halo), groups_of(p), c4,
+                       W0, WS, BW, SS, cfb(p), a.Fin, a.F, x0, y0, a.vec);
+    else
+      stage_band_load<G>(br, halo, threadIdx.x, groups_of(p), c4, W0, WS, BW,
+                         SS, cfb(p), a.Fin, a.F, x0, y0, a.vec);
+  };
+  auto stage_end = [&](int p, int par) {
+    if (!a.io) {
+      bf16* d = bufs + par * G * BW;
+      stage_band_store(br, d);
+      const int tot = groups_of(p);
+      for (int e0 = threadIdx.x + kLoads * NT; e0 < tot; e0 += kLoads * NT) {
+        stage_band_load<G>(br, halo, e0, tot, c4, W0, WS, BW, SS, cfb(p),
+                           a.Fin, a.F, x0, y0, a.vec);
+        stage_band_store(br, d);
+      }
+    }
+  };
+  // the band mode's pass p's windows into the landing zone, and from
+  // there (what this thread copied, once landed) into the buffers of
+  // parity `par`
+  auto zone_begin = [&](int p) {
+    stage_band_copy<G>(zone, halo, groups_of(p), c4, W0, cfb(p), a.Fin, a.F,
+                       x0, y0, a.vec);
+  };
+  auto zone_end = [&](int p, int par) {
+    land_zone<G>(zone, bufs + par * G * BW, groups_of(p), c4, W0, BW, SS);
+  };
+  // pass p's slice of wk3, zero past Fout: s_wk[slot][k][g][fo], by
+  // cp.async, rounded to bfloat16 by round_slice once it lands
+  auto stage_wk = [&](int p, int slot) {
+    stage_slice<G, FC>(s_wk + slot * wkn, a.wk3, K, a.Fin, a.Fout,
+                       (p % ngroups) * G, fo0);
+  };
+
+  const int lgT = 31 - __clz(T);  // T is 8, 16 or 32
+  float acc[NS][PP][FC];
+#pragma unroll
+  for (int u = 0; u < NS; ++u)
+#pragma unroll
+    for (int p = 0; p < PP; ++p)
+#pragma unroll
+      for (int o = 0; o < FC; ++o) acc[u][p][o] = 0.f;
+
+  // the first pass's windows and slice fly while the weight window is
+  // staged
+  stage_wk(0, 0);
+  stage_begin(0, 0);
+  cp_async_commit();
+  const bool wvec = (reinterpret_cast<size_t>(a.wext) & 15) == 0;
+  if (a.io)
+    stage_weights_s2<R>(s_w, reinterpret_cast<const bf16*>(a.wext), a.F, f,
+                        n, a.Rs, P, h, x0, y0, Ww, wvec);
+  else
+    stage_weights_s2<R>(s_w, a.wext, a.F, f, n, a.Rs, P, h, x0, y0, Ww, wvec);
+  stage_end(0, 0);
+  cp_async_wait_all();
+  round_slice<G, FC>(s_wk, K);
+  __syncthreads();
+
+  // the parity of this pass's T_0; the next pass's windows go to the
+  // buffers of T_{K-2} once the last lap is done with them, overlapping
+  // the last fold and the output
+  int cur = 0;
+  const int flip = (K - 1) % 2 == 0;  // T_{K-1} in the even buffers
+  for (int p = 0; p < npass; ++p) {
+    const bool more = p + 1 < npass;
+    if (more) stage_wk(p + 1, (p + 1) & 1);
+    if (land && more) zone_begin(p + 1);
+    cp_async_commit();
+    const int nl = sets(p);
+    const float* wk = s_wk + (p & 1) * wkn;
+    bf16* P0 = bufs + cur * G * BW;        // even terms
+    bf16* P1 = bufs + (cur ^ 1) * G * BW;  // odd terms
+    const int next = cur ^ flip;
+    if (K == 1 && more && !land) stage_begin(p + 1, next);
+
+#pragma unroll
+    for (int u = 0; u < NS; ++u)
+      if (u < nl) fold<G, PP, FC>(acc[u], P0 + u * SS, wk, BW, WS, h, lgT);
+    for (int k = 1; k < K; ++k) {
+      bf16* src = (k & 1) ? P0 : P1;
+      bf16* dst = (k & 1) ? P1 : P0;
+      lap_sets<R, G, NS>(src, dst, s_w, W0, WS, Ww, BW, SS, k, nl,
+                         a.cheby && k >= 2);
+      __syncthreads();
+      if (k == K - 1 && more && !land) stage_begin(p + 1, next);
+#pragma unroll
+      for (int u = 0; u < NS; ++u)
+        if (u < nl)
+          fold<G, PP, FC>(acc[u], dst + u * SS, wk + k * G * FC, BW, WS, h,
+                          lgT);
+    }
+
+    if ((p + 1) % ngroups == 0) {  // the chunk's batch indices are complete
+      const int nfo = min(FC, a.Fout - fo0);
+      long long gof[PP];
+#pragma unroll
+      for (int q = 0; q < PP; ++q) {
+        const int pix = threadIdx.x + q * NT;
+        gof[q] = pix < T * T ? (long long)(x0 + (pix >> lgT)) * P + h + y0
+                                   + (pix & (T - 1))
+                             : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < NS; ++u) {
+        if (u < nl) {
+          const long long ch0 = (long long)(b0 + bc(p) + u) * a.Fout + fo0;
+          if (a.io) {
+            bf16* out = reinterpret_cast<bf16*>(a.out);
+            store_sums(out, acc[u], gof, ch0, nfo, a.F, f, n, P);
+            zero_pad_lanes(out, ch0, nfo, a.F, f, n, P, h, T, x0, y0);
+          } else {
+            store_sums(a.out, acc[u], gof, ch0, nfo, a.F, f, n, P);
+            zero_pad_lanes(a.out, ch0, nfo, a.F, f, n, P, h, T, x0, y0);
+          }
+        }
+      }
+    }
+
+    cp_async_commit();
+    cp_async_wait_all();
+    if (more) {
+      if (land)
+        zone_end(p + 1, next);
+      else
+        stage_end(p + 1, next);
+      round_slice<G, FC>(s_wk + ((p + 1) & 1) * wkn, K);
     }
     __syncthreads();
     cur ^= flip;
@@ -1022,13 +1551,65 @@ int launch_t(int T, int FC, const ConvArgs& a, dim3 grid, size_t smem,
   return launch_fc<R, G, 1, S>(FC, a, grid, smem, stream);
 }
 
+// the 2-byte body compiled for ns window sets a lap: 1, 2 or 4, up to
+// what the registers allow
+template <int R, int G, int PP, int FC>
+int launch_s2(const ConvArgs& a, int ns, int land, dim3 grid, size_t smem,
+              cudaStream_t stream) {
+  constexpr int M = s2_sets_max(R, PP, FC, G);
+  const S2Args sa{a, land};
+  if constexpr (M >= 4) {
+    if (ns == 4)
+      return launch_kernel(stencil_conv_s2_kernel<R, G, PP, FC, 4>, sa, grid,
+                           smem, stream);
+  }
+  if constexpr (M >= 2) {
+    if (ns == 2)
+      return launch_kernel(stencil_conv_s2_kernel<R, G, PP, FC, 2>, sa, grid,
+                           smem, stream);
+  }
+  if (ns == 1)
+    return launch_kernel(stencil_conv_s2_kernel<R, G, PP, FC, 1>, sa, grid,
+                         smem, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int R, int G, int PP>
+int launch_s2_fc(int FC, const ConvArgs& a, int ns, int land, dim3 grid,
+                 size_t smem, cudaStream_t stream) {
+  switch (FC) {
+    case 4: return launch_s2<R, G, PP, 4>(a, ns, land, grid, smem, stream);
+    case 8: return launch_s2<R, G, PP, 8>(a, ns, land, grid, smem, stream);
+    case 16: return launch_s2<R, G, PP, 16>(a, ns, land, grid, smem, stream);
+    default:
+      return launch_s2<R, G, PP, (PP == 1 ? 32 : 16)>(a, ns, land, grid,
+                                                       smem, stream);
+  }
+}
+
+// the 2-byte body on T x T tiles (launch_t's pixels a thread), ns window
+// sets a lap, with a landing zone or not
+template <int R, int G>
+int launch_s2_t(int T, int FC, const ConvArgs& a, int ns, int land,
+                dim3 grid, size_t smem, cudaStream_t stream) {
+  if constexpr (R <= 2) {
+    if (T == 32)
+      return launch_s2_fc<R, G, 4>(FC, a, ns, land, grid, smem, stream);
+  }
+  return launch_s2_fc<R, G, 1>(FC, a, ns, land, grid, smem, stream);
+}
+
 // one per (radius, lap group G): the instantiations of stencil_conv*.cu,
 // the bfloat16 ones of stencil_conv_bf16_r*.cu (kBf32, band mode) and
-// stencil_conv_bf16_io*.cu (kBf32Io, I/O mode), and the 2-byte ones
-// (kBf16, either mode) of stencil_conv_bf16_s2*.cu
+// stencil_conv_bf16_io*.cu (kBf32Io, I/O mode), and the 2-byte body's
+// (either mode, ns window sets a lap, land: a landing zone) of
+// stencil_conv_bf16_s2*.cu
 #define DS_K1_LAUNCH(NAME)                                                 \
   int NAME(int T, int FC, const ConvArgs& a, dim3 grid, size_t smem,       \
            cudaStream_t stream)
+#define DS_K1_S2_LAUNCH(NAME)                                              \
+  int NAME(int T, int FC, const ConvArgs& a, int ns, int land, dim3 grid,  \
+           size_t smem, cudaStream_t stream)
 DS_K1_LAUNCH(launch_r1_g1);
 DS_K1_LAUNCH(launch_r1_g2);
 DS_K1_LAUNCH(launch_r1_g4);
@@ -1050,12 +1631,12 @@ DS_K1_LAUNCH(launch_bf16_io_r2_g1);
 DS_K1_LAUNCH(launch_bf16_io_r2_g2);
 DS_K1_LAUNCH(launch_bf16_io_r3_g1);
 DS_K1_LAUNCH(launch_bf16_io_r4_g1);
-DS_K1_LAUNCH(launch_bf16_s2_r1_g1);
-DS_K1_LAUNCH(launch_bf16_s2_r1_g2);
-DS_K1_LAUNCH(launch_bf16_s2_r1_g4);
-DS_K1_LAUNCH(launch_bf16_s2_r2_g1);
-DS_K1_LAUNCH(launch_bf16_s2_r2_g2);
-DS_K1_LAUNCH(launch_bf16_s2_r3_g1);
-DS_K1_LAUNCH(launch_bf16_s2_r4_g1);
+DS_K1_S2_LAUNCH(launch_bf16_s2_r1_g1);
+DS_K1_S2_LAUNCH(launch_bf16_s2_r1_g2);
+DS_K1_S2_LAUNCH(launch_bf16_s2_r1_g4);
+DS_K1_S2_LAUNCH(launch_bf16_s2_r2_g1);
+DS_K1_S2_LAUNCH(launch_bf16_s2_r2_g2);
+DS_K1_S2_LAUNCH(launch_bf16_s2_r3_g1);
+DS_K1_S2_LAUNCH(launch_bf16_s2_r4_g1);
 
 }  // namespace ds_k1

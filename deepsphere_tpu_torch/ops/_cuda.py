@@ -78,7 +78,8 @@ def reset_launch_counts():
 
 def _sources():
     return sorted(glob.glob(os.path.join(_CSRC, "*.cu"))
-                  + glob.glob(os.path.join(_CSRC, "*.cuh")))
+                  + glob.glob(os.path.join(_CSRC, "*.cuh"))
+                  + glob.glob(os.path.join(_CSRC, "*.h")))
 
 
 def build():

@@ -127,8 +127,10 @@ def _k1_bf16_staging(plan, h, r, nplanes, K):
     :func:`_k1_plan` gives with ``es=2``) holds each staged value in: 4
     where the float32 kernel's shared bytes fit at the plan's tile, lap
     group and output channels (bfloat16 values in float32 shared memory,
-    staged with cp.async as the float32 kernel), else 2 (bfloat16 shared
-    elements, staged through registers).  The same function bit for bit;
+    staged with cp.async as the float32 kernel), else 2 (K1's 2-byte body,
+    bfloat16 shared elements, several batch indices' windows a lap: its
+    window sets and bytes are ``csrc/stencil_conv_s2.h``'s).  The same
+    function bit for bit;
     chosen from the shape before the launch, by the same rule as
     ``csrc/stencil_conv.cu``, so the route and the plan are those of the
     2-byte plan in every case."""

@@ -366,7 +366,12 @@ _BF16 = [(16, 8, "cheby", 0.75, 10, 2, 3, 9, 12),
          (32, 40, "cheby", 0.75, 5, 2, 2, 3, 12),
          (32, 60, "cheby", 0.75, 5, 1, 2, 3, 12),
          (16, 40, "mono", 1.0, 2, 2, 2, 3, 12),
-         (16, 60, "mono", 1.0, 2, 1, 2, 2, 12)]
+         (16, 60, "mono", 1.0, 2, 1, 2, 2, 12),
+         # K1's 2-byte body with several window sets a lap (few tiles, so
+         # a block takes GB = 6 batch indices, 4 a lap then 2), B no
+         # multiple of GB (the last block holds 2 or 1) and Fin > G
+         (16, 40, "cheby", 0.75, 5, 140, 2, 3, 12),
+         (32, 60, "cheby", 0.75, 5, 7, 2, 3, 12)]
 _RADIUS = {8: 1, 20: 2, 40: 3, 60: 4}
 # kernel against its plain version in the same mode: both round at the same
 # points, but sum in other orders, so a bfloat16 term may differ by a step
