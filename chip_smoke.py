@@ -216,6 +216,9 @@ a digest of each output's bits), K1 at the five shapes of its 2-byte
 bfloat16 body (``S2_SHAPES``: phase 15(d)'s radius-3 conv, radius 4 at h =
 16, radius 2 at h = 8, radius 1 at h = 13, on random arrays) in each mode
 with digests, beside the float32 K1 where it has a plan and the bounds,
+K2 and K3 at the shapes of their 2-byte kernel (``S2_BWD_SHAPES``: those
+five in both roles, K2 at quick_start's conv 1, and radius 3 and 4 at
+batch 1, one window set a lap) in each mode with digests and bounds,
 phase 15(d)'s radius-3 conv (forward and train step on each route, float32
 and each bfloat16 mode, device time and host clock), and the quick_start
 train step on both backward routes (as phase 5 does), with the package of
@@ -232,21 +235,23 @@ unchanged.  ``--ab KERNEL`` builds the sources of K1 (``k1``:
 ``csrc/stencil_conv*.cu``) or of K2 and K3 (``bwd``:
 ``csrc/stencil_dxdw*.cu``, ``stencil_grad*.cu``) alone, as they are
 (their bfloat16 launches in the staging the shape gets, and in the 2-byte
-kernels, ``kBf16``, the code of the first bfloat16 version: for K1 by a
-second build with its C entry's pick forced, for K2 and K3 by the C
-entries' prec 3 and 4, which name that staging), and with the header
-edits of each EDITS.json (a list of [old, new] strings applied to
-``stencil_conv.cuh`` or ``stencil_bwd.cuh``; the variant is named by the
-file), checks that each build's bfloat16 outputs (K2's dx and dW, K3's dW)
-equal the 2-byte kernels' bit for bit in both modes at ten shapes (odd and
-even h, radius 1-4, both stagings), and times the float32 kernel and every
-build's bfloat16 kernel in each mode at the four phase-3 shapes (K2 and K3
-each in its role; K1 also at ``S2_SHAPES``, where its bfloat16 launches
-take the 2-byte body), in turns, on random inputs; with ``--parent DIR``
-the same kernels' sources of the checkout DIR (another commit, e.g.
-unpacked with ``git archive``) are built as they are and checked and timed
-beside them (variant ``parent``), and ``--s2`` times at ``S2_SHAPES``
-only; writes ``chiprun_out/ab_KERNEL.json``.
+kernels: for K1 by a second build with its C entry's pick forced, for K2
+and K3 by the C entries' prec 3 and 4, which name that staging), and with
+the header edits of each EDITS.json (a list of [old, new] strings applied
+to ``stencil_conv.cuh`` or ``stencil_bwd.cuh``; the variant is named by
+the file), checks that each build's bfloat16 outputs (K2's dx and dW, K3's
+dW) equal the 2-byte kernels' bit for bit in both modes at twelve shapes
+(``AB_BITS``: odd and even h, radius 1-4, both stagings, partial window
+sets), and times the float32 kernel and every build's bfloat16 kernel in
+each mode at the four phase-3 shapes (K2 and K3 each in its role) and
+where the 2-byte kernels run (K1 at ``S2_SHAPES``, K2 and K3 at
+``S2_BWD_SHAPES``), in turns, on random inputs; with ``--parent DIR`` the
+same kernels' sources of the checkout DIR (another commit, e.g. unpacked
+with ``git archive``) are built as they are and checked and timed beside
+them (variant ``parent``; for ``bwd`` also its 2-byte kernels forced,
+``parent_s2``; ``bwd`` with no EDITS.json takes both checkouts' own
+libraries instead, the builds ``--sass`` shares), and ``--s2`` times only
+where the 2-byte kernels run; writes ``chiprun_out/ab_KERNEL.json``.
 """
 
 import atexit
@@ -451,6 +456,27 @@ def k1_bound(st, K, B, Fin, Fout, es=4):
                  tf + cells)
 
 
+def bwd_bound(st, K, B, Fin, Fout, dx, es=4, mask=False):
+    """(ms, by) of one K2 (``dx``) or K3 launch: the interior lanes of
+    the recursion input (dy, B*Fout channels, or x, B*Fin) with its halo
+    ring and the weight planes (:func:`tile_work`), of the fold operand
+    (x, or dy) and of dx, ``es`` bytes an element, the float32 kernel and
+    dW, and K2's float32 mask plane and its products where it is given a
+    ``mask``; the recursion's operations and the contractions' (K2: dx
+    and dW; K3: dW)."""
+    M = 12 * st.nside ** 2
+    cells = 2 * K * Fin * Fout * B * M
+    if dx:
+        tb, tf = tile_work(st, K, B * Fout, es)
+        masked = (M * 4, B * Fin * M) if mask else (0, 0)
+        return bound(es * M * B * Fout + tb + 4 * K * Fin * Fout
+                     + es * M * B * Fin + masked[0] + es * M * B * Fin
+                     + 4 * K * Fin * Fout, tf + 2 * cells + masked[1])
+    tb, tf = tile_work(st, K, B * Fin, es)
+    return bound(es * M * B * Fin + tb + es * M * B * Fout
+                 + 4 * K * Fin * Fout, tf + cells)
+
+
 def autoencoder_layers(hp_nn, nside, bottleneck):
     """``examples/autoencoder.py``'s encoder and decoder layers (its
     published widths: Chebyshev K=5 convs of 8 * 2^i channels, pseudo-convs
@@ -605,6 +631,15 @@ KERNEL_SHAPES = [(64, 1, 8, 16, 10), (32, 8, 16, 16, 10), (16, 16, 32, 16, 10),
 S2_SHAPES = [(256, 12, 3, 5, 4, 4, 4), (256, 16, 4, 5, 4, 4, 4),
              (256, 8, 2, 5, 4, 4, 4), (256, 13, 1, 14, 4, 4, 4),
              (64, 13, 1, 14, 4, 4, 4)]
+# (shape as S2_SHAPES', roles) where K2's and K3's bfloat16 launches take
+# their 2-byte kernel (the float32 bytes do not fit the 2-byte plan, or
+# cost a block an SM): every shape of S2_SHAPES in both roles, K2 at
+# quick_start's conv 1 (nside 64, 1 -> 8, batch 16, K=10, h=9), and
+# radius 3 and 4 at batch 1 (one window set a lap)
+S2_BWD_SHAPES = [(shape, ("K2", "K3")) for shape in S2_SHAPES] + [
+    ((64, 9, 1, 10, 16, 1, 8), ("K2",)),
+    ((256, 12, 3, 5, 1, 4, 4), ("K2", "K3")),
+    ((256, 16, 4, 5, 1, 4, 4), ("K2", "K3"))]
 
 
 def r3_conv_times(fs, config, dev, rng, cache):
@@ -661,10 +696,10 @@ def r3_conv_times(fs, config, dev, rng, cache):
 
 
 def s2_times(fs, dev, rng):
-    """K1 at :data:`S2_SHAPES` on random arrays (no graph): in each
-    bfloat16 mode its 2-byte body's device time (graph replay) and a digest
-    of its output's bits, the float32 K1 where it has a plan, and the
-    bound of each."""
+    """K1 at :data:`S2_SHAPES`, K2 and K3 at :data:`S2_BWD_SHAPES`, on
+    random arrays (no graph): in each bfloat16 mode the 2-byte kernel's
+    device time (graph replay) and a digest of its outputs' bits (K2: dx
+    and dW), the float32 K1 where it has a plan, and the bound of each."""
     from types import SimpleNamespace
 
     from deepsphere_tpu_torch.graph.stencil import stencil_offsets
@@ -710,6 +745,61 @@ def s2_times(fs, dev, rng):
     return recs
 
 
+def s2_bwd_times(fs, dev, rng):
+    """K2 and K3 at :data:`S2_BWD_SHAPES` on random arrays (no graph, no
+    mask), each in its role and in each bfloat16 mode: the 2-byte kernel's
+    device time (graph replay), a digest of its outputs' bits and the
+    bound."""
+    from types import SimpleNamespace
+
+    from deepsphere_tpu_torch.graph.stencil import stencil_offsets
+    from deepsphere_tpu_torch.ops.strips import strip_arrays
+
+    recs = []
+    for (n, h, r, K, B, Fin, Fout), roles in S2_BWD_SHAPES:
+        st = SimpleNamespace(nside=n, n_steps=h, radius=r,
+                             offsets=stencil_offsets(r))
+        npl = (2 * r + 1) ** 2
+        P = fs.cfp_geometry(n, h)[1]
+        g = lambda *shape: torch.from_numpy(
+            rng.normal(size=shape).astype(np.float32)).to(dev)
+        x, dy = g(B * Fin, 12, n, P), g(B * Fout, 12, n, P)
+        w32 = g(npl, 12, n + 2 * fs.strip_rows(h, torch.float32), P)
+        w16 = fs.reextend_weights(w32, n, fs.strip_rows(h, torch.float32),
+                                  fs.strip_rows(h, torch.bfloat16))
+        wk3t = g(K, Fout, Fin)
+        for role in roles:
+            dx = role == "K2"
+            rec = {"shape": f"n={n} h={h} r={r} K={K} B={B} Fin={Fin} "
+                            f"Fout={Fout}", "role": role,
+                   "bound_ms": {"f32": bwd_bound(st, K, B, Fin, Fout, dx),
+                                "io": bwd_bound(st, K, B, Fin, Fout, dx, 2)}}
+            for sfx, (xb, dyb, wb) in (
+                    ("_bf16", (x, dy, w32)),
+                    ("_bf16_io", (x.to(torch.bfloat16), dy.to(torch.bfloat16),
+                                  w16.to(torch.bfloat16)))):
+                if dx:
+                    fn, a = fs.run_dxdw_kernel, (
+                        st, "cheby", K, dyb, wb, strip_arrays(st, dyb), wk3t,
+                        xb, None, B, "bfloat16")
+                else:
+                    fn, a = fs.run_grad_kernel, (
+                        st, "cheby", K, xb, wb, strip_arrays(st, xb), dyb, B,
+                        "bfloat16")
+                got = fn(*a)
+                got = got if isinstance(got, tuple) else (got,)
+                rec["digest" + sfx] = hashlib.sha256(b"".join(
+                    o.view(torch.int16).cpu().numpy().tobytes()
+                    for o in got)).hexdigest()[:16]
+                rec["ms" + sfx] = graph_ms(lambda: fn(*a))
+                del got, a
+            recs.append(rec)
+            print(json.dumps(rec), file=sys.stderr, flush=True)
+        del x, dy, w32, w16
+        torch.cuda.empty_cache()
+    return recs
+
+
 def band_map(C, F, n, h, P, dev):
     """Flat index into xc (C, F, n, P) of every element of K5's packed bands
     (F, C, 4hn), face col y at lane y + h (the yardstick's map)."""
@@ -732,7 +822,8 @@ def kernel_times(root, s2_only=False):
     quick_start train step
     on both routes (:func:`route_steps`), with the package imported from the
     checkout ``ROOT`` (this one or another commit's); with ``s2_only``
-    (``--s2``) only K1 at :data:`S2_SHAPES` and the radius-3 conv.  Prints
+    (``--s2``) only the 2-byte kernels at :data:`S2_SHAPES` and
+    :data:`S2_BWD_SHAPES` and the radius-3 conv.  Prints
     one JSON line."""
     import inspect
 
@@ -834,6 +925,7 @@ def kernel_times(root, s2_only=False):
         del x16, dy16, w16
         torch.cuda.empty_cache()
     out["s2_shapes"] = s2_times(fs, dev, rng)
+    out["s2_bwd_shapes"] = s2_bwd_times(fs, dev, rng)
     out["r3_conv"] = r3_conv_times(fs, config, dev, rng, cache)
     print(json.dumps(out["r3_conv"]), file=sys.stderr, flush=True)
     if not s2_only:
@@ -962,7 +1054,7 @@ def compare(parent, out_path=None, s2_only=False):
     checkout PARENT and of this one in turns (parent, this, this, parent),
     each in its own process, and whether each bfloat16 kernel's outputs
     (K1's y, K2's dx and dW, K3's dW) are bit for bit the same in all four
-    runs; with ``--s2`` only K1 at :data:`S2_SHAPES` and the radius-3 conv.
+    runs; with ``--s2`` only the 2-byte kernels and the radius-3 conv.
     Prints the pairs and writes them to ``out_path`` if given."""
     here = os.path.dirname(os.path.abspath(__file__))
     runs = []
@@ -1006,6 +1098,19 @@ def compare(parent, out_path=None, s2_only=False):
                 {rec["k1" + sfx + "_digest"] for rec in recs}) == 1
         s2.append(row)
         say("compare", json.dumps(row))
+    for j, _ in enumerate(runs[0]["s2_bwd_shapes"]):
+        recs = [run["s2_bwd_shapes"][j] for run in runs]
+        row = {"shape": recs[0]["shape"], "role": recs[0]["role"],
+               "bound_ms": recs[0]["bound_ms"]}
+        for sfx in ("_bf16", "_bf16_io"):
+            row["ms" + sfx] = {"parent": [recs[0]["ms" + sfx],
+                                          recs[3]["ms" + sfx]],
+                               "change": [recs[1]["ms" + sfx],
+                                          recs[2]["ms" + sfx]]}
+            row["bit_equal" + sfx] = len(
+                {rec["digest" + sfx] for rec in recs}) == 1
+        s2.append(row)
+        say("compare", json.dumps(row))
     conv = {mode: {k: {"parent": [runs[0]["r3_conv"][mode][k],
                                   runs[3]["r3_conv"][mode][k]],
                        "change": [runs[1]["r3_conv"][mode][k],
@@ -1038,7 +1143,10 @@ AB_BITS = [  # (n, h, r, K, B, Fin, Fout): odd and even h, radius 1-4
     (16, 9, 1, 10, 2, 3, 9), (32, 4, 1, 5, 2, 4, 4), (64, 9, 1, 10, 1, 1, 8),
     (32, 9, 1, 10, 16, 8, 16), (16, 7, 1, 8, 2, 4, 4), (32, 8, 2, 5, 1, 2, 3),
     (32, 6, 2, 4, 2, 2, 2), (16, 3, 3, 2, 2, 2, 3), (16, 4, 4, 2, 1, 2, 2),
-    (32, 12, 3, 5, 2, 2, 3)]
+    (32, 12, 3, 5, 2, 2, 3),
+    # the 2-byte kernels' window sets with partial ones: at radius 3 blocks
+    # of 10 and 1 batch indices (4 a lap, 4, 2; 1), at radius 4 of 3 (2, 1)
+    (64, 12, 3, 5, 11, 2, 3), (64, 16, 4, 5, 3, 2, 2)]
 
 # what ``--ab KERNEL`` builds: the kernels' sources, the header an
 # EDITS.json edits, the C entry points' sources, the roles (K1; K2 and K3,
@@ -1063,7 +1171,11 @@ def ab(kernel, edit_files, parent=None, s2_only=False):
     variant recompiles the bfloat16 sources and the C entries, so its edits
     may change either staging.  ``--parent DIR`` adds the same kernels'
     sources of the checkout DIR (another commit) as they are, variant
-    ``parent``; ``--s2`` times only at :data:`S2_SHAPES`."""
+    ``parent`` (and, for ``bwd``, its 2-byte kernels forced as ``s2`` is,
+    ``parent_s2``); with no EDITS.json, ``bwd``'s variants come from the
+    libraries the two checkouts build themselves (as ``--sass`` builds
+    them).  ``--s2`` times only at :data:`S2_SHAPES` (``k1``) or
+    :data:`S2_BWD_SHAPES` (``bwd``)."""
     import ctypes
     import glob
     import shutil
@@ -1113,9 +1225,11 @@ def ab(kernel, edit_files, parent=None, s2_only=False):
         trees["parent"] = (d, psrcs)
     if force:
         trees["s2"] = (tree("s2", force[0], [force[1:]]), list(entries))
-    # an edit inside K1's 2-byte body changes only its sources
+    # an edit inside the header's 2-byte kernel (K1's body, or K2's and
+    # K3's kernel, from its first line below) changes only its sources
     hdr = open(os.path.join(csrc, header)).read()
-    s2_at = hdr.find("// The 2-byte body of the bfloat16 K1")
+    s2_at = max(hdr.find("// The 2-byte body of the bfloat16 K1"),
+                hdr.find("// The 2-byte bfloat16 kernel: its arguments"))
     for path in edit_files:
         name = os.path.splitext(os.path.basename(path))[0]
         edits = json.load(open(path))
@@ -1125,11 +1239,15 @@ def ab(kernel, edit_files, parent=None, s2_only=False):
         trees[name] = (tree(name, header, edits), sorted(set(own) | set(entries)))
     try:
         t = time.perf_counter()
-        procs = [(name, d, f, subprocess.Popen(
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        # no variant to compile (bwd, no EDITS.json): the libraries the
+        # checkouts build themselves, the parent's shared with --sass
+        own = not edit_files and not force
+        procs = [] if own else [(name, d, f, subprocess.Popen(
             [nvcc, *_cuda._FLAGS, "-I", d, "-c", "-o",
              os.path.join(d, f + ".o"), os.path.join(d, f)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-            for name, (d, own) in trees.items() for f in own]
+            for name, (d, fs_) in trees.items() for f in fs_]
         ptxas = []
         for name, d, f, proc in procs:
             out = proc.communicate(timeout=900)[0]
@@ -1137,13 +1255,17 @@ def ab(kernel, edit_files, parent=None, s2_only=False):
                 raise SystemExit(f"--ab {name}: nvcc {f} failed:\n{out}")
             ptxas.append(f"== {name} {f}\n{out}")
         libs = {}
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        for name, (d, own) in trees.items():
-            so = os.path.join(d, f"{kernel}.so")
-            objs = [os.path.join(d if f in own else trees["this"][0], f + ".o")
-                    for f in (psrcs if name == "parent" else srcs)]
-            subprocess.run([nvcc, *_cuda._FLAGS, "-shared", "-o", so, *objs],
-                           check=True, capture_output=True, timeout=600)
+        for name, (d, fs_) in trees.items():
+            if own:
+                so = _library(parent if name == "parent" else here)
+            else:
+                so = os.path.join(d, f"{kernel}.so")
+                objs = [os.path.join(d if f in fs_ else trees["this"][0],
+                                     f + ".o")
+                        for f in (psrcs if name == "parent" else srcs)]
+                subprocess.run([nvcc, *_cuda._FLAGS, "-shared", "-o", so,
+                                *objs], check=True, capture_output=True,
+                               timeout=600)
             lib = ctypes.CDLL(so)
             for fn, nptr in (("ds_stencil_conv", 7), ("ds_stencil_dxdw", 11),
                              ("ds_stencil_grad", 8)):
@@ -1158,6 +1280,8 @@ def ab(kernel, edit_files, parent=None, s2_only=False):
         variants = {k: (lib, None) for k, lib in libs.items()}
         if not force:
             variants = {"s2": (libs["this"], True), **variants}
+            if "parent" in libs:
+                variants["parent_s2"] = (libs["parent"], True)
         rng = np.random.RandomState(5)
 
         def case(n, h, r, K, B, Fin, Fout, io, role):
@@ -1270,22 +1394,26 @@ def ab(kernel, edit_files, parent=None, s2_only=False):
         say("ab", "bit for bit against the 2-byte kernels: " + "; ".join(
             f"{b['shape']} {b['role']} {'I/O' if b['io'] else 'band'} staged "
             f"{b['staged']} {b['equal']}" for b in out["bits"]))
-        # the phase-3 shapes, and for K1 the shapes of its 2-byte body
-        shapes = [(n, K - 1, 1, K, B, Fin, Fout)
+        # the phase-3 shapes, and the shapes of the 2-byte kernels
+        shapes = [((n, K - 1, 1, K, B, Fin, Fout), roles)
                   for n, Fin, Fout, B, K in ([] if s2_only else KERNEL_SHAPES)]
-        if kernel == "k1":
-            shapes += S2_SHAPES
-        for shape in shapes:
+        shapes += ([(shape, roles) for shape in S2_SHAPES] if kernel == "k1"
+                   else S2_BWD_SHAPES)
+        for shape, shape_roles in shapes:
             n, h, r, K, B, Fin, Fout = shape
-            for role in roles:
+            npl = (2 * r + 1) ** 2
+            for role in shape_roles:
                 row = {"shape": f"nside={n} h={h} r={r} B={B} Fin={Fin} "
                                 f"Fout={Fout} K={K}", "role": role}
                 c32 = case(*shape, False, role)
                 # the float32 kernel where it has a plan
-                row["f32"] = (None if fs._k1_plan(
-                    n, h, r, (2 * r + 1) ** 2, K, B, 12, Fin, Fout, sms)
-                    is None and role == "K1" else
-                    graph_ms(launcher(libs["this"], c32, 0, role)[0]))
+                plan32 = (fs._k1_plan(n, h, r, npl, K, B, 12, Fin, Fout, sms)
+                          if role == "K1" else fs._bwd_plan(
+                              n, h, r, npl, K, B, 12,
+                              *((Fout, Fin) if role == "K2" else (Fin, Fout)),
+                              role == "K2", sms))
+                row["f32"] = (None if plan32 is None else
+                              graph_ms(launcher(libs["this"], c32, 0, role)[0]))
                 for io in (False, True):
                     c = case(*shape, True, role) if io else c32
                     fns = {k: launcher(lib, c, 2 if io else 1, role, two)[0]
@@ -1314,26 +1442,52 @@ def ab(kernel, edit_files, parent=None, s2_only=False):
         shutil.rmtree(work, ignore_errors=True)
 
 
-def _sass_bodies(lib):
-    """{function: its instructions} of the kernel library ``lib``
-    (``cuobjdump -sass``; addresses and encodings stripped)."""
-    import re
-
+def _sass_bodies(libs):
+    """[{function: a digest of its instructions}] of each kernel library in
+    ``libs`` (``cuobjdump -sass``, the libraries disassembled at once and
+    read line by line; addresses and encodings stripped)."""
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                              "bin", "cuobjdump")
-    out = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
-                         text=True, check=True, timeout=600).stdout
-    funcs, name = {}, None
-    for ln in out.splitlines():
-        m = re.search(r"Function : (\S+)", ln)
-        if m:
-            name = m.group(1)
-            funcs[name] = []
-            continue
-        ln = re.sub(r"\s*;.*", "", re.sub(r"/\*[0-9a-f]*\*/", "", ln)).strip()
-        if name and re.match(r"^[A-Z@]", ln):
-            funcs[name].append(ln)
-    return {k: "\n".join(v) for k, v in funcs.items()}
+    procs = [subprocess.Popen([cuobjdump, "-sass", lib],
+                              stdout=subprocess.PIPE, text=True,
+                              bufsize=1 << 20) for lib in libs]
+
+    def read(proc):
+        funcs, name, h = {}, None, None
+        for ln in proc.stdout:
+            at = ln.find("Function : ")
+            if at >= 0:
+                if name:
+                    funcs[name] = h.hexdigest()
+                name, h = ln[at + 11:].strip(), hashlib.sha256()
+                continue
+            semi = ln.find(";")
+            if name is None or semi < 0:
+                continue
+            ins = ln[ln.find("*/") + 2:semi].strip()  # after the address
+            if ins and (ins[0] == "@" or "A" <= ins[0] <= "Z"):
+                h.update(ins.encode() + b"\n")
+        if name:
+            funcs[name] = h.hexdigest()
+        if proc.wait() != 0:
+            raise SystemExit(f"cuobjdump failed: {proc.args}")
+        return funcs
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(procs)) as pool:
+        return list(pool.map(read, procs))
+
+
+def _library(root):
+    """The kernel library of the checkout ``root``, built (once: it is
+    cached there) by a process of its own."""
+    code = ("import sys; sys.path.insert(0, {r!r}); "
+            "from deepsphere_tpu_torch.ops import _cuda; "
+            "print(_cuda.build()[0])").format(r=os.path.abspath(root))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=1200, check=True)
+    return res.stdout.strip().splitlines()[-1]
 
 
 def sass_check(parent, out_path=None):
@@ -1341,18 +1495,9 @@ def sass_check(parent, out_path=None):
     checkout PARENT's library against this checkout's: how many of the
     parent's functions this library holds instruction for instruction
     (matched by their code, since template parameters change the names),
-    which do not, and how many functions this one adds.  Each library is
-    built by its own process."""
+    which do not, and how many functions this one adds."""
     here = os.path.dirname(os.path.abspath(__file__))
-    libs = []
-    for root in (parent, here):
-        code = ("import sys; sys.path.insert(0, {r!r}); "
-                "from deepsphere_tpu_torch.ops import _cuda; "
-                "print(_cuda.build()[0])").format(r=os.path.abspath(root))
-        res = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                             text=True, timeout=1200, check=True)
-        libs.append(res.stdout.strip().splitlines()[-1])
-    par, chg = (_sass_bodies(lib) for lib in libs)
+    par, chg = _sass_bodies([_library(root) for root in (parent, here)])
     bodies = set(chg.values())
     differ = sorted(k for k, v in par.items() if v not in bodies)
     summary = {"parent": os.path.abspath(parent), "parent_functions": len(par),
@@ -3032,8 +3177,6 @@ def bf16_phase(dev, card, rng, qs_st, st1024, results, serve_ms):
         wk3 = kernel.reshape(Fin, K, Fout).permute(1, 0, 2).contiguous()
         wk3t = kernel.reshape(Fin, K, Fout).permute(1, 2, 0).contiguous()
         inner = slice(h, h + n)
-        M = 12 * n * n
-        cells = 2 * K * Fin * Fout * B * M
         line = []
         for io in (False, True):
             es = 2 if io else 4
@@ -3108,10 +3251,7 @@ def bf16_phase(dev, card, rng, qs_st, st1024, results, serve_ms):
             d2w = bf16_apart(f"{label} {k2} dW", dw_k, dw_f, BF_DW_MOVED)
             ms2 = graph_ms(lambda: fs.run_dxdw_kernel(*a2))
             ms2p = cuda_ms(lambda: fs.run_dxdw_plain(*a2), iters=3, warmup=1)
-            tb, tf = tile_work(st, K, B * Fout, es)
-            b2 = bound(es * M * B * Fout + tb + wk3t.numel() * 4
-                       + es * M * B * Fin + M * 4 + es * M * B * Fin
-                       + dw_k.numel() * 4, tf + 2 * cells + B * Fin * M)
+            b2 = bwd_bound(st, K, B, Fin, Fout, True, es, mask is not None)
             results[k2].append((label, max(abs2x, abs2w), ms2, ms2p, *b2,
                                 None))
             # K3
@@ -3127,9 +3267,7 @@ def bf16_phase(dev, card, rng, qs_st, st1024, results, serve_ms):
             del xf, dyf, wf, sxf, sdyf, y_f, dx_f, dw_f, g_f
             ms3 = graph_ms(lambda: fs.run_grad_kernel(*a3))
             ms3p = cuda_ms(lambda: fs.run_grad_plain(*a3), iters=3, warmup=1)
-            tb, tf = tile_work(st, K, B * Fin, es)
-            b3 = bound(es * M * B * Fin + tb + es * M * B * Fout
-                       + g_k.numel() * 4, tf + cells)
+            b3 = bwd_bound(st, K, B, Fin, Fout, False, es)
             results[k3].append((label, abs3, ms3, ms3p, *b3, None))
             line.append(
                 f"{'I/O' if io else 'band'}: {k1} rel {e1:.2e} {ms1:.4f} ms "
@@ -4339,7 +4477,8 @@ def main():
                         ("dxdw", "pallas_stencil.py:688"),
                         ("grad", "pallas_stencil.py:614")):
         for sfx in ("_bf16", "_bf16_io", "_bf16_s2", "_bf16_io_s2"):
-            src = kname + sfx.replace("_io_s2", "_s2")
+            src = ("" if kname == "stencil_conv" else "stencil_") + kname \
+                + sfx.replace("_io_s2", "_s2")
             kernels.append(entry(kname + sfx, "cuda",
                                  f"deepsphere_tpu_torch/csrc/{src}.cu",
                                  f"deepsphere_tpu/ops/{line}"))

@@ -46,9 +46,10 @@
 //   lanes at a time after the last fold, in the band mode where the zone
 //   fits, else by 16-byte register loads after the last lap; by 8-byte
 //   cp.async after the last lap in the I/O mode.
-// K2's and K3's kBf16 stagings (stencil_bwd.cuh) keep the first version's
-// device functions: stage_weights_bf, stage_window_bf, stage_slice_bf and
-// lap<..., bf16>.  The float32 kernels' code is unchanged (if constexpr).
+// K2's and K3's 2-byte kernel (stencil_bwd_s2_kernel, stencil_bwd.cuh) is
+// built on the 2-byte body's device functions: its weight staging, window
+// stagings and lap_sets.  The float32 kernels' code is unchanged (if
+// constexpr).
 
 #pragma once
 
@@ -68,16 +69,6 @@ constexpr int NT = 256;  // threads per block
 constexpr int kRun = 4;  // lap points per thread: a vertical run
 
 using bf16 = __nv_bfloat16;
-
-// the element the kernels stage in shared memory: float, or bfloat16 (BF)
-template <bool BF>
-struct Staged {
-  using type = float;
-};
-template <>
-struct Staged<true> {
-  using type = bf16;
-};
 
 // a staged element as float32, and a float32 as a staged element (rounded
 // to nearest even for bfloat16)
@@ -100,9 +91,6 @@ __device__ __forceinline__ float rnd(float v) {
 __device__ __forceinline__ float2 rnd2(float a, float b) {
   return __bfloat1622float2(__floats2bfloat162_rn(a, b));
 }
-// a source element (float32 or bfloat16) as bfloat16
-__device__ __forceinline__ bf16 to_bf16(float v) { return __float2bfloat16_rn(v); }
-__device__ __forceinline__ bf16 to_bf16(bf16 v) { return v; }
 // loads a thread keeps in flight when it stages through registers
 constexpr int kLoads = 8;
 
@@ -166,16 +154,15 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // One lap over [lo, W0 - lo)^2: dst = L~ src (or 2 L~ src - dst, Chebyshev
-// in place over T_{k-2}: TWICE) for G channels, buffers BW elements apart,
-// rows WS elements apart; elements E (float, or bfloat16: the sums in
-// float32, each term stored rounded; RND: float32 elements holding
-// bfloat16 values, each term stored rounded to bfloat16).
+// in place over T_{k-2}: TWICE) for G channels, buffers BW floats apart,
+// rows WS floats apart (RND: the floats hold bfloat16 values, each term
+// stored rounded to bfloat16; the 2-byte bodies' lap is lap_sets).
 // Nothing in the unrolled body depends on a runtime value, so its loads can
 // be issued ahead of the FMAs.
-template <int R, int G, bool TWICE, class E = float, bool RND = false>
-__device__ __forceinline__ void lap(const E* __restrict__ src,
-                                    E* __restrict__ dst,
-                                    const E* __restrict__ s_w, int W0,
+template <int R, int G, bool TWICE, bool RND = false>
+__device__ __forceinline__ void lap(const float* __restrict__ src,
+                                    float* __restrict__ dst,
+                                    const float* __restrict__ s_w, int W0,
                                     int WS, int Ww, int BW, int k) {
   constexpr int NP = (2 * R + 1) * (2 * R + 1);
   const int lo = R * k;
@@ -199,8 +186,8 @@ __device__ __forceinline__ void lap(const E* __restrict__ src,
       for (int o = 0; o < kRun; ++o) s[g][o] = 0.f;
     // weights of point (i0, j): window position (i0, j) is weight-window
     // position (i0 - R, j - R)
-    const E* wb = s_w + ((i0 - R) * Ww + (j - R)) * NP;
-    const E* xb = src + (i0 - R) * WS + (j - R);
+    const float* wb = s_w + ((i0 - R) * Ww + (j - R)) * NP;
+    const float* xb = src + (i0 - R) * WS + (j - R);
 #pragma unroll
     for (int a = 0; a < kRun + 2 * R; ++a) {  // input row i0 - R + a
 #pragma unroll
@@ -208,12 +195,12 @@ __device__ __forceinline__ void lap(const E* __restrict__ src,
         float v[G];
 #pragma unroll
         for (int g = 0; g < G; ++g)
-          v[g] = ld(xb[g * BW + a * WS + c]);
+          v[g] = xb[g * BW + a * WS + c];
 #pragma unroll
         for (int o = 0; o < kRun; ++o) {
           const int dx = a - R - o;
           if (dx >= -R && dx <= R) {
-            const float w = ld(wb[o * wrow + plane_of<R>(dx, c - R)]);
+            const float w = wb[o * wrow + plane_of<R>(dx, c - R)];
 #pragma unroll
             for (int g = 0; g < G; ++g) s[g][o] = fmaf(w, v[g], s[g][o]);
           }
@@ -230,7 +217,7 @@ __device__ __forceinline__ void lap(const E* __restrict__ src,
 #pragma unroll
         for (int o = 0; o < kRun; ++o)
           t[g][o] = TWICE ? fmaf(2.f, s[g][o],
-                                 -ld(dst[g * BW + (i0 + o) * WS + j]))
+                                 -dst[g * BW + (i0 + o) * WS + j])
                           : s[g][o];
 #pragma unroll
       for (int g = 0; g < G; ++g)
@@ -253,8 +240,8 @@ __device__ __forceinline__ void lap(const E* __restrict__ src,
         if (i < hi) {
 #pragma unroll
           for (int g = 0; g < G; ++g) {
-            E* d = dst + g * BW + i * WS + j;
-            *d = to<E>(TWICE ? fmaf(2.f, s[g][o], -ld(*d)) : s[g][o]);
+            float* d = dst + g * BW + i * WS + j;
+            *d = TWICE ? fmaf(2.f, s[g][o], -*d) : s[g][o];
           }
         }
       }
@@ -410,93 +397,6 @@ __device__ __forceinline__ void stage_slice(float* dst,
     cp_async4_zfill(dst + e,
                     wk + (ok ? ((long long)k * Cin + ci0 + g) * Cout + co : 0),
                     ok);
-  }
-}
-
-// The bfloat16 kernels' staging, through registers: each thread keeps
-// kLoads loads in flight before it stores their values (rounded to
-// bfloat16 from float32 sources, copied from bfloat16 ones).
-
-// the weight window, laid out as stage_weights lays it
-template <int R, class S>
-__device__ __forceinline__ void stage_weights_bf(bf16* s_w,
-                                                 const S* __restrict__ wext,
-                                                 int F, int f, int n, int Rs,
-                                                 int P, int h, int x0, int y0,
-                                                 int Ww) {
-  constexpr int NP = (2 * R + 1) * (2 * R + 1);
-  const long long nr = n + 2 * Rs;
-  const int tot = NP * Ww * Ww;
-  for (int e0 = threadIdx.x; e0 < tot; e0 += kLoads * NT) {
-    S v[kLoads];
-    int o[kLoads];
-#pragma unroll
-    for (int u = 0; u < kLoads; ++u) {
-      const int e = e0 + u * NT;
-      o[u] = -1;
-      if (e < tot) {
-        const int row = e / Ww;  // plane d, window row i
-        const int j = e - row * Ww;
-        const int d = row / Ww;
-        const int i = row - d * Ww;
-        const int x = x0 - h + R + i;
-        const int wr = x < 0 ? n + Rs + x : (x >= n ? Rs + x : x);
-        v[u] = wext[((long long)(d * F + f) * nr + wr) * P + y0 + R + j];
-        o[u] = (i * Ww + j) * NP + d;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kLoads; ++u)
-      if (o[u] >= 0) s_w[o[u]] = to_bf16(v[u]);
-  }
-}
-
-// the halo windows of the G channels cf0 + g * F into dst + g * BW, laid
-// out as stage_window lays them (W0 columns a row)
-template <int G, class S>
-__device__ __forceinline__ void stage_window_bf(bf16* dst,
-                                                const HaloT<S>& s,
-                                                long long cf0, int F, int x0,
-                                                int y0, int W0, int WS,
-                                                int BW) {
-  const int per = W0 * W0;
-  const int tot = G * per;
-  for (int e0 = threadIdx.x; e0 < tot; e0 += kLoads * NT) {
-    S v[kLoads];
-    int o[kLoads];
-#pragma unroll
-    for (int u = 0; u < kLoads; ++u) {
-      const int e = e0 + u * NT;
-      o[u] = -1;
-      if (e < tot) {
-        const int g = e / per;
-        const int r = e - g * per;
-        const int i = r / W0;
-        const int j = r - i * W0;
-        v[u] = *window_src(s, cf0 + (long long)g * F, x0 - s.h + i, y0 + j);
-        o[u] = g * BW + i * WS + j;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kLoads; ++u)
-      if (o[u] >= 0) dst[o[u]] = to_bf16(v[u]);
-  }
-}
-
-// stage_slice's channel-kernel slice, each weight rounded to bfloat16
-// (kept in float32)
-template <int G, int FC>
-__device__ __forceinline__ void stage_slice_bf(float* dst,
-                                               const float* __restrict__ wk,
-                                               int K, int Cin, int Cout,
-                                               int ci0, int co0) {
-  for (int e = threadIdx.x; e < K * G * FC; e += NT) {
-    const int k = e / (G * FC);
-    const int rem = e - k * G * FC;
-    const int g = rem / FC;
-    const int co = co0 + rem - g * FC;
-    dst[e] = co < Cout ? rnd(wk[((long long)k * Cin + ci0 + g) * Cout + co])
-                       : 0.f;
   }
 }
 
@@ -784,8 +684,6 @@ constexpr int min_blocks() {
 enum Staging {
   kF32 = 0,     // float32 (the float32 kernel)
   kBf32 = 1,    // bfloat16 values in float32, from float32 arrays (band)
-  kBf16 = 2,    // bfloat16, both bfloat16 modes (K2 and K3 where only 2
-                // bytes fit; K1's is stencil_conv_s2_kernel)
   kBf32Io = 3,  // bfloat16 values in float32, from bfloat16 arrays (I/O)
 };
 
@@ -904,9 +802,9 @@ stencil_conv_kernel(const ConvArgs a) {
       E* src = (k & 1) ? P0 : P1;
       E* dst = (k & 1) ? P1 : P0;
       if (a.cheby && k >= 2)
-        lap<R, G, true, E, F32S>(src, dst, s_w, W0, WS, Ww, BW, k);
+        lap<R, G, true, F32S>(src, dst, s_w, W0, WS, Ww, BW, k);
       else
-        lap<R, G, false, E, F32S>(src, dst, s_w, W0, WS, Ww, BW, k);
+        lap<R, G, false, F32S>(src, dst, s_w, W0, WS, Ww, BW, k);
       __syncthreads();
       if (k == K - 1 && more) stage_step(s + 1, next);
       fold<G, PP, FC>(acc, dst, wk + k * G * FC, BW, WS, h, lgT);
@@ -975,7 +873,7 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
 }
 
 // two float32 as one word of two bfloat16, each rounded to nearest even
-// (the rounding of to_bf16), the first in the low half
+// (the rounding of to<bf16>), the first in the low half
 __device__ __forceinline__ unsigned bf16x2_bits(float lo, float hi) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&p);
@@ -1055,13 +953,14 @@ __device__ __forceinline__ void stage_weights_s2(bf16* s_w,
   }
 }
 
-// One round of the band mode's window staging: kLoads 4-lane groups a
-// thread (16 bytes of float32 each) in registers, and where each goes in
-// the buffers (-1: none).  Loaded by stage_band_load, rounded and stored
-// by stage_band_store.
+// One round of the band mode's window staging: NL 4-lane groups a thread
+// (16 bytes of float32 each) in registers, and where each goes in the
+// buffers (-1: none).  Loaded by stage_band_load, rounded and stored by
+// stage_band_store.
+template <int NL = kLoads>
 struct BandRound {
-  uint4 v[kLoads];
-  int o[kLoads];
+  uint4 v[NL];
+  int o[NL];
 };
 
 // lanes y to y + 3 of a face row come from one array (the west lane strip,
@@ -1072,20 +971,20 @@ __device__ __forceinline__ bool one_source4(const HaloT<S>& s, int y) {
       && (y >= s.h + s.n) == (y + 3 >= s.h + s.n);
 }
 
-// The 4-lane groups [e0, e0 + kLoads * NT) of a pass's halo windows, group
+// The 4-lane groups [e0, e0 + NL * NT) of a pass's halo windows, group
 // e = ((set * G + g) * W0 + i) * (WS / 4) + jg: lanes 4 jg to 4 jg + 3 of
 // window row i of channel g of window set `set` (channel cfb + (set * Fin
 // + g) * F of the arrays), into the set's buffer at set * SS + g * BW + i *
 // WS + 4 jg.  Lanes past W0 are not read (zeros).
-template <int G>
-__device__ __forceinline__ void stage_band_load(BandRound& r, const Halo& s,
-                                                int e0, int tot, int c4,
-                                                int W0, int WS, int BW,
-                                                int SS, long long cfb,
-                                                int Fin, int F, int x0,
-                                                int y0, bool vec) {
+template <int G, int NL>
+__device__ __forceinline__ void stage_band_load(BandRound<NL>& r,
+                                                const Halo& s, int e0,
+                                                int tot, int c4, int W0,
+                                                int WS, int BW, int SS,
+                                                long long cfb, int Fin, int F,
+                                                int x0, int y0, bool vec) {
 #pragma unroll
-  for (int u = 0; u < kLoads; ++u) {
+  for (int u = 0; u < NL; ++u) {
     const int e = e0 + u * NT;
     r.o[u] = -1;
     if (e < tot) {
@@ -1112,12 +1011,13 @@ __device__ __forceinline__ void stage_band_load(BandRound& r, const Halo& s,
   }
 }
 
-// the groups of a round rounded to bfloat16 (as to_bf16 rounds) and
+// the groups of a round rounded to bfloat16 (as to<bf16> rounds) and
 // stored, 8 bytes a group, into the buffers at dst
-__device__ __forceinline__ void stage_band_store(const BandRound& r,
+template <int NL>
+__device__ __forceinline__ void stage_band_store(const BandRound<NL>& r,
                                                  bf16* dst) {
 #pragma unroll
-  for (int u = 0; u < kLoads; ++u)
+  for (int u = 0; u < NL; ++u)
     if (r.o[u] >= 0)
       *reinterpret_cast<uint2*>(dst + r.o[u]) = make_uint2(
           bf16x2_bits(__uint_as_float(r.v[u].x), __uint_as_float(r.v[u].y)),
@@ -1126,8 +1026,13 @@ __device__ __forceinline__ void stage_band_store(const BandRound& r,
 
 // The I/O mode's windows of a pass (the groups of stage_band_load, all of
 // them): 8-byte cp.async copies where the four lanes share a source and the
-// arrays are 16-byte aligned (vec), else loaded lane by lane and stored.
-template <int G>
+// arrays are 16-byte aligned (vec), else loaded lane by lane and stored;
+// with WORDS the other groups' lane pairs as 4-byte cp.async copies where
+// both lanes share a source (vec), else (a pair that straddles two arrays
+// at odd h) both lanes loaded before the pair is stored, so that no load
+// waits on another (K2's and K3's 2-byte kernel; W0 is even, so no pair
+// lies across W0).
+template <int G, bool WORDS = false>
 __device__ __forceinline__ void stage_io_copy(bf16* dst,
                                               const HaloT<bf16>& s, int tot,
                                               int c4, int W0, int WS, int BW,
@@ -1147,6 +1052,19 @@ __device__ __forceinline__ void stage_io_copy(bf16* dst,
     bf16* d = dst + set * SS + g * BW + i * WS + j;
     if (vec && j + 4 <= W0 && (x < 0 || x >= s.n || one_source4(s, y))) {
       cp_async8(d, window_src(s, cf, x, y));
+    } else if constexpr (WORDS) {
+      for (int t = 0; t < 4 && j + t < W0; t += 2) {
+        if (vec && (x < 0 || x >= s.n || one_source(s, y + t, y + t + 1))) {
+          cp_async4(reinterpret_cast<float*>(d + t),
+                    reinterpret_cast<const float*>(
+                        window_src(s, cf, x, y + t)));
+        } else {
+          const bf16 lo = *window_src(s, cf, x, y + t);
+          const bf16 hi = *window_src(s, cf, x, y + t + 1);
+          *reinterpret_cast<__nv_bfloat162*>(d + t) =
+              __halves2bfloat162(lo, hi);
+        }
+      }
     } else {
       for (int t = 0; t < 4 && j + t < W0; ++t) d[t] = *window_src(s, cf, x, y + t);
     }
@@ -1204,17 +1122,18 @@ __device__ __forceinline__ void land_zone(const float* zone, bf16* dst,
   }
 }
 
-// One lap of lap<R, G, TWICE, bf16> (TWICE a runtime flag, twice: one body
-// to compile) over the first nl of NS window sets (set u's buffers u * SS
-// elements past src and dst): each weight read from shared memory feeds
-// the G channels of every set.  With fewer than NS sets
+// One lap of lap's on bfloat16 elements (the sums in float32, each term
+// stored rounded; TWICE a runtime flag, twice: one body to compile) over
+// the first nl of NS window sets (set u's buffers u * SS elements past src
+// and dst): each weight read from shared memory feeds the G channels of
+// every set.  With fewer than NS sets
 // the first set's window runs in place of the others and only the nl sets
 // are stored, so the unrolled body holds no per-set branch (guarding each
 // set's loads and sums instead cost 1.7x at 15(d)'s radius-3 conv on an
 // H100).  Splitting the sets over idle threads in the small regions
 // measured 5% slower: the unrolled body costs NS sets whatever a thread
 // keeps.  Each output sums its taps in the order of lap's, so a set's
-// terms are lap's bit for bit.
+// terms are the first bfloat16 version's bit for bit.
 template <int R, int G, int NS>
 __device__ __forceinline__ void lap_sets(const bf16* __restrict__ src,
                                          bf16* __restrict__ dst,
@@ -1358,7 +1277,7 @@ stencil_conv_s2_kernel(const S2Args sa) {
   // pass p's windows into the buffers of parity `par` (0: even terms): the
   // I/O mode's copies all issued here; the band mode's first round loaded
   // into registers (stored by stage_end), the rest after it
-  BandRound br;
+  BandRound<> br;
   auto stage_begin = [&](int p, int par) {
     if (a.io)
       stage_io_copy<G>(bufs + par * G * BW, as_bf16(halo), groups_of(p), c4,

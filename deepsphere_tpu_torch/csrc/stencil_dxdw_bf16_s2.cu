@@ -1,13 +1,15 @@
-// bfloat16 instantiations of the fused backward dx + dW kernel (K2,
-// stencil_dxdw.cu; 2-byte shared elements, where only those fit) for
+// The 2-byte bfloat16 kernel of the fused backward dx + dW kernel (K2,
+// stencil_dxdw.cu; stencil_bwd_s2_kernel of stencil_bwd.cuh,
+// either mode), where only 2-byte shared elements fit, for
 // radius 1 lap group 4.
 
 #include "stencil_bwd.cuh"
 
 namespace ds_bwd {
 
-DS_BWD_LAUNCH(dxdw_bf16_s2_r1_g4) {
-  return launch_t<kDxDw, 1, 4, kBf16>(T, FC, a, grid, smem, stream);
+DS_BWD_S2_LAUNCH(dxdw_bf16_s2_r1_g4) {
+  return launch_s2_t<kDxDw, 1, 4>(T, FC, a, ns, land, mb, grid, smem,
+                                  stream);
 }
 
 }  // namespace ds_bwd

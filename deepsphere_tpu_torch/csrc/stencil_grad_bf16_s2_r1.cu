@@ -1,16 +1,15 @@
-// bfloat16 instantiations of the dW kernel of the two-kernel backward (K3,
-// stencil_grad.cu; 2-byte shared elements, where only those fit) for
-// radius 1 lap group 1 and radius 1 lap group 2.
+// The 2-byte bfloat16 kernel of the dW kernel of the two-kernel backward (K3,
+// stencil_grad.cu; stencil_bwd_s2_kernel of stencil_bwd.cuh,
+// either mode), where only 2-byte shared elements fit, for
+// radius 1 lap group 1.
 
 #include "stencil_bwd.cuh"
 
 namespace ds_bwd {
 
-DS_BWD_LAUNCH(grad_bf16_s2_r1_g1) {
-  return launch_t<kGrad, 1, 1, kBf16>(T, FC, a, grid, smem, stream);
-}
-DS_BWD_LAUNCH(grad_bf16_s2_r1_g2) {
-  return launch_t<kGrad, 1, 2, kBf16>(T, FC, a, grid, smem, stream);
+DS_BWD_S2_LAUNCH(grad_bf16_s2_r1_g1) {
+  return launch_s2_t<kGrad, 1, 1>(T, FC, a, ns, land, mb, grid, smem,
+                                  stream);
 }
 
 }  // namespace ds_bwd

@@ -216,8 +216,10 @@ def _bwd_bf16_staging(plan, h, r, nplanes, K, Crec, dx):
     value in: 4 (bfloat16 values in float32 shared memory, staged with
     cp.async as the float32 kernel) where the float32 kernel's shared bytes
     fit at the plan's tile, lap group and fold channels and keep the blocks
-    an SM holds at 2 bytes (:func:`_bwd_blocks`), else 2 (bfloat16 shared
-    elements, staged through registers).  K2 at quick_start's conv 1,
+    an SM holds at 2 bytes (:func:`_bwd_blocks`), else 2 (the 2-byte
+    kernel: bfloat16 shared elements, several batch indices' windows a lap
+    where they keep those blocks; its window sets and bytes are
+    ``csrc/stencil_bwd_s2.h``'s).  K2 at quick_start's conv 1,
     whose float32 bytes leave room for one block an SM where 2 bytes hold
     two, ran 17% slower staged in float32 on an H100 (PERF.md).  The same
     function bit for bit; chosen from the shape before the launch and

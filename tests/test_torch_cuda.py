@@ -371,7 +371,13 @@ _BF16 = [(16, 8, "cheby", 0.75, 10, 2, 3, 9, 12),
          # a block takes GB = 6 batch indices, 4 a lap then 2), B no
          # multiple of GB (the last block holds 2 or 1) and Fin > G
          (16, 40, "cheby", 0.75, 5, 140, 2, 3, 12),
-         (32, 60, "cheby", 0.75, 5, 7, 2, 3, 12)]
+         (32, 60, "cheby", 0.75, 5, 7, 2, 3, 12),
+         # K2's and K3's 2-byte kernel with window sets at an odd batch, so
+         # that a lap runs fewer sets than the kernel holds: radius 3, B = 5
+         # (blocks of 4 and 1 batch indices, 4 sets a lap); radius 4, B = 3
+         # (one block, 2 sets a lap, then 1)
+         (64, 40, "cheby", 0.75, 5, 5, 2, 3, 12),
+         (64, 60, "cheby", 0.75, 5, 3, 2, 2, 12)]
 _RADIUS = {8: 1, 20: 2, 40: 3, 60: 4}
 # kernel against its plain version in the same mode: both round at the same
 # points, but sum in other orders, so a bfloat16 term may differ by a step
